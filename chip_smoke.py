@@ -3,25 +3,45 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
-1. device      the card's name, count, power limit (nvidia-smi).
-2. build       nvcc builds the CUDA kernel into src/repro_torch/kernels/build/.
-3. kernels     each hand-written kernel against its plain PyTorch version on
-               the card, at the main-path shape (65,536 x 10) and at edge
-               shapes; times of kernel, plain version, library call.
-4. train_dbn   the paper-width DBN (2 x 214,748,672 hashed rows, batch
-               65,536, AdamW 3e-3) takes 16 steps through the Trainer; the
-               examination_nll kernel must be launched 16 times and a fixed
-               held-out batch's loss must fall.
-5. train_dctr  the same for DCTR, 8 steps, through the session_nll kernel.
-6. cpu_vs_gpu  small DBN and DCTR batches: CPU (plain versions) and GPU
-               (kernels) agree on loss and every gradient.
+1. device         the card's name, count, power limit (nvidia-smi).
+2. build          nvcc builds every CUDA source (examination_nll,
+                  embedding_bag, flash_attention) at once into
+                  src/repro_torch/kernels/build/, with ptxas's register
+                  and spill report.
+3. kernels        each hand-written kernel against its plain PyTorch
+                  version on the card, at its main-path shape and at edge
+                  shapes; times of kernel, plain version, library call, and
+                  the bound. The loss kernels at 65,536 x 10; embedding_bag
+                  at DeepFM's first-order bag over the real 80,000,000-row
+                  table; fm_interaction at (65,536, 39, 10);
+                  flash_attention at AutoInt's (65,536, 2, 2, 39, 39, 16).
+4. train_dbn      the paper-width DBN (2 x 214,748,672 hashed rows, batch
+                  65,536, AdamW 3e-3) takes 16 steps through the Trainer;
+                  the examination_nll kernel must be launched 16 times and a
+                  fixed held-out batch's loss must fall.
+5. train_dctr     the same for DCTR, 8 steps, through session_nll.
+6. cpu_vs_gpu     small DBN and DCTR batches: CPU (plain versions) and GPU
+                  (kernels) agree on loss and every gradient.
+7. serve_deepfm   the published-width DeepFM (80,000,000-row tables) serves
+                  512 and 262,144 rows and scores 1,000,000 candidates;
+                  exactly one embedding_bag and one fm_interaction launch
+                  per forward; the kernels' forward agrees with the plain
+                  one.
+8. train_deepfm   the same model takes 8 AdamW(1e-3) steps at 65,536 rows of
+                  a synthetic Criteo-shaped log; the held-out loss must fall.
+9. serve_autoint, train_autoint   the same for AutoInt: three
+                  flash_attention launches per forward.
+10. cpu_vs_gpu_recsys   the reduced DeepFM and AutoInt: CPU (plain) and GPU
+                  (kernels) agree on loss and every gradient.
 
-Then the kernel summary line, the card's name and power limit as nvidia-smi
-prints them, and the final status line. Any mismatch raises, and the script
-exits non-zero; it exits non-zero without a result when no GPU is visible.
-It imports nothing of JAX or of the JAX package.
+Every phase that drives a path sets every kernel's launch count to 0 just
+before it and reads the counts just after; they must be exact. Then the
+kernel summary line, the card's name and power limit as nvidia-smi prints
+them, and the final status line. Any mismatch raises, and the script exits
+non-zero; it exits non-zero without a result when no GPU is visible. It
+imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -103,6 +123,36 @@ def graph_ms(fn, calls=20, replays=10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def kernel_counters():
+    """Each kernel's wrapper, by kernel name: ``.launches`` is its count."""
+    from repro_torch import kernels as k
+
+    return {"examination_nll": k.examination_nll_cuda,
+            "session_nll": k.session_nll_triton,
+            "embedding_bag": k.embedding_bag_cuda,
+            "fm_interaction": k.fm_interaction_triton,
+            "flash_attention": k.flash_attention_cuda}
+
+
+def reset_counts() -> None:
+    for wrapper in kernel_counters().values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in kernel_counters().items()}
+
+
+def check_counts(what, expected) -> dict:
+    """The counts since the last reset must be ``expected`` exactly (0 for
+    any kernel it does not name)."""
+    got = read_counts()
+    want = {name: expected.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    return got
 
 
 def bound(name, rows, cols):
@@ -195,11 +245,15 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
 
-    info = build.build("examination_nll")
-    emit("build", kernel="examination_nll", seconds=info.seconds,
-         library=os.path.relpath(info.path, ROOT),
-         ptxas=[line for line in info.log.splitlines()
-                if "registers" in line or "spill" in line])
+    t0 = time.perf_counter()
+    builds = build.build_all()
+    wall = time.perf_counter() - t0
+    for name, info in builds.items():
+        emit("build", kernel=name, seconds=info.seconds, wall_seconds=wall,
+             library=os.path.relpath(info.path, ROOT),
+             ptxas=[line.strip() for line in info.log.splitlines()
+                    if "registers" in line or "spill" in line
+                    or "Compiling entry" in line])
 
 
 def phase_kernels(card):
@@ -344,7 +398,6 @@ def phase_train(kind, data, steps, card):
     from repro_torch import optim
     from repro_torch.configs.clax_baidu import TRAIN_BATCH, make_model
     from repro_torch.data import ClickLogLoader, DevicePrefetcher
-    from repro_torch.kernels import examination_nll_cuda, session_nll_triton
     from repro_torch.train import Trainer
 
     train = {k: v[:steps * TRAIN_BATCH] for k, v in data.items()}
@@ -358,20 +411,14 @@ def phase_train(kind, data, steps, card):
                       chunk_batches=4, device="cuda", log_fn=lambda s: None)
     loader = ClickLogLoader(train, batch_size=TRAIN_BATCH, seed=0)
 
-    examination_nll_cuda.launches = 0
-    session_nll_triton.launches = 0
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     history = trainer.train(model, loader)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"examination_nll": examination_nll_cuda.launches,
-                "session_nll": session_nll_triton.launches}
-
-    expected = {"dbn": {"examination_nll": steps, "session_nll": 0},
-                "dctr": {"examination_nll": 0, "session_nll": steps}}[kind]
-    if launches != expected:
-        raise AssertionError(f"{kind}: launches {launches} != {expected}")
+    kernel = {"dbn": "examination_nll", "dctr": "session_nll"}[kind]
+    launches = check_counts(f"train_{kind}", {kernel: steps})
     train_loss = history[-1]["train_loss"]
     if not math.isfinite(train_loss):
         raise AssertionError(f"{kind}: non-finite train loss {train_loss}")
@@ -475,6 +522,599 @@ def phase_cpu_vs_gpu(data):
     emit("cpu_vs_gpu", **out)
 
 
+# ---------------------------------------------------------------------------
+# recsys: the three kernels of DeepFM and AutoInt
+# ---------------------------------------------------------------------------
+
+TABLE_ROWS = 80_000_000     # configs/deepfm.py, configs/autoint.py
+N_FIELDS = 39
+FM_D = 10                   # DeepFM's embed_dim
+ATTN = (65536, 2, 2, 39, 39, 16)  # AutoInt: (B, Hq, Hkv, Sq, Skv, Dh)
+
+
+class CriteoLog:
+    """A synthetic Criteo-shaped click log made on the card from a seed:
+    39 fields with disjoint id ranges of 80,000,000 / 39 rows each inside
+    the unified table, Zipf-skewed ids within each field (rank r drawn with
+    density ~ 1/r, so a field's top ids are most of its traffic), and
+    labels from a planted logistic model (a random weight per id, summed
+    over the fields, base rate ~25%), so there is something to learn."""
+
+    def __init__(self, device, seed=0, rows=TABLE_ROWS, fields=N_FIELDS):
+        import torch
+
+        self.fields, self.span = fields, rows // fields
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(seed)
+        self.device = device
+        self.offsets = torch.arange(fields, device=device) * self.span
+        self.planted = torch.randn(rows, generator=self.gen,
+                                   device=device) * 0.7
+
+    def field_ids(self, n):
+        import torch
+
+        u = torch.rand(n, self.fields, generator=self.gen, device=self.device)
+        rank = torch.floor(torch.pow(float(self.span), u)).long() - 1
+        return rank.clamp_(0, self.span - 1) + self.offsets
+
+    def batch(self, n):
+        import torch
+
+        ids = self.field_ids(n)
+        logit = self.planted[ids].sum(1) / math.sqrt(self.fields) - 1.2
+        labels = (torch.rand(n, generator=self.gen, device=self.device)
+                  < torch.sigmoid(logit)).float()
+        return {"field_ids": ids, "labels": labels}
+
+    def candidates(self, n, query_fields=13):
+        """One query's first ``query_fields`` fields beside ``n`` candidate
+        rows' other fields: the candidate-expanded field matrix."""
+        ids = self.field_ids(n)
+        ids[:, :query_fields] = ids[0, :query_fields]
+        return {"field_ids": ids}
+
+
+def bag_bound(table, ids, weights):
+    """(bound_ms, bound_by) of one bag call on these inputs: ids (and
+    weights) read once, each 32-byte table sector that a live id touches
+    read once, the output written once; a multiply-add per gathered float.
+    Ids are counted at 4 bytes while the table has fewer than 2^31 rows
+    (the function needs no more; the TPU kernel reads int32), not at the
+    8 bytes of the int64 ids the port's kernel reads. For rows of at most
+    32 bytes (D <= 8; DeepFM's first-order D = 1), each touching one or
+    two sectors; the table starts on a sector boundary (torch allocations
+    do)."""
+    import torch
+
+    rows, dim = table.shape
+    if dim * 4 > 32:
+        raise ValueError(f"bag_bound counts rows of <= 32 bytes, got D={dim}")
+    live = ids[ids >= 0]
+    sectors = int(torch.unique(torch.cat([
+        live * dim * 4 // 32, ((live + 1) * dim * 4 - 1) // 32])).numel())
+    id_bytes = 4 if rows < 2 ** 31 else 8
+    nbytes = (ids.numel() * id_bytes + sectors * 32
+              + ids.shape[0] * dim * 4
+              + (0 if weights is None else weights.numel() * 4))
+    ops = 2 * ids.numel() * dim
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fm_bound(v):
+    B, F, D = v.shape
+    t_bytes = (B * F * D * 4 + B * 4) / PEAK_BYTES_PER_S
+    t_ops = 4 * B * F * D / PEAK_FP32_PER_S  # add, square, add; subtract
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bound(q, k, v):
+    """Non-causal: q, k, v read once, o written once; per (query, key) pair
+    2 Dh operations for the score, 2 Dh for the weighted sum, one exp."""
+    B, Hq, Sq, Dh = q.shape
+    pairs = Sq * k.shape[2]
+    t_bytes = 4 * (2 * q.numel() + k.numel() + v.numel()) / PEAK_BYTES_PER_S
+    t_ops = B * Hq * pairs * (4 * Dh + 1) / PEAK_FP32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _max_err(got, want):
+    if got.numel() == 0:
+        return 0.0
+    return float((got.float() - want.float()).abs().max())
+
+
+def _over(got, want, atol, rtol=1e-5):
+    """How far the worst element is past atol + rtol |want| (<= 0: held)."""
+    if got.numel() == 0:
+        return 0.0
+    excess = (got.float() - want.float()).abs() - (atol + rtol * want.abs())
+    return float(excess.max())
+
+
+def _bag_cases(gen, device):
+    """Edge cases of embedding_bag: [table, ids, weights] by name."""
+    import torch
+
+    def make(B, L, N, D, weighted=True, pad=0.1):
+        table = torch.randn(N, D, generator=gen, device=device)
+        ids = torch.randint(0, N, (B, L), generator=gen, device=device)
+        ids[torch.rand(B, L, generator=gen, device=device) < pad] = -1
+        w = (torch.rand(B, L, generator=gen, device=device) * 0.8 + 0.2
+             if weighted else None)
+        return [table, ids, w]
+
+    cases = {f"B{B}_L{L}_D{D}": make(B, L, 1000, D)
+             for B, L, D in ((7, 3, 64), (8, 1, 128), (5, 4, 130),
+                             (1, 39, 1), (257, 39, 1), (1000, 39, 3))}
+    cases["L1_unweighted"] = make(4097, 1, 5000, 1, weighted=False)
+    args = make(300, 39, 1000, 16)
+    args[1][:] = -1
+    cases["all_padding"] = args
+    args = make(65536, 39, 1000, 1, weighted=False, pad=0.0)
+    args[1][:] = 7  # every bag on one hot row
+    cases["hot_row"] = args
+    return cases
+
+
+def _fm_cases(gen, device):
+    import torch
+
+    cases = {f"{B}x{F}x{D}": torch.randn(B, F, D, generator=gen,
+                                         device=device)
+             for B, F, D in ((1, 39, 10), (127, 39, 10), (129, 39, 10),
+                             (64, 1, 10), (64, 39, 1), (33, 39, 130),
+                             (8, 5, 64), (130, 4, 130))}
+    # Large |v| around a common offset: the two sums nearly cancel.
+    cases["cancellation"] = 1e3 + 10.0 * torch.randn(
+        257, 39, 10, generator=gen, device=device)
+    return cases
+
+
+def _attn_inputs(gen, device, B, Hq, Hkv, Sq, Skv, Dh):
+    import torch
+
+    q = torch.randn(B, Hq, Sq, Dh, generator=gen, device=device) / Dh ** 0.5
+    k = torch.randn(B, Hkv, Skv, Dh, generator=gen, device=device)
+    v = torch.randn(B, Hkv, Skv, Dh, generator=gen, device=device)
+    return [q, k, v]
+
+
+def _flash_cases(gen, device):
+    """([q, k, v], causal) by name, from (B, Hq, Hkv, Sq, Skv, Dh, causal)."""
+    shapes = {"conf_2x4x2x16x16x32": (2, 4, 2, 16, 16, 32, False),
+              "conf_1x2x2x128x128x64": (1, 2, 2, 128, 128, 64, False),
+              "conf_1x2x1x130x130x64": (1, 2, 1, 130, 130, 64, False),
+              "gqa_4to1": (3, 8, 2, 39, 39, 16, False),
+              "causal_decode_1x130": (2, 4, 2, 1, 130, 64, True),
+              "causal_16x40": (2, 4, 2, 16, 40, 32, True),
+              "causal_square_200": (1, 2, 2, 200, 200, 32, True),
+              "dh64": (4, 2, 2, 39, 39, 64, False),
+              "dh128": (2, 2, 2, 100, 100, 128, False),
+              "dh4_reduced_autoint": (16, 2, 2, 8, 8, 4, False),
+              "ragged_b_autoint": (129, 2, 2, 39, 39, 16, False)}
+    return {name: (_attn_inputs(gen, device, *shape[:6]), shape[6])
+            for name, shape in shapes.items()}
+
+
+def _hold(name, over):
+    """Raise, after every case was measured, if any case is past its
+    tolerance."""
+    bad = {case: x for case, x in over.items() if not x <= 0.0}
+    if bad:
+        raise AssertionError(f"{name}: kernel vs plain past tolerance by "
+                             f"{bad}")
+
+
+def phase_recsys_kernels(card):
+    """embedding_bag, fm_interaction and flash_attention against their plain
+    versions on the card. Tolerances, with their reasons:
+
+    * embedding_bag: rtol 1e-5, atol 1e-5. The same products, summed in
+      slot order with fma in the kernel and by torch.sum in the plain one.
+    * fm_interaction: rtol 1e-5, atol 1e-5 * sum_{f,d} v^2 of the row. The
+      result is a difference of two sums of that size, so rounding in
+      either sum shows at that scale whatever the order.
+    * flash_attention: rtol 1e-5, atol 1e-5 (the conformance contract):
+      online softmax rescales per 16 keys where the plain one takes one max.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (embedding_bag_cuda, embedding_bag_plain,
+                                     flash_attention_cuda,
+                                     flash_attention_plain,
+                                     fm_interaction_plain,
+                                     fm_interaction_triton)
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    results = {}
+
+    def record(name, route, source, replaces, shape, kernel, plain, library,
+               args, errs, bnd):
+        t0 = time.perf_counter()
+        ms = time_ms(lambda: kernel(*args), iters=100)
+        plain_ms = time_ms(lambda: plain(*args), iters=20)
+        device_ms = {"kernel": graph_ms(lambda: kernel(*args)),
+                     "plain": graph_ms(lambda: plain(*args), calls=5)}
+        library_ms = None
+        if library is not None:
+            library_ms = time_ms(lambda: library(*args), iters=100)
+            device_ms["library"] = graph_ms(lambda: library(*args))
+        bound_ms, bound_by = bnd
+        main_err = errs.pop("main")
+        results[name] = {
+            "name": name, "route": route, "source": source,
+            "replaces": replaces, "max_abs_err": main_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "device_ms": device_ms, "held": True}
+        emit("kernel", name=name, shape=shape, card=card, kernel_ms=ms,
+             plain_ms=plain_ms, library_ms=library_ms, device_ms=device_ms,
+             bound_ms=bound_ms, bound_by=bound_by, max_abs_err=main_err,
+             edge_cases=len(errs), max_edge_abs_err=max(errs.values()),
+             edge_abs_errs=errs, timing_s=time.perf_counter() - t0)
+
+    # embedding_bag: DeepFM's first-order bag over the real (80M, 1) table,
+    # unweighted, as DeepFM calls it.
+    log = CriteoLog(device, seed=1)
+    table = torch.randn(TABLE_ROWS, 1, generator=gen, device=device)
+    main = [table, log.field_ids(B_MAIN), None]
+    cases = {"main": main, **_bag_cases(gen, device)}
+    errs, over = {}, {}
+    for case, args in cases.items():
+        got, want = embedding_bag_cuda(*args), embedding_bag_plain(*args)
+        if got.shape != want.shape or got.dtype != torch.float32:
+            raise AssertionError(f"embedding_bag {case}: {got.shape}")
+        errs[case], over[case] = _max_err(got, want), _over(got, want, 1e-5)
+        if case == "all_padding" and bool(torch.any(got != 0)):
+            raise AssertionError("embedding_bag: all-padding bags not 0")
+    torch.cuda.synchronize()
+    emit("kernel_check", name="embedding_bag", abs_errs=errs)
+    _hold("embedding_bag", over)
+
+    def bag_library(t, ids, w):
+        live = (ids >= 0).float() if w is None else torch.where(
+            ids >= 0, w, 0.0)
+        return F.embedding_bag(ids.clamp_min(0), t, mode="sum",
+                               per_sample_weights=live)
+
+    if _over(bag_library(*main), embedding_bag_plain(*main), 1e-4) > 0:
+        raise AssertionError("embedding_bag: library yardstick disagrees")
+    record("embedding_bag", "cuda",
+           "src/repro_torch/kernels/csrc/embedding_bag.cu",
+           "src/repro/kernels/embedding_bag.py:33",
+           [TABLE_ROWS, 1, B_MAIN, N_FIELDS], embedding_bag_cuda,
+           embedding_bag_plain, bag_library, main, errs, bag_bound(*main))
+    del table, main, cases, log
+
+    # fm_interaction at DeepFM's (B, F, D).
+    v = torch.randn(B_MAIN, N_FIELDS, FM_D, generator=gen, device=device)
+    cases = {"main": v, **_fm_cases(gen, device)}
+    errs, over = {}, {}
+    for case, x in cases.items():
+        got, want = fm_interaction_triton(x), fm_interaction_plain(x)
+        if got.shape != (x.shape[0],):
+            raise AssertionError(f"fm_interaction {case}: {got.shape}")
+        scale = torch.sum(x.float() ** 2, dim=(1, 2))
+        errs[case], over[case] = _max_err(got, want), _over(got, want,
+                                                            1e-5 * scale)
+        if x.shape[1] == 1 and bool(torch.any(got != 0)):
+            raise AssertionError("fm_interaction: F = 1 is not 0")
+    torch.cuda.synchronize()
+    emit("kernel_check", name="fm_interaction", abs_errs=errs)
+    _hold("fm_interaction", over)
+    record("fm_interaction", "triton",
+           "src/repro_torch/kernels/fm_interaction.py",
+           "src/repro/kernels/fm_interaction.py:21",
+           [B_MAIN, N_FIELDS, FM_D], fm_interaction_triton,
+           fm_interaction_plain, None, [v], errs, fm_bound(v))
+    del v, cases
+
+    # flash_attention at AutoInt's attention shape.
+    main = _attn_inputs(gen, device, *ATTN)
+    cases = {"main": (main, False), **_flash_cases(gen, device)}
+    errs, over = {}, {}
+    for case, (args, causal) in cases.items():
+        got = flash_attention_cuda(*args, causal=causal)
+        want = flash_attention_plain(*args, causal=causal)
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {case}: bad output")
+        errs[case], over[case] = _max_err(got, want), _over(got, want, 1e-5)
+    torch.cuda.synchronize()
+    emit("kernel_check", name="flash_attention", abs_errs=errs)
+    _hold("flash_attention", over)
+
+    def attn_library(q, k, v):
+        # Heads are independent here (Hq == Hkv), so (B, H) is refolded to
+        # (4, B H / 4): PyTorch's fp32 kernel puts batch and heads on grid
+        # axes that hold at most 65,535 blocks.
+        B, H, S, D = q.shape
+        fold = [t.reshape(4, B * H // 4, S, D) for t in (q, k, v)]
+        return F.scaled_dot_product_attention(*fold).reshape(B, H, S, D)
+
+    library_err = _max_err(attn_library(*main), flash_attention_plain(*main))
+    record("flash_attention", "cuda",
+           "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:30", list(ATTN),
+           flash_attention_cuda, flash_attention_plain, attn_library, main,
+           errs, flash_bound(*main))
+    results["flash_attention"]["library_max_abs_err"] = library_err
+    del main, cases
+    torch.cuda.empty_cache()
+    return results
+
+
+def per_forward(model):
+    """Kernel launches in one forward: DeepFM one embedding_bag and one
+    fm_interaction, AutoInt one flash_attention per attention layer."""
+    if hasattr(model.cfg, "n_attn_layers"):
+        return {"flash_attention": model.cfg.n_attn_layers}
+    return {"embedding_bag": 1, "fm_interaction": 1}
+
+
+def _config(arch):
+    if arch == "deepfm":
+        from repro_torch.configs import deepfm as mod
+    else:
+        from repro_torch.configs import autoint as mod
+    return mod
+
+
+def _plain_forward(arch, model, batch):
+    """The model's forward with each kernel's plain version in its place,
+    on the same card: the reference the kernels' forward is held to."""
+    import torch
+
+    from repro_torch.kernels import (embedding_bag_plain,
+                                     flash_attention_plain,
+                                     fm_interaction_plain)
+    from repro_torch.models.recsys import table_lookup
+
+    cfg, ids = model.cfg, batch["field_ids"]
+    if arch == "deepfm":
+        v = table_lookup(cfg.table, model.embedding, ids)
+        first = embedding_bag_plain(model.first_order["table"], ids)[:, 0]
+        deep = model.mlp(v.reshape(v.shape[0], -1))[:, 0]
+        return model.bias + first + fm_interaction_plain(v) + deep
+    h = table_lookup(cfg.table, model.embedding, ids)
+    B, F_, _ = h.shape
+    for l in range(cfg.n_attn_layers):
+        lp = getattr(model, f"attn_{l}")
+        q, k, v = ((h @ lp[w]).reshape(B, F_, cfg.n_heads, -1).transpose(1, 2)
+                   for w in ("wq", "wk", "wv"))
+        attn = flash_attention_plain(q, k, v).transpose(1, 2).reshape(
+            B, F_, -1)
+        h = torch.relu(attn + h @ lp["w_res"])
+    return (h.reshape(B, -1) @ model.head["w"])[:, 0] + model.head["b"][0]
+
+
+def _check_rows(arch, shape, model, batch, scores, serve):
+    """Hold the scores of the first and last 512 rows of a call (where the
+    kernels' offsets are smallest and largest) to the plain forward of
+    those rows alone, rtol and atol 1e-5; rows are independent, so no full
+    plain pass is needed. Returns the largest error."""
+    import torch
+
+    from repro_torch.stable import log_sigmoid
+
+    rows = scores.shape[0]
+    sel = torch.unique(torch.cat([
+        torch.arange(min(512, rows)), torch.arange(max(0, rows - 512), rows)
+    ])).to(scores.device)
+    want = _plain_forward(arch, model, {"field_ids": batch["field_ids"][sel]})
+    if serve:
+        want = log_sigmoid(want)
+    got = scores[sel]
+    if _over(got, want, 1e-5) > 0:
+        raise AssertionError(f"{arch} {shape}: kernels' scores vs plain "
+                             f"forward differ by {_max_err(got, want)}")
+    return _max_err(got, want)
+
+
+def phase_serve(arch, model, log, card):
+    """serve at serve_p99 and serve_bulk, retrieval_score over 1M
+    candidates, under no_grad; ms per call and rows/s from CUDA events.
+    Each shape's first call is held to the plain forward on its first and
+    last 512 rows."""
+    import torch
+
+    from repro_torch.configs.recsys_common import SHAPES
+
+    calls = 0
+    out, ref_err = {}, {}
+    with torch.no_grad():
+        reset_counts()
+        for shape, iters in (("serve_p99", 50), ("serve_bulk", 10),
+                             ("retrieval_cand", 3)):
+            info = SHAPES[shape]
+            if info["kind"] == "retrieval":
+                rows = info["n_candidates"]
+                batch, fn = log.candidates(rows), model.retrieval_score
+            else:
+                rows = info["batch"]
+                batch, fn = log.batch(rows), model.serve
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            scores = fn(batch)
+            torch.cuda.synchronize()
+            first_call_ms = (time.perf_counter() - t0) * 1e3
+            if scores.shape != (rows,) or not bool(
+                    torch.isfinite(scores).all()):
+                raise AssertionError(f"{arch} {shape}: bad scores")
+            if info["kind"] == "serve" and bool(torch.any(scores > 0)):
+                raise AssertionError(f"{arch} {shape}: log-prob above 0")
+            ref_err[shape] = _check_rows(arch, shape, model, batch, scores,
+                                         info["kind"] == "serve")
+            del scores
+            ms = time_ms(lambda: fn(batch), iters=iters, warmup=1)
+            calls += 1 + 1 + iters
+            out[shape] = {"rows": rows, "ms_per_call": ms,
+                          "rows_per_s": rows / ms * 1e3,
+                          "first_call_ms": first_call_ms,
+                          "max_memory_allocated":
+                              torch.cuda.max_memory_allocated()}
+        launches = check_counts(f"serve_{arch}", {
+            k: n * calls for k, n in per_forward(model).items()})
+    emit(f"serve_{arch}", card=card, params=model.n_params(), calls=calls,
+         launches=launches, shapes=out, forward_vs_plain_abs_err=ref_err)
+    return launches
+
+
+def _recsys_breakdown(model, optimizer, state, batch, reps=3):
+    """Host-clock ms of forward, backward and AdamW update of one step,
+    each closed by a synchronize (taken after the counted run)."""
+    import torch
+
+    from repro_torch import optim
+
+    params = list(model.parameters())
+    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        updates, state = optimizer.update(list(grads), state, params)
+        optim.apply_updates(params, updates)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del grads, updates
+        parts["forward_ms"].append((t1 - t0) * 1e3)
+        parts["backward_ms"].append((t2 - t1) * 1e3)
+        parts["optimizer_ms"].append((t3 - t2) * 1e3)
+    return {k: min(v) for k, v in parts.items()}
+
+
+def phase_train_recsys(arch, model, log, card, steps=8):
+    """``steps`` AdamW(1e-3) steps at train_batch through make_train_step;
+    the held-out batch's loss must fall."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs.recsys_common import SHAPES
+
+    rows = SHAPES["train_batch"]["batch"]
+    batches = [log.batch(rows) for _ in range(steps)]
+    held_out = log.batch(rows)
+    optimizer = optim.adamw(1e-3)
+    step = model.make_train_step(optimizer)
+    state = step.init()
+    with torch.no_grad():
+        loss_before = float(model.loss(held_out))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, loss = step(state, batches[0])
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    losses = [loss]
+    for batch in batches[1:]:
+        state, loss = step(state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = check_counts(f"train_{arch}", {
+        k: n * steps for k, n in per_forward(model).items()})
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch}: non-finite train loss {losses}")
+    with torch.no_grad():
+        loss_after = float(model.loss(held_out))
+    if not loss_after < loss_before:
+        raise AssertionError(f"{arch}: held-out loss {loss_before} -> "
+                             f"{loss_after} did not fall")
+    warm_s = (seconds - cold_s) / (steps - 1)
+    breakdown = _recsys_breakdown(model, optimizer, state, held_out)
+    emit(f"train_{arch}", card=card, steps=steps, batch=rows,
+         params=model.n_params(), seconds=seconds,
+         steps_per_s=steps / seconds, rows_per_s=steps * rows / seconds,
+         cold_step_ms=cold_s * 1e3, warm_step_ms=warm_s * 1e3,
+         warm_steps_per_s=1.0 / warm_s, warm_rows_per_s=rows / warm_s,
+         max_memory_allocated=peak, launches=launches, train_losses=losses,
+         held_out_loss_before=loss_before, held_out_loss_after=loss_after,
+         step_breakdown_ms=breakdown)
+    return launches
+
+
+def phase_recsys(arch, card):
+    """Serve, then train, the published-width model; freed afterwards."""
+    import torch
+
+    log = CriteoLog(torch.device("cuda"), seed=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = _config(arch).make_model(device="cuda", seed=0)
+    torch.cuda.synchronize()
+    emit(f"build_{arch}", params=model.n_params(),
+         seconds=time.perf_counter() - t0,
+         memory_allocated=torch.cuda.memory_allocated())
+    phase_serve(arch, model, log, card)
+    launches = phase_train_recsys(arch, model, log, card)
+    del model, log
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_recsys_cpu_vs_gpu():
+    """The reduced DeepFM and AutoInt with the same weights through
+    ``convert``: CPU (plain versions) and GPU (kernels) agree on the loss
+    and every gradient to 1e-5."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import export_params, load_jax_params
+
+    out = {}
+    for arch in ("deepfm", "autoint"):
+        mod = _config(arch)
+        cfg = mod.reduced()
+        cpu = mod.make_model(device="cpu", seed=1, cfg=cfg)
+        rng = np.random.default_rng(3)
+        with torch.no_grad():
+            for p in cpu.parameters():
+                p.add_(torch.from_numpy(rng.normal(
+                    scale=0.3, size=tuple(p.shape)).astype(np.float32)))
+        gpu = mod.make_model(device="cuda", seed=2, cfg=cfg)
+        load_jax_params(gpu, export_params(cpu))
+        batch = {"field_ids": rng.integers(0, cfg.table_rows,
+                                           (512, cfg.n_sparse)),
+                 "labels": (rng.random(512) < 0.3).astype(np.float32)}
+        losses, grads = [], []
+        reset_counts()
+        for model, dev in ((cpu, torch.device("cpu")),
+                           (gpu, torch.device("cuda"))):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            loss = model.loss(b)
+            grads.append(torch.autograd.grad(loss, list(model.parameters())))
+            losses.append(float(loss.detach()))
+        check_counts(f"cpu_vs_gpu {arch}", per_forward(gpu))
+        check_close(f"cpu_vs_gpu {arch} loss", losses[1], losses[0],
+                    rtol=1e-5, atol=1e-5)
+        worst = 0.0
+        for (name, _), g_cpu, g_gpu in zip(cpu.named_parameters(), *grads):
+            torch.testing.assert_close(g_gpu.cpu(), g_cpu, rtol=1e-5,
+                                       atol=1e-5,
+                                       msg=lambda m: f"{arch} {name}: {m}")
+            worst = max(worst, _max_err(g_gpu.cpu(), g_cpu))
+        out[arch] = {"loss_cpu": losses[0], "loss_gpu": losses[1],
+                     "max_grad_abs_err": worst}
+    emit("cpu_vs_gpu_recsys", **out)
+
+
 def main() -> int:
     import torch
 
@@ -485,12 +1125,21 @@ def main() -> int:
     kind, smi = phase_device()
     phase_build()
     kernels = phase_kernels(smi)
+    kernels.update(phase_recsys_kernels(smi))
     data = _synthetic_log(17 * B_MAIN)  # 16 training batches + 1 held out
     dbn = phase_train("dbn", data, 16, smi)
     dctr = phase_train("dctr", data, 8, smi)
     phase_cpu_vs_gpu(data)
-    kernels["examination_nll"]["launches"] = dbn["examination_nll"]
-    kernels["session_nll"]["launches"] = dctr["session_nll"]
+    del data
+    deepfm = phase_recsys("deepfm", smi)
+    autoint = phase_recsys("autoint", smi)
+    phase_recsys_cpu_vs_gpu()
+    # Each kernel's launches in the training run of its path.
+    for name, counts in (("examination_nll", dbn), ("session_nll", dctr),
+                         ("embedding_bag", deepfm),
+                         ("fm_interaction", deepfm),
+                         ("flash_attention", autoint)):
+        kernels[name]["launches"] = counts[name]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)

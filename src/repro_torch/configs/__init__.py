@@ -1,1 +1,2 @@
-"""Model configurations (port of ``repro.configs.clax_baidu``)."""
+"""Model configurations (port of ``repro.configs``: ``clax_baidu``,
+``deepfm``, ``autoint`` and the recsys ``SHAPES``)."""

@@ -1,10 +1,13 @@
 """Carry parameters between the JAX package and the port.
 
-A JAX click model's ``init`` tree is ``{part: {leaf: array}}``; the port
-keeps the same names on ``model.parts[part].<leaf>``, so the tree maps onto
-``named_parameters()`` path by path: ``("attraction", "table")`` is
-``parts.attraction.table``. The tree arrives as nested dicts of numpy
-arrays (``jax.device_get(params)``), so this module needs no JAX.
+A port model names each parameter by its path in the JAX ``init`` tree,
+so the tree maps onto ``named_parameters()`` path by path. A click model's
+tree is ``{part: {leaf: array}}`` and the port keeps it under
+``model.parts``: ``("attraction", "table")`` is ``parts.attraction.table``.
+A recsys model's tree maps with no prefix: ``("embedding", "table")``,
+``("mlp", "layer_0", "kernel")``, ``("attn_0", "wq")``, a 0-d ``("bias",)``.
+The tree arrives as nested dicts of numpy arrays
+(``jax.device_get(params)``), so this module needs no JAX.
 """
 from __future__ import annotations
 

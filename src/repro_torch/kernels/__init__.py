@@ -1,15 +1,30 @@
-"""Loss kernels of the training slice: a CUDA C++ ``examination_nll`` and a
-Triton ``session_nll``, each beside its plain-torch version (port of the
-corresponding parts of ``repro.kernels``)."""
+"""The port's Hopper kernels, each beside its plain-torch version (port of
+``repro.kernels``): ``examination_nll``, ``embedding_bag`` and
+``flash_attention`` in CUDA C++, ``session_nll`` and ``fm_interaction`` in
+Triton, plus the public ops with autograd that route by device."""
+from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
+                                               embedding_bag_plain)
 from repro_torch.kernels.examination_nll import (examination_nll_cuda,
                                                  examination_nll_plain)
-from repro_torch.kernels.ops import examination_nll, session_nll
-from repro_torch.kernels.ref import examination_nll_ref, session_nll_ref
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
+from repro_torch.kernels.fm_interaction import (fm_interaction_plain,
+                                                fm_interaction_triton)
+from repro_torch.kernels.ops import (embedding_bag, examination_nll,
+                                     flash_attention, fm_interaction,
+                                     session_nll)
+from repro_torch.kernels.ref import (embedding_bag_ref, examination_nll_ref,
+                                     flash_attention_ref, fm_interaction_ref,
+                                     session_nll_ref)
 from repro_torch.kernels.session_nll import (session_nll_plain,
                                              session_nll_triton)
 
 __all__ = [
-    "examination_nll", "examination_nll_cuda", "examination_nll_plain",
-    "examination_nll_ref", "session_nll", "session_nll_plain",
+    "embedding_bag", "embedding_bag_cuda", "embedding_bag_plain",
+    "embedding_bag_ref", "examination_nll", "examination_nll_cuda",
+    "examination_nll_plain", "examination_nll_ref", "flash_attention",
+    "flash_attention_cuda", "flash_attention_plain", "flash_attention_ref",
+    "fm_interaction", "fm_interaction_plain", "fm_interaction_ref",
+    "fm_interaction_triton", "session_nll", "session_nll_plain",
     "session_nll_ref", "session_nll_triton",
 ]

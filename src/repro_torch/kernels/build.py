@@ -5,7 +5,8 @@ into a shared library with a plain C interface, which the kernel's module
 loads with ``ctypes``. The library lands in ``kernels/build/``
 (git-ignored) under a name that carries a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
-Nothing here runs at import time.
+:func:`build_all` compiles every ``csrc/*.cu`` at once, one ``nvcc`` per
+source. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import NamedTuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, NamedTuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
@@ -71,3 +73,18 @@ def build(name: str) -> Build:
             os.unlink(tmp)
     return Build(out, time.perf_counter() - t0,
                  (proc.stdout + proc.stderr).strip())
+
+
+def sources() -> List[str]:
+    """The names of every CUDA source, ``csrc/<name>.cu``."""
+    return sorted(name[:-3] for name in os.listdir(CSRC)
+                  if name.endswith(".cu"))
+
+
+def build_all() -> Dict[str, Build]:
+    """Build every source, all ``nvcc`` processes started together; raises
+    with the first failing source's output."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        builds = list(pool.map(build, names))
+    return dict(zip(names, builds))

@@ -1,23 +1,38 @@
-"""Public loss ops with autograd: ``session_nll`` and ``examination_nll``.
+"""Public kernel ops with autograd: ``session_nll``, ``examination_nll``,
+``embedding_bag``, ``fm_interaction`` and ``flash_attention``.
 
-Port of the custom-VJP half of ``repro.kernels.ops``. The device picks the
-forward: a CUDA tensor launches the hand-written kernel (or raises), a CPU
-tensor takes the kernel's plain version. There is no registry and no
-fallback from a kernel to its plain version. Gradients do not depend on the
-forward route:
+Port of ``repro.kernels.ops``. The device picks the forward: a CUDA tensor
+launches the hand-written kernel (or raises), a CPU tensor takes the
+kernel's plain version. There is no registry and no fallback from a kernel
+to its plain version. Gradients do not depend on the forward route, and
+each backward is plain PyTorch (no TPU kernel has a Pallas backward):
 
-* ``session_nll`` backward is the closed form (``ops.py:212-221``):
+* ``session_nll``: the closed form (``ops.py:212-221``),
   d/dx = (sigmoid(x) - c) m / count, d/dc = -x m / count.
-* ``examination_nll`` backward is autograd of the plain ref composition
+* ``examination_nll``: autograd of the plain ref composition
   (``ops.py:254-265``), so it inherits the saturating VJP of
   ``core.recursions``.
+* ``embedding_bag``: ``_bag_bwd`` (``ops.py:153-175``), one ``index_add_``
+  and one row dot per bag slot, never a (B*L, D) buffer; d_w is 0 at
+  padding.
+* ``fm_interaction``: the closed form
+  dv[b,f,d] = g[b] (sum_f v[b,:,d] - v[b,f,d]).
+* ``flash_attention``: autograd of the plain version, recomputed.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
+                                               embedding_bag_plain)
 from repro_torch.kernels.examination_nll import (examination_nll_cuda,
                                                  examination_nll_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
+from repro_torch.kernels.fm_interaction import (fm_interaction_plain,
+                                                fm_interaction_triton)
 from repro_torch.kernels.ref import examination_nll_ref
 from repro_torch.kernels.session_nll import (session_nll_plain,
                                              session_nll_triton)
@@ -97,3 +112,118 @@ def examination_nll(attr_logits, clicks, mask, p_skip_survive, p_death,
     return _ExaminationNLL.apply(
         *(t.contiguous() for t in (attr_logits, clicks, mask, p_skip_survive,
                                    p_death, p_reset, p_reset_not)))
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, weights):
+        ctx.save_for_backward(table, ids, weights)
+        fn = _route(table.device, embedding_bag_cuda, embedding_bag_plain)
+        return fn(table, ids, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, ids, weights = ctx.saved_tensors
+        g = g.float()
+        live = ids >= 0
+        w = live.float() if weights is None else torch.where(
+            live, weights, 0.0).float()
+        safe = torch.clamp_min(ids, 0)
+        d_table = d_w = None
+        want_table = ctx.needs_input_grad[0]
+        want_w = weights is not None and ctx.needs_input_grad[2]
+        if want_table:
+            d_table = torch.zeros(table.shape, dtype=torch.float32,
+                                  device=table.device)
+        if want_w:
+            d_w = torch.empty(ids.shape, dtype=torch.float32,
+                              device=ids.device)
+        # One bag slot at a time, as _bag_bwd scans: each step touches a
+        # (B, D) slice, never a (B*L, D) buffer.
+        safe_t, w_t = safe.t().contiguous(), w.t().contiguous()  # (L, B)
+        for l in range(ids.shape[1]):
+            rows = safe_t[l]
+            if want_table:
+                d_table.index_add_(0, rows, w_t[l, :, None] * g)
+            if want_w:
+                d_w[:, l] = torch.sum(table[rows].float() * g, dim=-1)
+        if want_table:
+            d_table = d_table.to(table.dtype)
+        if want_w:
+            d_w = torch.where(live, d_w, 0.0).to(weights.dtype)
+        return d_table, None, d_w
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None,
+                  combiner: str = "sum") -> torch.Tensor:
+    """out[b] = reduce_l table[ids[b, l]]; ids < 0 are padding.
+
+    combiner: "sum" | "mean" (mean over non-padding entries). Ids are read
+    as int64.
+    """
+    ids = ids.long().contiguous()
+    if combiner == "mean":
+        count = torch.sum((ids >= 0).float(), dim=1, keepdim=True)
+        if weights is None:
+            weights = torch.ones(ids.shape, dtype=torch.float32,
+                                 device=ids.device)
+        weights = weights / torch.clamp_min(count, 1.0)
+    elif combiner != "sum":
+        raise ValueError(f"unknown combiner {combiner!r}")
+    if weights is not None:
+        weights = weights.contiguous()
+    return _EmbeddingBag.apply(table.contiguous(), ids, weights)
+
+
+class _FMInteraction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v):
+        ctx.save_for_backward(v)
+        fn = _route(v.device, fm_interaction_triton, fm_interaction_plain)
+        return fn(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        vf = v.float()
+        s = torch.sum(vf, dim=1, keepdim=True)                 # (B, 1, D)
+        return (g[:, None, None] * (s - vf)).to(v.dtype)
+
+
+def fm_interaction(v: torch.Tensor) -> torch.Tensor:
+    """FM second-order term: (B, F, D) field embeddings -> (B,) float32."""
+    return _FMInteraction.apply(v.contiguous())
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        fn = _route(q.device, flash_attention_cuda, flash_attention_plain)
+        return fn(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        wanted = [i for i in range(3) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(i in wanted)
+                      for i, t in enumerate(saved)]
+            out = flash_attention_plain(*leaves, causal=ctx.causal,
+                                        scale=ctx.scale)
+            grads = torch.autograd.grad(out, [leaves[i] for i in wanted], g)
+        result = [None] * 5
+        for i, d in zip(wanted, grads):
+            result[i] = d
+        return tuple(result)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention, q (B, Hq, Sq, Dh) and k, v (B, Hkv, Skv, Dh) with
+    Hq % Hkv == 0 -> (B, Hq, Sq, Dh); causal aligns q to the end of KV."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, scale)

@@ -1,6 +1,7 @@
-"""Module base and initializers (port of the parts of ``repro.nn`` that the
-click models use)."""
+"""Module base, initializers and dense layers (port of the parts of
+``repro.nn`` that the click models and the tabular recsys models use)."""
 from repro_torch.nn import init
+from repro_torch.nn.layers import ACTIVATIONS, MLP, Dense
 from repro_torch.nn.module import Module
 
-__all__ = ["Module", "init"]
+__all__ = ["ACTIVATIONS", "Dense", "MLP", "Module", "init"]

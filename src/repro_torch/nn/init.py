@@ -1,8 +1,10 @@
-"""Parameter initializers: (shape, device) -> float32 tensor factories.
+"""Parameter initializers: tensor factories over (shape, device).
 
-Port of the constant initializers of ``repro.nn.init`` that the ported
-parameter modules use. The JAX versions take an rng they ignore; these take
-the device the tensor is made on instead.
+Port of ``repro.nn.init``. The constant initializers take the device the
+tensor is made on in place of the rng that the JAX versions ignore. The
+random ones take an explicit ``torch.Generator`` on that device: from the
+same seed they give other numbers than ``jax.random``, so parity tests
+carry weights over with ``repro_torch.convert`` instead of re-drawing them.
 """
 from __future__ import annotations
 
@@ -20,5 +22,53 @@ def ones(shape, device=None, dtype=torch.float32) -> torch.Tensor:
 def constant(value: float):
     def _init(shape, device=None, dtype=torch.float32) -> torch.Tensor:
         return torch.full(shape, value, dtype=dtype, device=device)
+
+    return _init
+
+
+def normal(stddev: float = 0.02):
+    def _init(shape, generator: torch.Generator, device=None,
+              dtype=torch.float32) -> torch.Tensor:
+        out = torch.randn(shape, generator=generator, device=device)
+        return (out * stddev).to(dtype)
+
+    return _init
+
+
+def _truncated_standard_normal(shape, generator, device) -> torch.Tensor:
+    out = torch.empty(shape, device=device)
+    return torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
+                                       generator=generator)
+
+
+def truncated_normal(stddev: float = 0.02):
+    """A standard normal truncated at +-2, times ``stddev`` (as
+    ``jax.random.truncated_normal(rng, -2, 2) * stddev``: no variance
+    correction)."""
+    def _init(shape, generator: torch.Generator, device=None,
+              dtype=torch.float32) -> torch.Tensor:
+        out = _truncated_standard_normal(shape, generator, device)
+        return (out * stddev).to(dtype)
+
+    return _init
+
+
+def _fans(shape):
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    receptive = 1
+    for s in shape[:-2]:
+        receptive *= s
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def lecun_normal():
+    """A standard normal truncated at +-2, scaled by 1/sqrt(fan_in)."""
+    def _init(shape, generator: torch.Generator, device=None,
+              dtype=torch.float32) -> torch.Tensor:
+        fan_in, _ = _fans(shape)
+        std = (1.0 / max(fan_in, 1)) ** 0.5
+        out = _truncated_standard_normal(shape, generator, device)
+        return (out * std).to(dtype)
 
     return _init
