@@ -7,7 +7,7 @@ Phases, each printing JSON lines:
 
 1. device         the card's name, count, power limit (nvidia-smi).
 2. build          nvcc builds every CUDA source (examination_nll,
-                  embedding_bag, flash_attention) at once into
+                  embedding_bag, flash_attention, dcn_cross) at once into
                   src/repro_torch/kernels/build/, with ptxas's register
                   and spill report.
 3. kernels        each hand-written kernel against its plain PyTorch
@@ -16,24 +16,35 @@ Phases, each printing JSON lines:
                   the bound. The loss kernels at 65,536 x 10; embedding_bag
                   at DeepFM's first-order bag over the real 80,000,000-row
                   table; fm_interaction at (65,536, 39, 10);
-                  flash_attention at AutoInt's (65,536, 2, 2, 39, 39, 16).
+                  flash_attention at AutoInt's (65,536, 2, 2, 39, 39, 16);
+                  dcn_cross at the two-tower's (655,360, 16), the
+                  conformance and sweep shapes, (65,536, 1024) and bf16.
 4. train_dbn      the paper-width DBN (2 x 214,748,672 hashed rows, batch
                   65,536, AdamW 3e-3) takes 16 steps through the Trainer;
                   the examination_nll kernel must be launched 16 times and a
                   fixed held-out batch's loss must fall.
 5. train_dctr     the same for DCTR, 8 steps, through session_nll.
-6. cpu_vs_gpu     small DBN and DCTR batches: CPU (plain versions) and GPU
+6. train_ubm      the paper-width UBM (214,748,672 hashed rows), 8 steps;
+                  no kernel; its test pass runs ubm_marginal_clicks at
+                  65,536 x 10 x 10, held to predict_clicks_loop.
+7. cpu_vs_gpu     small DBN, DCTR, CM, UBM, two-tower PBM and DCTR and a
+                  mixture with a shared tower: CPU (plain versions) and GPU
                   (kernels) agree on loss and every gradient.
-7. serve_deepfm   the published-width DeepFM (80,000,000-row tables) serves
+8. train_two_tower_pbm, train_two_tower_dctr   the paper's Listing-4 pair
+                  (DeepCrossV2 attraction over 16 features) takes 8
+                  AdamW(1e-2) steps at 65,536 x 10 on a PBM-behaviour log:
+                  dcn_cross twice per forward (evaluation included),
+                  session_nll once per DCTR step; nDCG@10 of each tower.
+9. serve_deepfm   the published-width DeepFM (80,000,000-row tables) serves
                   512 and 262,144 rows and scores 1,000,000 candidates;
                   exactly one embedding_bag and one fm_interaction launch
                   per forward; the kernels' forward agrees with the plain
                   one.
-8. train_deepfm   the same model takes 8 AdamW(1e-3) steps at 65,536 rows of
+10. train_deepfm  the same model takes 8 AdamW(1e-3) steps at 65,536 rows of
                   a synthetic Criteo-shaped log; the held-out loss must fall.
-9. serve_autoint, train_autoint   the same for AutoInt: three
+11. serve_autoint, train_autoint   the same for AutoInt: three
                   flash_attention launches per forward.
-10. cpu_vs_gpu_recsys   the reduced DeepFM and AutoInt: CPU (plain) and GPU
+12. cpu_vs_gpu_recsys   the reduced DeepFM and AutoInt: CPU (plain) and GPU
                   (kernels) agree on loss and every gradient.
 
 Every phase that drives a path sets every kernel's launch count to 0 just
@@ -133,7 +144,8 @@ def kernel_counters():
             "session_nll": k.session_nll_triton,
             "embedding_bag": k.embedding_bag_cuda,
             "fm_interaction": k.fm_interaction_triton,
-            "flash_attention": k.flash_attention_cuda}
+            "flash_attention": k.flash_attention_cuda,
+            "dcn_cross": k.dcn_cross_cuda}
 
 
 def reset_counts() -> None:
@@ -392,11 +404,35 @@ def _enqueue_ms(model, optimizer, batch, n=4, reps=2):
             "steps": n}
 
 
-def phase_train(kind, data, steps, card):
+def _train_spec(kind):
+    """(model, optimizer factory, launches per step, dcn_cross launches per
+    forward) of a training path: the paper-width ``dbn``, ``dctr`` and
+    ``ubm``, and the Listing-4 pair ``two_tower_pbm`` / ``two_tower_dctr``."""
+    from repro_torch import optim
+    from repro_torch.configs.clax_baidu import make_model, make_two_tower
+
+    if kind.startswith("two_tower_"):
+        twin = kind[len("two_tower_"):]
+        per_step = {"dcn_cross": 2}
+        if twin == "dctr":
+            per_step["session_nll"] = 1
+        return (make_two_tower(twin, device="cuda"),
+                lambda: optim.adamw(1e-2), per_step, 2)
+    per_step = {"dbn": {"examination_nll": 1}, "dctr": {"session_nll": 1},
+                "ubm": {}}[kind]
+    return (make_model(kind, device="cuda"),
+            lambda: optim.adamw(3e-3, weight_decay=1e-4), per_step, 0)
+
+
+def phase_train(kind, data, steps, card, extra=None):
+    """``steps`` optimizer steps through the Trainer on ``data``'s first
+    batches, the last batch held out; exact launch counts in the counted
+    epoch and in the held-out evaluation (two forwards per batch: the
+    marginal and the conditional click predictions). ``extra(model,
+    held_out)`` adds path-specific checks and numbers to the phase's line."""
     import torch
 
-    from repro_torch import optim
-    from repro_torch.configs.clax_baidu import TRAIN_BATCH, make_model
+    from repro_torch.configs.clax_baidu import TRAIN_BATCH
     from repro_torch.data import ClickLogLoader, DevicePrefetcher
     from repro_torch.train import Trainer
 
@@ -404,11 +440,11 @@ def phase_train(kind, data, steps, card):
     held_lo = len(data["clicks"]) - TRAIN_BATCH
     held_out = _device_batch(data, held_lo, held_lo + TRAIN_BATCH)
     torch.cuda.reset_peak_memory_stats()
-    model = make_model(kind, device="cuda")
+    model, make_optimizer, per_step, per_forward = _train_spec(kind)
     with torch.no_grad():
         loss_before = float(model.compute_loss(held_out))
-    trainer = Trainer(optim.adamw(3e-3, weight_decay=1e-4), epochs=1,
-                      chunk_batches=4, device="cuda", log_fn=lambda s: None)
+    trainer = Trainer(make_optimizer(), epochs=1, chunk_batches=4,
+                      device="cuda", log_fn=lambda s: None)
     loader = ClickLogLoader(train, batch_size=TRAIN_BATCH, seed=0)
 
     torch.cuda.synchronize()
@@ -417,8 +453,8 @@ def phase_train(kind, data, steps, card):
     history = trainer.train(model, loader)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    kernel = {"dbn": "examination_nll", "dctr": "session_nll"}[kind]
-    launches = check_counts(f"train_{kind}", {kernel: steps})
+    launches = check_counts(f"train_{kind}", {
+        k: n * steps for k, n in per_step.items()})
     train_loss = history[-1]["train_loss"]
     if not math.isfinite(train_loss):
         raise AssertionError(f"{kind}: non-finite train loss {train_loss}")
@@ -431,9 +467,13 @@ def phase_train(kind, data, steps, card):
     held_loader = ClickLogLoader({k: v[held_lo:] for k, v in data.items()},
                                  batch_size=TRAIN_BATCH, shuffle=False,
                                  drop_last=False)
+    reset_counts()
     metrics = trainer.evaluate(model, held_loader)
+    eval_launches = check_counts(f"evaluate_{kind}", {
+        "dcn_cross": 2 * per_forward} if per_forward else {})
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"{kind}: non-finite held-out metrics {metrics}")
+    found = extra(model, held_out) if extra is not None else {}
     # A second epoch, after the counted run: the first one also pays the
     # process's one-time costs (lazy kernel loading, allocator growth).
     torch.cuda.synchronize()
@@ -448,78 +488,352 @@ def phase_train(kind, data, steps, card):
         pass
     torch.cuda.synchronize()
     input_seconds = time.perf_counter() - t0
-    breakdown = _step_breakdown(model, optim.adamw(3e-3, weight_decay=1e-4),
-                                held_out)
-    chunk_timing = _enqueue_ms(model, optim.adamw(3e-3, weight_decay=1e-4),
-                               held_out)
+    breakdown = _step_breakdown(model, make_optimizer(), held_out)
+    chunk_timing = _enqueue_ms(model, make_optimizer(), held_out)
     emit(f"train_{kind}", card=card, steps=steps, batch=TRAIN_BATCH,
          params=model.n_params(), seconds=seconds,
          steps_per_s=steps / seconds,
          sessions_per_s=steps * TRAIN_BATCH / seconds,
          warm_seconds=warm_seconds, warm_steps_per_s=steps / warm_seconds,
+         warm_step_ms=warm_seconds / steps * 1e3,
          warm_sessions_per_s=steps * TRAIN_BATCH / warm_seconds,
          input_seconds=input_seconds,
          max_memory_allocated=peak, launches=launches,
+         eval_launches=eval_launches,
          train_loss=train_loss, held_out_loss_before=loss_before,
          held_out_loss_after=loss_after, held_out_metrics=metrics,
-         step_breakdown_ms=breakdown, chunk_timing=chunk_timing)
+         step_breakdown_ms=breakdown, chunk_timing=chunk_timing, **found)
     del model, trainer
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
+def ubm_marginal_check(model, held_out):
+    """UBM's test pass: ubm_marginal_clicks over the held-out 65,536 x 10 x
+    10, finite, and within 1e-5 of the O(K^2) predict_clicks_loop on the
+    first 512 sessions."""
+    import torch
+
+    with torch.no_grad():
+        lu = model.predict_clicks(held_out)
+        if not bool(torch.isfinite(lu).all()):
+            raise AssertionError("ubm: non-finite marginal click log-probs")
+        head = {k: v[:512] for k, v in held_out.items()}
+        loop = model.predict_clicks_loop(head)
+        if _over(lu[:512], loop, 1e-5) > 0:
+            raise AssertionError(f"ubm: marginal vs loop differ by "
+                                 f"{_max_err(lu[:512], loop)}")
+        ms = time_ms(lambda: model.predict_clicks(held_out), iters=10,
+                     warmup=2)
+    return {"marginal_vs_loop_abs_err": _max_err(lu[:512], loop),
+            "marginal_ms": ms}
+
+
+def ndcg_check(true_attractiveness):
+    """``ndcg(model, batch)``: nDCG@10 of the model's relevance scores on
+    the held-out batch against its true attractiveness graded 0-4
+    (``examples/two_tower.py``)."""
+    import torch
+
+    from repro_torch.core import ndcg_metric
+
+    graded = torch.clamp((torch.from_numpy(true_attractiveness) * 5).long(),
+                         0, 4).cuda()
+
+    def ndcg(model, batch):
+        with torch.no_grad():
+            scores = model.predict_relevance(batch)
+            return float(ndcg_metric(scores, graded, where=batch["mask"],
+                                     top_n=10))
+
+    return ndcg
+
+
+def phase_train_two_tower(kind, data, truth, steps, card):
+    """The Listing-4 PBM or its DCTR twin through phase_train, with nDCG@10
+    of its tower against true attractiveness before and after."""
+    import torch
+
+    from repro_torch.configs.clax_baidu import make_two_tower
+
+    held_lo = len(data["clicks"]) - len(truth)
+    ndcg = ndcg_check(truth)
+    held_out = _device_batch(data, held_lo, len(data["clicks"]))
+    before = ndcg(make_two_tower(kind, device="cuda"), held_out)
+    del held_out
+    torch.cuda.empty_cache()
+    return phase_train(f"two_tower_{kind}", data, steps, card,
+                       extra=lambda model, batch: {
+                           "ndcg10_before": before,
+                           "ndcg10_after": ndcg(model, batch)})
+
+
+def _two_tower_log(n_sessions):
+    """A PBM-behaviour log with 16 query-document features, as
+    ``examples/two_tower.py`` makes it; returns the model's columns and the
+    held-out batch's true attractiveness."""
+    from repro_torch.configs.clax_baidu import TOWER_FEATURES, TRAIN_BATCH
+    from repro_torch.data import SyntheticConfig, generate_click_log
+
+    cfg = SyntheticConfig(n_sessions=n_sessions, n_queries=200,
+                          docs_per_query=15, positions=K_MAIN,
+                          behavior="pbm", seed=1, n_features=TOWER_FEATURES,
+                          exam_decay=0.6, ranker_noise=2.0)
+    data, _ = generate_click_log(cfg)
+    keys = ("positions", "query_doc_ids", "clicks", "mask",
+            "query_doc_features")
+    return ({k: data[k] for k in keys},
+            data["true_attractiveness"][-TRAIN_BATCH:])
+
+
+def _feature_batch(rows, features, seed):
+    """A small numpy click batch with (rows, K, features) features."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, K_MAIN + 1, (rows, 1))
+    return {"positions": np.tile(np.arange(1, K_MAIN + 1, dtype=np.int32),
+                                 (rows, 1)),
+            "query_doc_ids": rng.integers(0, 4000, (rows, K_MAIN)),
+            "clicks": (rng.random((rows, K_MAIN)) < 0.3).astype(np.float32),
+            "mask": np.arange(K_MAIN)[None, :] < lengths,
+            "query_doc_features": rng.normal(
+                size=(rows, K_MAIN, features)).astype(np.float32)}
+
+
 def phase_cpu_vs_gpu(data):
+    """The same weights on the CPU (plain versions) and the card (kernels):
+    loss and every gradient agree to 1e-5, and the GPU loss launches
+    exactly its path's kernels. Small hashed-table DBN, DCTR, CM and UBM on
+    the DBN log; the reduced two-tower PBM and DCTR (8 features) and a
+    mixture of PBM, DCTR and GCTR sharing one tower on a feature batch."""
     import numpy as np
     import torch
 
+    from repro_torch.configs.clax_baidu import make_two_tower
     from repro_torch.convert import export_params, load_jax_params
-    from repro_torch.core import (Compression, DocumentCTR,
+    from repro_torch.core import (CascadeModel, Compression, DocumentCTR,
                                   DynamicBayesianNetwork,
-                                  EmbeddingParameterConfig)
-    from repro_torch.kernels import examination_nll_cuda, session_nll_triton
+                                  EmbeddingParameterConfig, GlobalCTR,
+                                  MixtureModel, UserBrowsingModel)
 
     cfg = EmbeddingParameterConfig(
         parameters=4000, compression=Compression.HASH, compression_ratio=2.0,
         baseline_correction=True, init_logit=-2.0)
-    rows = {k: v[:512] for k, v in data.items()}
+    kw = dict(positions=K_MAIN, attraction=cfg)
+
+    def mixture(device):
+        pbm = make_two_tower("pbm", features=8, device=device)
+        dctr = DocumentCTR(positions=K_MAIN,
+                           attraction=pbm.parts["attraction"], device=device)
+        return MixtureModel([pbm, dctr, GlobalCTR(device=device)],
+                            device=device)
+
+    # name: (model factory, batch, launches of one GPU loss)
+    table_rows = {k: v[:512] for k, v in data.items()}
+    feature_rows = _feature_batch(512, 8, seed=5)
+    paths = {
+        "dbn": (lambda d: DynamicBayesianNetwork(device=d, satisfaction=cfg,
+                                                 **kw),
+                table_rows, {"examination_nll": 1}),
+        "dctr": (lambda d: DocumentCTR(device=d, **kw), table_rows,
+                 {"session_nll": 1}),
+        "cm": (lambda d: CascadeModel(device=d, **kw), table_rows, {}),
+        "ubm": (lambda d: UserBrowsingModel(device=d, **kw), table_rows, {}),
+        "two_tower_pbm": (lambda d: make_two_tower("pbm", 8, d),
+                          feature_rows, {"dcn_cross": 2}),
+        "two_tower_dctr": (lambda d: make_two_tower("dctr", 8, d),
+                           feature_rows, {"dcn_cross": 2, "session_nll": 1}),
+        "mixture": (mixture, feature_rows, {"dcn_cross": 4}),
+    }
     out = {}
-    for kind, cls, counter in (
-            ("dbn", DynamicBayesianNetwork, examination_nll_cuda),
-            ("dctr", DocumentCTR, session_nll_triton)):
-        kw = dict(positions=K_MAIN, attraction=cfg)
-        if kind == "dbn":
-            kw["satisfaction"] = cfg
-        cpu = cls(device="cpu", **kw)
+    for name, (build, rows, expected) in paths.items():
+        cpu = build("cpu")
         rng = np.random.default_rng(1)
         with torch.no_grad():
             for p in cpu.parameters():
                 p.add_(torch.from_numpy(
                     rng.normal(scale=0.5, size=tuple(p.shape)).astype(
                         np.float32)))
-        gpu = cls(device="cuda", **kw)
+        gpu = build("cuda")
         load_jax_params(gpu, export_params(cpu))
-        before = counter.launches
         losses = []
         for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
             batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+            reset_counts()
             loss = model.compute_loss(batch)
             loss.backward()
+            check_counts(f"cpu_vs_gpu {name} {dev}",
+                         expected if dev == "cuda" else {})
             losses.append(float(loss.detach()))
-        if counter.launches != before + 1:
-            raise AssertionError(f"{kind}: the GPU loss did not launch its "
-                                 "kernel")
-        check_close(f"cpu_vs_gpu {kind} loss", losses[1], losses[0],
+        check_close(f"cpu_vs_gpu {name} loss", losses[1], losses[0],
                     rtol=1e-5, atol=1e-5)
         worst = 0.0
-        for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        gpu_params = dict(gpu.named_parameters())
+        for pname, pc in cpu.named_parameters():
+            pg = gpu_params[pname]
             torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=1e-5,
-                                       atol=1e-5, msg=lambda m: f"{kind} "
-                                       f"{name}: {m}")
+                                       atol=1e-5, msg=lambda m: f"{name} "
+                                       f"{pname}: {m}")
             worst = max(worst, float((pg.grad.cpu() - pc.grad).abs().max()))
-        out[kind] = {"loss_cpu": losses[0], "loss_gpu": losses[1],
+        out[name] = {"loss_cpu": losses[0], "loss_gpu": losses[1],
                      "max_grad_abs_err": worst}
     emit("cpu_vs_gpu", **out)
+
+
+# ---------------------------------------------------------------------------
+# dcn_cross: the DCN-V2 cross layer of the two-tower click models
+# ---------------------------------------------------------------------------
+
+TOWER_ROWS = B_MAIN * K_MAIN      # the tower runs on every (session, item)
+
+
+def dcn_bound(rows, dim, itemsize):
+    """(bound_ms, bound_by): x0 and x read once, W and b read once, the
+    float32 output written once; 2 D operations per output element for the
+    product, 3 for the epilogue (+ b, * x0, + x)."""
+    nbytes = (2 * rows * dim + dim * dim + dim) * itemsize + rows * dim * 4
+    ops = rows * dim * (2 * dim + 3)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _dcn_inputs(gen, device, rows, dim, dtype=None, aliased=False,
+                bound=None):
+    """[x0, x, W, b] with the conformance harness's scales (W / sqrt(D)),
+    cast to ``dtype``; x is x0 itself when ``aliased``; x0 and x uniform in
+    [-bound, bound] when ``bound`` is given."""
+    import torch
+
+    def draw(*shape):
+        if bound is None:
+            return torch.randn(*shape, generator=gen, device=device)
+        u = torch.rand(*shape, generator=gen, device=device)
+        return (2.0 * u - 1.0) * bound
+
+    x0 = draw(rows, dim)
+    x = x0 if aliased else draw(rows, dim)
+    w = torch.randn(dim, dim, generator=gen, device=device) / dim ** 0.5
+    b = torch.randn(dim, generator=gen, device=device)
+    if dtype is not None:
+        x0, w, b = x0.to(dtype), w.to(dtype), b.to(dtype)
+        x = x0 if aliased else x.to(dtype)
+    return [x0, x, w, b]
+
+
+def _dcn_cases(gen, device):
+    """name: ([x0, x, W, b], tolerance): 1e-5 for float32 up to D = 130,
+    1e-4 above, where a long dot's summation order differs; 2e-2 for
+    bfloat16 (testing/conformance.py). ``_dcn_over`` applies it."""
+    import torch
+
+    def tol(dim, dtype=None):
+        if dtype is torch.bfloat16:
+            return 2e-2
+        return 1e-5 if dim <= 130 else 1e-4
+
+    cases = {}
+    for rows, dim in ((8, 64), (256, 128), (300, 130), (5, 190), (64, 469),
+                      (1, 1), (65536, 1024), (77, 24), (1000, 33)):
+        cases[f"{rows}x{dim}"] = (_dcn_inputs(gen, device, rows, dim),
+                                  tol(dim))
+    for rows, dim in ((300, 130), (TOWER_ROWS, 16), (64, 469)):
+        cases[f"bf16_{rows}x{dim}"] = (
+            _dcn_inputs(gen, device, rows, dim, dtype=torch.bfloat16),
+            tol(dim, torch.bfloat16))
+    cases["abs36_4097x16"] = (_dcn_inputs(gen, device, 4097, 16, bound=36.0),
+                              tol(16))
+    args = _dcn_inputs(gen, device, 4097, 16, bound=36.0)
+    args[1] = torch.where(args[1] >= 0, 36.0, -36.0)
+    cases["x_at_36_4097x16"] = (args, tol(16))
+    cases["aliased_main"] = (_dcn_inputs(gen, device, TOWER_ROWS, 16,
+                                         aliased=True), tol(16))
+    cases["aliased_300x130"] = (_dcn_inputs(gen, device, 300, 130,
+                                            aliased=True), tol(130))
+    cases["aliased_bf16_300x130"] = (
+        _dcn_inputs(gen, device, 300, 130, dtype=torch.bfloat16,
+                    aliased=True), tol(130, torch.bfloat16))
+    return cases
+
+
+def _dcn_over(got, x0, x, w, b, want, tol):
+    """How far the worst element is past tol (1 + |x0| (|x| |W| + |b|) +
+    |x|) (<= 0: held). The error of x0 (x W + b) + x scales with the size of
+    its terms, not of its result: at |x| = 36 the terms reach ~1e3 and can
+    cancel to a result near 0."""
+    x0, x, w, b = (t.float() for t in (x0, x, w, b))
+    size = x0.abs() * (x.abs() @ w.abs() + b.abs()) + x.abs()
+    return float(((got - want).abs() - tol * (1.0 + size)).max())
+
+
+def phase_dcn_kernel(card):
+    """dcn_cross against its plain version at the two-tower's main shape
+    (655,360 items x D = 16: the second cross layer, x != x0) and the edge
+    cases; times of kernel and plain version at the main shape and at
+    (65,536, 1024), beside their bounds. The composition
+    addcmul(x, x0, addmm(b, x, W)) is timed as a yardstick: no single
+    PyTorch call computes the layer."""
+    import torch
+
+    from repro_torch.kernels import dcn_cross_cuda, dcn_cross_plain
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    main = _dcn_inputs(gen, device, TOWER_ROWS, 16)
+    cases = {"main": (main, 1e-5), **_dcn_cases(gen, device)}
+    errs, over = {}, {}
+    for case, (args, tol) in cases.items():
+        got, want = dcn_cross_cuda(*args), dcn_cross_plain(*args)
+        if (got.shape != want.shape or got.dtype != torch.float32
+                or not bool(torch.isfinite(got).all())):
+            raise AssertionError(f"dcn_cross {case}: bad output")
+        errs[case] = _max_err(got, want)
+        over[case] = _dcn_over(got, *args, want, tol)
+    torch.cuda.synchronize()
+    emit("kernel_check", name="dcn_cross", abs_errs=errs)
+    _hold("dcn_cross", over)
+
+    def composition(x0, x, w, b):
+        return torch.addcmul(x, x0, torch.addmm(b, x, w))
+
+    wide = cases["65536x1024"][0]
+    timing = {}
+    for shape, args in (("main", main), ("65536x1024", wide)):
+        iters = 100 if shape == "main" else 10
+        timing[shape] = {
+            "kernel_ms": time_ms(lambda: dcn_cross_cuda(*args), iters=iters),
+            "plain_ms": time_ms(lambda: dcn_cross_plain(*args), iters=iters),
+            "composition_ms": time_ms(lambda: composition(*args),
+                                      iters=iters),
+            "device_ms": {
+                "kernel": graph_ms(lambda: dcn_cross_cuda(*args)),
+                "plain": graph_ms(lambda: dcn_cross_plain(*args), calls=5),
+                "composition": graph_ms(lambda: composition(*args))},
+            "composition_abs_err": _max_err(composition(*args),
+                                            dcn_cross_plain(*args)),
+            "bound": dcn_bound(args[1].shape[0], args[1].shape[1], 4)}
+    bound_ms, bound_by = timing["main"]["bound"]
+    main_err = errs.pop("main")
+    emit("kernel", name="dcn_cross", shape=[TOWER_ROWS, 16], card=card,
+         kernel_ms=timing["main"]["kernel_ms"],
+         plain_ms=timing["main"]["plain_ms"], library_ms=None,
+         device_ms=timing["main"]["device_ms"], bound_ms=bound_ms,
+         bound_by=bound_by, max_abs_err=main_err, edge_cases=len(errs),
+         max_edge_abs_err=max(errs.values()), edge_abs_errs=errs,
+         timing=timing)
+    del main, wide, cases
+    torch.cuda.empty_cache()
+    return {"dcn_cross": {
+        "name": "dcn_cross", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dcn_cross.cu",
+        "replaces": "src/repro/kernels/dcn_cross.py:18",
+        "max_abs_err": main_err, "ms": timing["main"]["kernel_ms"],
+        "plain_ms": timing["main"]["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "device_ms": timing["main"]["device_ms"], "held": True}}
 
 
 # ---------------------------------------------------------------------------
@@ -1126,11 +1440,17 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(smi)
     kernels.update(phase_recsys_kernels(smi))
+    kernels.update(phase_dcn_kernel(smi))
     data = _synthetic_log(17 * B_MAIN)  # 16 training batches + 1 held out
     dbn = phase_train("dbn", data, 16, smi)
     dctr = phase_train("dctr", data, 8, smi)
+    phase_train("ubm", data, 8, smi, extra=ubm_marginal_check)
     phase_cpu_vs_gpu(data)
     del data
+    tower_data, truth = _two_tower_log(9 * B_MAIN)  # 8 batches + 1 held out
+    two_tower = phase_train_two_tower("pbm", tower_data, truth, 8, smi)
+    phase_train_two_tower("dctr", tower_data, truth, 8, smi)
+    del tower_data
     deepfm = phase_recsys("deepfm", smi)
     autoint = phase_recsys("autoint", smi)
     phase_recsys_cpu_vs_gpu()
@@ -1138,7 +1458,8 @@ def main() -> int:
     for name, counts in (("examination_nll", dbn), ("session_nll", dctr),
                          ("embedding_bag", deepfm),
                          ("fm_interaction", deepfm),
-                         ("flash_attention", autoint)):
+                         ("flash_attention", autoint),
+                         ("dcn_cross", two_tower)):
         kernels[name]["launches"] = counts[name]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

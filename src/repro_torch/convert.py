@@ -2,10 +2,14 @@
 
 A port model names each parameter by its path in the JAX ``init`` tree,
 so the tree maps onto ``named_parameters()`` path by path. A click model's
-tree is ``{part: {leaf: array}}`` and the port keeps it under
-``model.parts``: ``("attraction", "table")`` is ``parts.attraction.table``.
-A recsys model's tree maps with no prefix: ``("embedding", "table")``,
-``("mlp", "layer_0", "kernel")``, ``("attn_0", "wq")``, a 0-d ``("bias",)``.
+tree is ``{part: {...: array}}`` and the port keeps it under
+``model.parts``: ``("attraction", "table")`` is ``parts.attraction.table``,
+a feature tower's ``("attraction", "cross_0", "kernel")`` is
+``parts.attraction.cross_0.kernel``. The mixture model's tree
+(``("prior_logits",)``, ``("store", "m0_attraction", "table")``) and a
+recsys model's (``("embedding", "table")``, ``("mlp", "layer_0",
+"kernel")``, ``("attn_0", "wq")``, a 0-d ``("bias",)``) map with no
+prefix.
 The tree arrives as nested dicts of numpy arrays
 (``jax.device_get(params)``), so this module needs no JAX.
 """

@@ -7,6 +7,7 @@ batch dict of (B, K) tensors on the model's device:
   * ``predict_clicks(batch)``             log P(C=1 | d, k).
   * ``predict_conditional_clicks(batch)`` log P(C=1 | d, k, c_<k).
   * ``predict_relevance(batch)``          ranking scores (log-space).
+  * ``sample(batch, generator)``          click sequences + latent draws.
 
 Batch layout: positions int (1-based), query_doc_ids int, clicks float,
 mask bool (True = real item).
@@ -43,6 +44,22 @@ def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.sum(values * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
+def last_click_positions(clicks: torch.Tensor,
+                         positions: torch.Tensor) -> torch.Tensor:
+    """Rank (1-based) of the most recent click strictly before each
+    position; 0 where no click occurred before. Assumes positions ascend
+    within a session (top-down browsing)."""
+    clicked_rank = torch.where(clicks > 0, positions, 0)
+    cummax = torch.cummax(clicked_rank, dim=1).values
+    # exclusive: shift right one place
+    return torch.cat([torch.zeros_like(cummax[:, :1]), cummax[:, :-1]], dim=1)
+
+
+def clicks_before(clicks: torch.Tensor) -> torch.Tensor:
+    """Number of clicks strictly before each position."""
+    return torch.cumsum(clicks, dim=1) - clicks
+
+
 class ClickModel(Module):
     """Base class: loss defaults to BCE over conditional click log-probs."""
 
@@ -72,4 +89,8 @@ class ClickModel(Module):
         return self.predict_clicks(batch)  # position-independent default
 
     def predict_relevance(self, batch: Batch) -> torch.Tensor:
+        raise NotImplementedError
+
+    def sample(self, batch: Batch, generator: torch.Generator
+               ) -> Dict[str, torch.Tensor]:
         raise NotImplementedError

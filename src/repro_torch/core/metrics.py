@@ -1,5 +1,6 @@
-"""Click-prediction metrics (paper §4.4), port of the streaming click
-metrics of ``repro.core.metrics``.
+"""Click-prediction and ranking metrics (paper §4.4), port of the streaming
+click metrics and the ranking functions (DCG, nDCG, MRR) of
+``repro.core.metrics``.
 
 Streaming accumulators: ``state = metric.init_state(K, device)``,
 ``state = metric.update(state, **outputs)``, ``metric.compute(state)``.
@@ -10,6 +11,7 @@ port does not mirror.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -118,3 +120,57 @@ class MultiMetric:
     def compute_per_rank(self, state):
         return {name: m.compute_per_rank(state[name])
                 for name, m in self.metrics.items()}
+
+
+# ---------------------------------------------------------------------------
+# Ranking metrics (Rax-style pure functions).
+# ---------------------------------------------------------------------------
+
+def _rank_by_score(scores, where):
+    """Ranks (1-based) of each item sorted by descending score; ties keep
+    item order, and items outside ``where`` rank last."""
+    scores = torch.where(where, scores, -math.inf)
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    return torch.argsort(order, dim=-1, stable=True) + 1
+
+
+def _gains_and_discounts(scores, labels, where, top_n):
+    ranks = _rank_by_score(scores, where)
+    gains = (torch.exp2(labels.float()) - 1.0) * where
+    discounts = 1.0 / torch.log2(1.0 + ranks.float())
+    if top_n is not None:
+        discounts = torch.where(ranks <= top_n, discounts, 0.0)
+    return gains, discounts
+
+
+def dcg_metric(scores, labels, where=None, top_n=None):
+    """DCG@top_n = sum gain / log2(1 + rank); gain = 2^label - 1."""
+    if where is None:
+        where = torch.ones_like(scores, dtype=torch.bool)
+    gains, discounts = _gains_and_discounts(scores, labels, where, top_n)
+    return torch.mean(torch.sum(gains * discounts, dim=-1))
+
+
+def ndcg_metric(scores, labels, where=None, top_n=None):
+    """DCG over the DCG of the ideal order (by label); lists with no gain
+    score 0."""
+    if where is None:
+        where = torch.ones_like(scores, dtype=torch.bool)
+    gains, discounts = _gains_and_discounts(scores, labels, where, top_n)
+    dcg = torch.sum(gains * discounts, dim=-1)
+    _, ideal = _gains_and_discounts(labels.float(), labels, where, top_n)
+    idcg = torch.sum(gains * ideal, dim=-1)
+    return torch.mean(torch.where(idcg > 0,
+                                  dcg / torch.clamp_min(idcg, 1e-12), 0.0))
+
+
+def mrr_metric(scores, labels, where=None, top_n=None):
+    """Mean reciprocal rank of the first relevant (label > 0) item."""
+    if where is None:
+        where = torch.ones_like(scores, dtype=torch.bool)
+    ranks = _rank_by_score(scores, where)
+    relevant = (labels > 0) & where
+    rr = torch.where(relevant, 1.0 / ranks.float(), 0.0)
+    if top_n is not None:
+        rr = torch.where(ranks <= top_n, rr, 0.0)
+    return torch.mean(torch.amax(rr, dim=-1))

@@ -1,15 +1,21 @@
-"""The ported click models (paper Appendix A). PBM, CM, UBM and the mixture
-model are still to port (ROADMAP queue A)."""
+"""The ten click models (paper Appendix A) and the mixture meta-model."""
+from repro_torch.core.models.cascade import CascadeModel
 from repro_torch.core.models.chain import (ClickChainModel,
                                            DependentClickModel,
                                            DynamicBayesianNetwork,
                                            SimplifiedDBN)
 from repro_torch.core.models.ctr import DocumentCTR, GlobalCTR, RankCTR
+from repro_torch.core.models.mixture import MixtureModel
+from repro_torch.core.models.pbm import PositionBasedModel
+from repro_torch.core.models.ubm import UserBrowsingModel
 
 MODEL_REGISTRY = {
     "gctr": GlobalCTR,
     "rctr": RankCTR,
     "dctr": DocumentCTR,
+    "pbm": PositionBasedModel,
+    "cm": CascadeModel,
+    "ubm": UserBrowsingModel,
     "dcm": DependentClickModel,
     "ccm": ClickChainModel,
     "dbn": DynamicBayesianNetwork,
@@ -17,7 +23,8 @@ MODEL_REGISTRY = {
 }
 
 __all__ = [
-    "GlobalCTR", "RankCTR", "DocumentCTR", "DependentClickModel",
+    "GlobalCTR", "RankCTR", "DocumentCTR", "PositionBasedModel",
+    "CascadeModel", "UserBrowsingModel", "DependentClickModel",
     "ClickChainModel", "DynamicBayesianNetwork", "SimplifiedDBN",
-    "MODEL_REGISTRY",
+    "MixtureModel", "MODEL_REGISTRY",
 ]

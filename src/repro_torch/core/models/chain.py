@@ -6,13 +6,18 @@ chain eps is an exclusive cumsum of per-position log continuation factors;
 the conditional chain is the capped death-odds recurrence of
 ``core.recursions``. ``compute_loss`` hands the raw attraction logits and
 the probability-space factors to the fused ``examination_nll`` kernel.
-The JAX ``*_scan`` oracles and ``sample`` stay on the JAX side.
+``predict_clicks_scan`` / ``predict_conditional_clicks_scan`` are the
+sequential per-position recursions the vectorized paths replaced, kept as
+their oracles, with JAX's steps op for op: a skip chain multiplies its
+carry's gradient at every position, so the order in which autograd sums
+the gradients shows in float32, and JAX's order agrees with float64.
+``sample`` walks the positions in the same order.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.models.ctr import _logit, _PartsModel
+from repro_torch.core.models.ctr import _bernoulli, _logit, _PartsModel
 from repro_torch.core.parameterization import (EmbeddingParameterConfig,
                                                PositionParameter,
                                                ScalarParameter,
@@ -20,8 +25,21 @@ from repro_torch.core.parameterization import (EmbeddingParameterConfig,
                                                build_parameter)
 from repro_torch.core.recursions import (conditional_examination_odds,
                                          marginal_examination)
-from repro_torch.stable import (log_sigmoid, minimum, sigmoid_core,
-                                sigmoid_parts)
+from repro_torch.stable import (log1mexp, log_add_exp, log_sigmoid, minimum,
+                                sigmoid_core, sigmoid_parts)
+
+
+def _scan_positions(step, init, *arrays):
+    """Run ``step(carry, xs_k) -> (carry, y_k)`` over axis 1 of the given
+    (B, K) tensors, as ``lax.scan`` does; y_k is a (B,) tensor or a tuple of
+    them, and the result the (B, K) stack (or a tuple of stacks)."""
+    carry, ys = init, []
+    for k in range(arrays[0].shape[1]):
+        carry, y = step(carry, tuple(a[:, k] for a in arrays))
+        ys.append(y)
+    if isinstance(ys[0], tuple):
+        return tuple(torch.stack(col, dim=1) for col in zip(*ys))
+    return torch.stack(ys, dim=1)
 
 
 class _ChainModel(_PartsModel):
@@ -32,6 +50,9 @@ class _ChainModel(_PartsModel):
 
     def _attr_logits(self, batch):
         return self.parts["attraction"](batch)
+
+    def _log_attr(self, batch):
+        return log_sigmoid(self._attr_logits(batch))
 
     def _attraction_probs(self, x):
         e, t, pos = sigmoid_core(x)
@@ -111,6 +132,48 @@ class DependentClickModel(_ChainModel):
         lam, lam_not = self._continuation_parts(batch)
         return gn, torch.zeros_like(gn), lam, lam_not
 
+    def _log_terms(self, batch):
+        return (self._log_attr(batch),
+                log_sigmoid(self.parts["continuation"](batch)))
+
+    def predict_clicks_scan(self, batch):
+        la, ll = self._log_terms(batch)
+
+        def step(log_eps, xs):
+            la_k, ll_k = xs
+            log_p = log_eps + la_k
+            return log_eps + log_add_exp(la_k + ll_k, log1mexp(la_k)), log_p
+
+        return _scan_positions(step, torch.zeros_like(la[:, 0]), la, ll)
+
+    def predict_conditional_clicks_scan(self, batch):
+        la, ll = self._log_terms(batch)
+
+        def step(log_eps, xs):
+            la_k, ll_k, c_k = xs
+            log_p = log_eps + la_k
+            skip = log1mexp(la_k) + log_eps - log1mexp(la_k + log_eps)
+            return torch.where(c_k > 0, ll_k, skip), log_p
+
+        return _scan_positions(step, torch.zeros_like(la[:, 0]), la, ll,
+                               batch["clicks"].float())
+
+    def sample(self, batch, generator):
+        la, ll = self._log_terms(batch)
+        attracted = _bernoulli(la, generator)
+        cont_u = torch.rand(la.shape, generator=generator, device=la.device)
+
+        def step(examining, xs):
+            a_k, ll_k, u = xs
+            click = examining * a_k
+            keep = torch.where(click > 0, (u < torch.exp(ll_k)).float(), 1.0)
+            return examining * keep, (click, examining)
+
+        clicks, examined = _scan_positions(step, torch.ones_like(la[:, 0]),
+                                           attracted, ll, cont_u)
+        return {"clicks": clicks * batch["mask"].float(),
+                "attraction": attracted, "examination": examined}
+
 
 class ClickChainModel(_ChainModel):
     """CCM: three continuation scenarios tau_1/2/3 (Eq. 29-30)."""
@@ -148,6 +211,58 @@ class ClickChainModel(_ChainModel):
         t2, t2n, _, _ = sigmoid_parts(x2)
         t3, t3n, _, _ = sigmoid_parts(x3)
         return (gn * t1, gn * t1n, g * t3 + gn * t2, g * t3n + gn * t2n)
+
+    def _log_terms(self, batch):
+        return self._log_attr(batch), tuple(
+            log_sigmoid(self.parts[f"tau_{i}"](batch)) for i in (1, 2, 3))
+
+    def predict_clicks_scan(self, batch):
+        la, (lt1, lt2, lt3) = self._log_terms(batch)
+
+        def step(log_eps, xs):
+            la_k, lt1_k, lt2_k, lt3_k = xs
+            log_p = log_eps + la_k
+            inner = log_add_exp(log1mexp(la_k) + lt2_k, la_k + lt3_k)
+            cont = log_add_exp(la_k + inner, log1mexp(la_k) + lt1_k)
+            return log_eps + cont, log_p
+
+        return _scan_positions(step, torch.zeros_like(la[:, 0]), la, lt1,
+                               lt2, lt3)
+
+    def predict_conditional_clicks_scan(self, batch):
+        la, (lt1, lt2, lt3) = self._log_terms(batch)
+
+        def step(log_eps, xs):
+            la_k, lt1_k, lt2_k, lt3_k, c_k = xs
+            log_p = log_eps + la_k
+            click = log_add_exp(la_k + lt3_k, log1mexp(la_k) + lt2_k)
+            skip = (log1mexp(la_k) + log_eps + lt1_k
+                    - log1mexp(la_k + log_eps))
+            return torch.where(c_k > 0, click, skip), log_p
+
+        return _scan_positions(step, torch.zeros_like(la[:, 0]), la, lt1,
+                               lt2, lt3, batch["clicks"].float())
+
+    def sample(self, batch, generator):
+        la, (lt1, lt2, lt3) = self._log_terms(batch)
+        attracted = _bernoulli(la, generator)
+        satisfied = _bernoulli(la, generator)
+        cont_u = torch.rand(la.shape, generator=generator, device=la.device)
+
+        def step(examining, xs):
+            a_k, s_k, lt1_k, lt2_k, lt3_k, u = xs
+            click = examining * a_k
+            log_cont = torch.where(click > 0,
+                                   torch.where(s_k > 0, lt3_k, lt2_k), lt1_k)
+            keep = (u < torch.exp(log_cont)).float()
+            return examining * keep, (click, examining)
+
+        clicks, examined = _scan_positions(
+            step, torch.ones_like(la[:, 0]), attracted, satisfied, lt1, lt2,
+            lt3, cont_u)
+        return {"clicks": clicks * batch["mask"].float(),
+                "attraction": attracted, "satisfaction": satisfied,
+                "examination": examined}
 
 
 class DynamicBayesianNetwork(_ChainModel):
@@ -199,6 +314,56 @@ class DynamicBayesianNetwork(_ChainModel):
             return gn, torch.zeros_like(gn), no_sat, sat
         c, c_not, _, _ = sigmoid_parts(lam)
         return gn * c, gn * c_not, c * no_sat, c_not + c * sat
+
+    def _log_terms(self, batch):
+        la = self._log_attr(batch)
+        ls = log_sigmoid(self.parts["satisfaction"](batch))
+        lc = (torch.zeros_like(la) if self.fixed_continuation
+              else log_sigmoid(self.parts["continuation"](batch)))
+        return la, ls, lc
+
+    def predict_clicks_scan(self, batch):
+        la, ls, lc = self._log_terms(batch)
+
+        def step(log_eps, xs):
+            la_k, ls_k, lc_k = xs
+            log_p = log_eps + la_k
+            return log_eps + lc_k + log1mexp(la_k + ls_k), log_p
+
+        return _scan_positions(step, torch.zeros_like(la[:, 0]), la, ls, lc)
+
+    def predict_conditional_clicks_scan(self, batch):
+        la, ls, lc = self._log_terms(batch)
+
+        def step(log_eps, xs):
+            la_k, ls_k, lc_k, c_k = xs
+            log_p = log_eps + la_k
+            skip = log1mexp(la_k) + log_eps - log1mexp(la_k + log_eps)
+            return lc_k + torch.where(c_k > 0, log1mexp(ls_k), skip), log_p
+
+        return _scan_positions(step, torch.zeros_like(la[:, 0]), la, ls, lc,
+                               batch["clicks"].float())
+
+    def sample(self, batch, generator):
+        la, ls, lc = self._log_terms(batch)
+        attracted = _bernoulli(la, generator)
+        satisfied_draw = _bernoulli(ls, generator)
+        cont_u = torch.rand(la.shape, generator=generator, device=la.device)
+
+        def step(examining, xs):
+            a_k, s_k, lc_k, u = xs
+            click = examining * a_k
+            satisfied = click * s_k
+            cont = (u < torch.exp(lc_k)).float()
+            return (examining * (1.0 - satisfied) * cont,
+                    (click, examining, satisfied))
+
+        clicks, examined, satisfied = _scan_positions(
+            step, torch.ones_like(la[:, 0]), attracted, satisfied_draw, lc,
+            cont_u)
+        return {"clicks": clicks * batch["mask"].float(),
+                "attraction": attracted, "satisfaction": satisfied,
+                "examination": examined}
 
     def predict_relevance(self, batch):
         """DBN ranks by attractiveness * satisfaction (paper §4.1)."""

@@ -19,9 +19,22 @@ def _logit(p: float) -> float:
     return math.log(p) - math.log1p(-p)
 
 
+def _bernoulli(log_p: torch.Tensor, generator: torch.Generator
+               ) -> torch.Tensor:
+    """1.0 where a uniform draw falls below exp(log_p), else 0.0."""
+    u = torch.rand(log_p.shape, generator=generator, device=log_p.device)
+    return (u < torch.exp(log_p)).float()
+
+
 class _PartsModel(ClickModel):
     """Shared plumbing: the model's variables live in ``self.parts``, an
-    ``nn.ModuleDict`` keyed like the JAX ``parts`` dict."""
+    ``nn.ModuleDict`` keyed like the JAX ``parts`` dict. ``sample`` draws
+    one Bernoulli per item from the marginal click probabilities, which is
+    the CTR family's sampler; the other models override it."""
+
+    def sample(self, batch, generator):
+        clicks = _bernoulli(self.predict_clicks(batch), generator)
+        return {"clicks": clicks * batch["mask"].float()}
 
 
 class GlobalCTR(_PartsModel):

@@ -1,23 +1,27 @@
 """Parameterizations: the "how" of each click-model variable (paper §4.2).
 
-Port of the table and scalar parameterizations of
-``repro.core.parameterization``: ``EmbeddingParameter`` (plain, hashing
-trick [Weinberger 2009], quotient-remainder [Shi 2020], optional baseline
-correction), ``PositionParameter`` and ``ScalarParameter``. Each is a
-module that maps a batch to per-item logits; parameter names and shapes are
-those of the JAX ``init`` tree, and the initial values are the same
-constants.
+Port of ``repro.core.parameterization``: ``EmbeddingParameter`` (plain,
+hashing trick [Weinberger 2009], quotient-remainder [Shi 2020], optional
+baseline correction), ``PositionParameter``, ``UBMExaminationParameter``,
+``ScalarParameter`` and ``FeatureParameter`` (Linear / MLP / DeepCrossV2
+towers over feature vectors: the paper's two-tower form). Each is a module
+that maps a batch to per-item logits; parameter names and shapes are those
+of the JAX ``init`` tree. The tables start at the same constants; the
+towers draw their random weights from a ``torch.Generator`` seeded with 0,
+which gives other numbers than ``jax.random`` (parity tests carry JAX's
+weights over with ``repro_torch.convert``).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.nn import init as initializers
+from repro_torch.nn.layers import MLP, DeepCrossV2, Dense
 from repro_torch.nn.module import Module
 
 # Compressed tables round up to a multiple of this (repro: SHARD_MULTIPLE).
@@ -32,6 +36,11 @@ class Compression(str, enum.Enum):
     NONE = "none"
     HASH = "hash"
     QR = "quotient_remainder"
+
+
+class Combination(str, enum.Enum):
+    STACKED = "stacked"
+    PARALLEL = "parallel"
 
 
 @dataclasses.dataclass
@@ -49,6 +58,31 @@ class EmbeddingParameterConfig:
 class ScalarParameterConfig:
     init_prob: float = 0.5
     features: int = 1
+
+
+@dataclasses.dataclass
+class LinearParameterConfig:
+    features: int
+    use_feature: str = "query_doc_features"
+    out_features: int = 1
+
+
+@dataclasses.dataclass
+class MLPParameterConfig:
+    features: int
+    hidden: Sequence[int] = (64, 64)
+    use_feature: str = "query_doc_features"
+    out_features: int = 1
+
+
+@dataclasses.dataclass
+class DeepCrossParameterConfig:
+    features: int
+    cross_layers: int = 2
+    deep_layers: int = 2
+    use_feature: str = "query_doc_features"
+    combination: Combination = Combination.STACKED
+    out_features: int = 1
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +204,24 @@ class PositionParameter(Module):
         return self.gather(self.table, batch)
 
 
+class UBMExaminationParameter(Module):
+    """theta_{k,k'} table: examination at rank k given last click at rank
+    k'. k' == 0 encodes "no previous click". Table shape (K, K): entry
+    [k-1, k'] for k in 1..K, k' in 0..K-1 (k' < k always)."""
+
+    def __init__(self, positions: int, init_logit: float = 0.0, device=None):
+        super().__init__()
+        self.positions = positions
+        self.table = torch.nn.Parameter(initializers.constant(init_logit)(
+            (positions, positions), device))
+
+    def logit(self, k: torch.Tensor, k_prime: torch.Tensor) -> torch.Tensor:
+        """k: 1-based rank tensor; k_prime: last-click rank (0 = none)."""
+        k_idx = torch.clamp(k.to(torch.int64) - 1, 0, self.positions - 1)
+        kp_idx = torch.clamp(k_prime.to(torch.int64), 0, self.positions - 1)
+        return self.table[k_idx, kp_idx]
+
+
 class ScalarParameter(Module):
     """Single shared logit, broadcast to the batch shape."""
 
@@ -185,12 +237,75 @@ class ScalarParameter(Module):
         return self.value.expand(batch["positions"].shape)
 
 
+class FeatureParameter(Module):
+    """Feature-vector tower: Linear / MLP / DeepCrossV2 -> logit per item.
+
+    ``FeatureParameter(config)`` makes the tower class for the config
+    (``Dense``, ``MLP`` or ``DeepCrossV2`` under this class), so the tower's
+    layers are this module's own: JAX's ``FeatureParameter.init`` returns
+    the tower's tree with no level for the tower, and the names read
+    ``attraction/cross_0/kernel``, ``attraction/deep/layer_0/kernel`` and
+    ``attraction/head/bias`` as there. The weights come from a generator
+    seeded with 0.
+    """
+
+    def __new__(cls, config=None, device=None):
+        if cls is FeatureParameter:
+            towers = {LinearParameterConfig: _LinearTower,
+                      MLPParameterConfig: _MLPTower,
+                      DeepCrossParameterConfig: _DeepCrossTower}
+            if type(config) not in towers:
+                raise ValueError(f"unsupported feature config {config}")
+            cls = towers[type(config)]
+        return super().__new__(cls)
+
+    def forward(self, batch) -> torch.Tensor:
+        logits = super().forward(batch[self.config.use_feature])
+        if self.config.out_features == 1:
+            logits = logits.squeeze(-1)
+        return logits
+
+
+def _generator(device) -> torch.Generator:
+    return torch.Generator(device=torch.device(device or "cpu")).manual_seed(0)
+
+
+class _LinearTower(FeatureParameter, Dense):
+    def __init__(self, config, device=None):
+        Dense.__init__(self, config.features, config.out_features,
+                       _generator(device), device=device)
+        self.config = config
+
+
+class _MLPTower(FeatureParameter, MLP):
+    def __init__(self, config, device=None):
+        MLP.__init__(self, config.features, list(config.hidden),
+                     config.out_features, _generator(device), device=device)
+        self.config = config
+
+
+class _DeepCrossTower(FeatureParameter, DeepCrossV2):
+    def __init__(self, config, device=None):
+        DeepCrossV2.__init__(
+            self, config.features, _generator(device),
+            cross_layers=config.cross_layers, deep_layers=config.deep_layers,
+            out_features=config.out_features,
+            combination=Combination(config.combination).value, device=device)
+        self.config = config
+
+
+FEATURE_CONFIGS = (LinearParameterConfig, MLPParameterConfig,
+                   DeepCrossParameterConfig)
+
+
 def build_parameter(config, device=None):
     """Factory: config dataclass (or a ready module) -> parameter module."""
     if isinstance(config, EmbeddingParameterConfig):
         return EmbeddingParameter(config, device)
     if isinstance(config, ScalarParameterConfig):
         return ScalarParameter(config, device)
+    if isinstance(config, FEATURE_CONFIGS):
+        return FeatureParameter(config, device)
     if isinstance(config, torch.nn.Module):
         return config
     raise ValueError(f"cannot build parameter from {config!r}")

@@ -1,7 +1,9 @@
 """The port's Hopper kernels, each beside its plain-torch version (port of
-``repro.kernels``): ``examination_nll``, ``embedding_bag`` and
-``flash_attention`` in CUDA C++, ``session_nll`` and ``fm_interaction`` in
-Triton, plus the public ops with autograd that route by device."""
+``repro.kernels``): ``examination_nll``, ``embedding_bag``,
+``flash_attention`` and ``dcn_cross`` in CUDA C++, ``session_nll`` and
+``fm_interaction`` in Triton, plus the public ops with autograd that route
+by device."""
+from repro_torch.kernels.dcn_cross import dcn_cross_cuda, dcn_cross_plain
 from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
                                                embedding_bag_plain)
 from repro_torch.kernels.examination_nll import (examination_nll_cuda,
@@ -10,16 +12,17 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.fm_interaction import (fm_interaction_plain,
                                                 fm_interaction_triton)
-from repro_torch.kernels.ops import (embedding_bag, examination_nll,
-                                     flash_attention, fm_interaction,
-                                     session_nll)
-from repro_torch.kernels.ref import (embedding_bag_ref, examination_nll_ref,
-                                     flash_attention_ref, fm_interaction_ref,
-                                     session_nll_ref)
+from repro_torch.kernels.ops import (dcn_cross, embedding_bag,
+                                     examination_nll, flash_attention,
+                                     fm_interaction, session_nll)
+from repro_torch.kernels.ref import (dcn_cross_ref, embedding_bag_ref,
+                                     examination_nll_ref, flash_attention_ref,
+                                     fm_interaction_ref, session_nll_ref)
 from repro_torch.kernels.session_nll import (session_nll_plain,
                                              session_nll_triton)
 
 __all__ = [
+    "dcn_cross", "dcn_cross_cuda", "dcn_cross_plain", "dcn_cross_ref",
     "embedding_bag", "embedding_bag_cuda", "embedding_bag_plain",
     "embedding_bag_ref", "examination_nll", "examination_nll_cuda",
     "examination_nll_plain", "examination_nll_ref", "flash_attention",

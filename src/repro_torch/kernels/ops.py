@@ -1,5 +1,6 @@
 """Public kernel ops with autograd: ``session_nll``, ``examination_nll``,
-``embedding_bag``, ``fm_interaction`` and ``flash_attention``.
+``embedding_bag``, ``fm_interaction``, ``flash_attention`` and
+``dcn_cross``.
 
 Port of ``repro.kernels.ops``. The device picks the forward: a CUDA tensor
 launches the hand-written kernel (or raises), a CPU tensor takes the
@@ -18,6 +19,9 @@ each backward is plain PyTorch (no TPU kernel has a Pallas backward):
 * ``fm_interaction``: the closed form
   dv[b,f,d] = g[b] (sum_f v[b,:,d] - v[b,f,d]).
 * ``flash_attention``: autograd of the plain version, recomputed.
+* ``dcn_cross``: the closed form with z = x W + b recomputed and h = g x0:
+  dx0 = g z, dx = h W^T + g, dW = x^T h, db = sum_rows h. When x is x0
+  (the first cross layer), autograd adds both contributions into it.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.dcn_cross import dcn_cross_cuda, dcn_cross_plain
 from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
                                                embedding_bag_plain)
 from repro_torch.kernels.examination_nll import (examination_nll_cuda,
@@ -227,3 +232,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hq % Hkv == 0 -> (B, Hq, Sq, Dh); causal aligns q to the end of KV."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal, scale)
+
+
+class _DcnCross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0, x, w, b):
+        ctx.save_for_backward(x0, x, w, b)
+        fn = _route(x.device, dcn_cross_cuda, dcn_cross_plain)
+        return fn(x0, x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x0, x, w, b = ctx.saved_tensors
+        g = g.float()
+        wf = w.float()
+        h = g * x0.float()
+        d = [None] * 4
+        if ctx.needs_input_grad[0]:
+            z = torch.matmul(x.float(), wf) + b.float()
+            d[0] = (g * z).to(x0.dtype)
+        if ctx.needs_input_grad[1]:
+            d[1] = (torch.matmul(h, wf.t()) + g).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            d[2] = torch.matmul(x.float().t(), h).to(w.dtype)
+        if ctx.needs_input_grad[3]:
+            d[3] = torch.sum(h, dim=0).to(b.dtype)
+        return tuple(d)
+
+
+def dcn_cross(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """DCN-V2 cross layer x0 * (x @ W + b) + x: x0 and x (B, D), W (D, D)
+    in the (in, out) layout, b (D,) -> (B, D) float32. Inputs of mixed
+    dtypes are all cast to float32 (the function casts each to float32)."""
+    ts = (x0, x, w, b)
+    if len({t.dtype for t in ts}) > 1:
+        ts = tuple(t.float() for t in ts)
+    # x0 and x are often one tensor (the first cross layer); contiguous()
+    # keeps it one, so the kernel reads a single buffer.
+    return _DcnCross.apply(*(t.contiguous() for t in ts))

@@ -1,6 +1,6 @@
 """Plain-torch oracles of the ported kernels (port of ``repro.kernels.ref``:
-``embedding_bag_ref``, ``fm_interaction_ref``, ``flash_attention_ref``,
-``session_nll_ref`` and ``examination_nll_ref``).
+``embedding_bag_ref``, ``fm_interaction_ref``, ``dcn_cross_ref``,
+``flash_attention_ref``, ``session_nll_ref`` and ``examination_nll_ref``).
 
 Each is the literal composition the fused kernel replaces, with no
 performance tricks. ``examination_nll_ref`` is also what the public
@@ -30,6 +30,13 @@ def fm_interaction_ref(v) -> torch.Tensor:
     sum_sq = torch.square(torch.sum(vf, dim=1))
     sq_sum = torch.sum(torch.square(vf), dim=1)
     return 0.5 * torch.sum(sum_sq - sq_sum, dim=-1)
+
+
+def dcn_cross_ref(x0, x, w, b) -> torch.Tensor:
+    """DCN-V2 cross layer y = x0 * (x @ W + b) + x. x0, x (B, D), w (D, D),
+    b (D,) -> (B, D) float32."""
+    xf = x.float()
+    return x0.float() * (xf @ w.float() + b.float()) + xf
 
 
 def flash_attention_ref(q, k, v, causal=False, scale=None) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Training launcher for the port's click models (in-memory path).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --model dbn \\
+    PYTHONPATH=src python -m repro_torch.launch.train --model ubm \\
         [--sessions 200000] [--epochs 20] [--batch 2048] \\
         [--compression hash --ratio 10] [--chunk-batches 8] [--device cuda]
 
-Synthesizes a DBN-behaviour click log, splits it 80/10/10, trains with
+Synthesizes a DBN-behaviour click log, splits it 80/10/10, trains any of
+the ten click models (UBM by default, as in ``repro.launch.train``) with
 AdamW and prints the test metrics. Runs on the GPU unless ``--device cpu``.
 Port of the in-memory path of ``repro.launch.train``; the store, replica,
 fault-tolerance and telemetry options wait for later slices.
@@ -23,9 +24,7 @@ from repro_torch.train import Trainer
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    # The JAX launcher defaults to ubm; the port's default is dbn until UBM
-    # is ported.
-    ap.add_argument("--model", default="dbn", choices=sorted(MODEL_REGISTRY))
+    ap.add_argument("--model", default="ubm", choices=sorted(MODEL_REGISTRY))
     ap.add_argument("--sessions", type=int, default=200_000)
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--batch", type=int, default=2048)
