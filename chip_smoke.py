@@ -8,15 +8,21 @@ Phases, each printing JSON lines:
 1. device         the card's name, count, power limit (nvidia-smi).
 2. build          nvcc builds every CUDA source (examination_nll,
                   embedding_bag, flash_attention, dcn_cross) at once into
-                  src/repro_torch/kernels/build/, with ptxas's register
-                  and spill report.
+                  src/repro_torch/kernels/build/, with ptxas's registers
+                  and spill bytes for every kernel entry (flash_attention's
+                  attention_rows_kernel and attention_tiles_kernel
+                  instances among them).
 3. kernels        each hand-written kernel against its plain PyTorch
                   version on the card, at its main-path shape and at edge
                   shapes; times of kernel, plain version, library call, and
                   the bound. The loss kernels at 65,536 x 10; embedding_bag
                   at DeepFM's first-order bag over the real 80,000,000-row
                   table; fm_interaction at (65,536, 39, 10);
-                  flash_attention at AutoInt's (65,536, 2, 2, 39, 39, 16);
+                  flash_attention at AutoInt's (65,536, 2, 2, 39, 39, 16)
+                  in float32 and bfloat16, contiguous and in AutoInt's
+                  (B, S, H, Dh)-backed layout, each case with the variant
+                  (rows or tiles) its launch plan took, and the first
+                  design (the tiles variant) timed at the main shape;
                   dcn_cross at the two-tower's (655,360, 16), the
                   conformance and sweep shapes, (65,536, 1024) and bf16.
 4. train_dbn      the paper-width DBN (2 x 214,748,672 hashed rows, batch
@@ -60,6 +66,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -254,6 +261,25 @@ def phase_device():
     return kind, smi
 
 
+def ptxas_entries(log):
+    """ptxas -v's report per kernel entry: registers and spill bytes."""
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            entries.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return entries
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -263,9 +289,7 @@ def phase_build():
     for name, info in builds.items():
         emit("build", kernel=name, seconds=info.seconds, wall_seconds=wall,
              library=os.path.relpath(info.path, ROOT),
-             ptxas=[line.strip() for line in info.log.splitlines()
-                    if "registers" in line or "spill" in line
-                    or "Compiling entry" in line])
+             entries=ptxas_entries(info.log))
 
 
 def phase_kernels(card):
@@ -926,11 +950,13 @@ def fm_bound(v):
 
 
 def flash_bound(q, k, v):
-    """Non-causal: q, k, v read once, o written once; per (query, key) pair
-    2 Dh operations for the score, 2 Dh for the weighted sum, one exp."""
+    """Non-causal: q, k, v read once, o written once, in their own type;
+    per (query, key) pair 2 Dh operations for the score, 2 Dh for the
+    weighted sum, one exp, all float32."""
     B, Hq, Sq, Dh = q.shape
     pairs = Sq * k.shape[2]
-    t_bytes = 4 * (2 * q.numel() + k.numel() + v.numel()) / PEAK_BYTES_PER_S
+    t_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()
+                                  ) / PEAK_BYTES_PER_S
     t_ops = B * Hq * pairs * (4 * Dh + 1) / PEAK_FP32_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -998,6 +1024,12 @@ def _attn_inputs(gen, device, B, Hq, Hkv, Sq, Skv, Dh):
     return [q, k, v]
 
 
+def _autoint_layout(args):
+    """The same values as transpose(1, 2) views of contiguous (B, S, H, Dh)
+    tensors: the layout AutoInt's projections hand the kernel."""
+    return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in args]
+
+
 def _flash_cases(gen, device):
     """([q, k, v], causal) by name, from (B, Hq, Hkv, Sq, Skv, Dh, causal)."""
     shapes = {"conf_2x4x2x16x16x32": (2, 4, 2, 16, 16, 32, False),
@@ -1010,7 +1042,9 @@ def _flash_cases(gen, device):
               "dh64": (4, 2, 2, 39, 39, 64, False),
               "dh128": (2, 2, 2, 100, 100, 128, False),
               "dh4_reduced_autoint": (16, 2, 2, 8, 8, 4, False),
-              "ragged_b_autoint": (129, 2, 2, 39, 39, 16, False)}
+              "ragged_b_autoint": (129, 2, 2, 39, 39, 16, False),
+              "causal_rows_dh16": (7, 4, 2, 20, 39, 16, True),
+              "gqa_3to1_dh8": (33, 3, 1, 10, 12, 8, False)}
     return {name: (_attn_inputs(gen, device, *shape[:6]), shape[6])
             for name, shape in shapes.items()}
 
@@ -1033,8 +1067,11 @@ def phase_recsys_kernels(card):
     * fm_interaction: rtol 1e-5, atol 1e-5 * sum_{f,d} v^2 of the row. The
       result is a difference of two sums of that size, so rounding in
       either sum shows at that scale whatever the order.
-    * flash_attention: rtol 1e-5, atol 1e-5 (the conformance contract):
-      online softmax rescales per 16 keys where the plain one takes one max.
+    * flash_attention: rtol 1e-5, atol 1e-5 for float32 (the conformance
+      contract): online softmax rescales per 8 keys (rows variant) or 16
+      (tiles) where the plain one takes one max, and exp2 is within 2 ulp;
+      rtol 2e-2, atol 2e-2 for bfloat16 inputs (the conformance bfloat16
+      contract), the output rounded to bfloat16 by both forms.
     """
     import torch
     import torch.nn.functional as F
@@ -1044,6 +1081,7 @@ def phase_recsys_kernels(card):
                                      flash_attention_plain,
                                      fm_interaction_plain,
                                      fm_interaction_triton)
+    from repro_torch.kernels.flash_attention import plan_for
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device)
@@ -1130,18 +1168,30 @@ def phase_recsys_kernels(card):
            fm_interaction_plain, None, [v], errs, fm_bound(v))
     del v, cases
 
-    # flash_attention at AutoInt's attention shape.
+    # flash_attention at AutoInt's attention shape: float32 and bfloat16,
+    # contiguous and in AutoInt's (B, S, H, Dh)-backed layout, and the edge
+    # shapes in both types; each case names the variant launch_plan gave.
     main = _attn_inputs(gen, device, *ATTN)
-    cases = {"main": (main, False), **_flash_cases(gen, device)}
-    errs, over = {}, {}
+    cases = {"main": (main, False),
+             "main_autoint_layout": (_autoint_layout(main), False),
+             **_flash_cases(gen, device)}
+    cases.update({f"bf16_{case}": ([t.bfloat16() for t in args], causal)
+                  for case, (args, causal) in list(cases.items())})
+    errs, over, variants = {}, {}, {}
     for case, (args, causal) in cases.items():
+        tol = 2e-2 if args[0].dtype == torch.bfloat16 else 1e-5
         got = flash_attention_cuda(*args, causal=causal)
         want = flash_attention_plain(*args, causal=causal)
-        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        if (got.shape != want.shape or got.dtype != args[0].dtype
+                or got.stride() != want.stride()
+                or not bool(torch.isfinite(got).all())):
             raise AssertionError(f"flash_attention {case}: bad output")
-        errs[case], over[case] = _max_err(got, want), _over(got, want, 1e-5)
+        errs[case] = _max_err(got, want)
+        over[case] = _over(got, want, tol, rtol=tol)
+        variants[case] = plan_for(*args, causal).variant
     torch.cuda.synchronize()
-    emit("kernel_check", name="flash_attention", abs_errs=errs)
+    emit("kernel_check", name="flash_attention", abs_errs=errs,
+         variants=variants)
     _hold("flash_attention", over)
 
     def attn_library(q, k, v):
@@ -1158,7 +1208,45 @@ def phase_recsys_kernels(card):
            "src/repro/kernels/flash_attention.py:30", list(ATTN),
            flash_attention_cuda, flash_attention_plain, attn_library, main,
            errs, flash_bound(*main))
-    results["flash_attention"]["library_max_abs_err"] = library_err
+    entry = results["flash_attention"]
+    entry["library_max_abs_err"] = library_err
+    entry["plan"] = plan_for(*main)._asdict()
+    # The main shape in bfloat16 and in AutoInt's layout, and the first
+    # design (the tiles variant) at the main shape, timed in this run.
+    for form, case in (("bf16", "bf16_main"),
+                       ("autoint_layout", "main_autoint_layout")):
+        args = cases[case][0]
+        bound_ms, bound_by = flash_bound(*args)
+        entry[form] = {
+            "ms": time_ms(lambda: flash_attention_cuda(*args), iters=100),
+            "device_ms": graph_ms(lambda: flash_attention_cuda(*args)),
+            "plain_device_ms": graph_ms(
+                lambda: flash_attention_plain(*args), calls=5),
+            "library_device_ms": graph_ms(lambda: attn_library(*args)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plan": plan_for(*args)._asdict(), "max_abs_err": errs[case]}
+    tiles = plan_for(*main, variant="tiles")
+    entry["tiles_variant_device_ms"] = graph_ms(
+        lambda: flash_attention_cuda(*main, plan=tiles))
+    # launch_plan's choice of P batch rows per group and ring stages
+    # beside its neighbours, device ms at the main shape in both types.
+    sweep = {}
+    for form, args in (("fp32", main), ("bf16", cases["bf16_main"][0])):
+        for P, S in ((None, None), (2, 2), (3, 1), (3, 3), (4, 2), (6, 2)):
+            try:
+                plan = plan_for(*args, per_group=P, stages=S)
+            except ValueError:  # does not fit one block
+                continue
+            key = (f"{form}_P{plan.per_group}_S{plan.stages}"
+                   + ("_default" if P is None else ""))
+            sweep[key] = graph_ms(
+                lambda: flash_attention_cuda(*args, plan=plan), calls=10,
+                replays=5)
+    entry["plan_sweep_device_ms"] = sweep
+    emit("kernel_forms", name="flash_attention", card=card,
+         shape=list(ATTN), **{k: entry[k] for k in (
+             "plan", "bf16", "autoint_layout", "tiles_variant_device_ms",
+             "plan_sweep_device_ms")})
     del main, cases
     torch.cuda.empty_cache()
     return results

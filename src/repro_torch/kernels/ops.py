@@ -36,6 +36,7 @@ from repro_torch.kernels.examination_nll import (examination_nll_cuda,
                                                  examination_nll_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention import layout as attention_layout
 from repro_torch.kernels.fm_interaction import (fm_interaction_plain,
                                                 fm_interaction_triton)
 from repro_torch.kernels.ref import examination_nll_ref
@@ -229,9 +230,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Softmax attention, q (B, Hq, Sq, Dh) and k, v (B, Hkv, Skv, Dh) with
-    Hq % Hkv == 0 -> (B, Hq, Sq, Dh); causal aligns q to the end of KV."""
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal, scale)
+    Hq % Hkv == 0 -> (B, Hq, Sq, Dh) in q's layout; causal aligns q to the
+    end of KV. Each input is taken as it is when contiguous or the
+    transpose(1, 2) view of a contiguous (B, S, H, Dh) tensor, and copied
+    to contiguous otherwise."""
+    q, k, v = (t if attention_layout(t) is not None else t.contiguous()
+               for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, scale)
 
 
 class _DcnCross(torch.autograd.Function):

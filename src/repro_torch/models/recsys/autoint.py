@@ -68,10 +68,12 @@ class AutoInt(TabularModel):
         for l in range(cfg.n_attn_layers):
             lp = getattr(self, f"attn_{l}")
 
-            def heads(w):  # (B, F, d) -> contiguous (B, H, F, d / H)
-                return (h @ w).reshape(B, F, cfg.n_heads, -1).transpose(
-                    1, 2).contiguous()
+            def heads(w):  # (B, F, d) -> (B, H, F, d / H), a view
+                return (h @ w).reshape(B, F, cfg.n_heads, -1).transpose(1, 2)
 
+            # The op takes the (B, F, H, d / H)-backed views as they are
+            # and returns its output in the same layout, so neither side
+            # of the attention is copied.
             attn = flash_attention(heads(lp["wq"]), heads(lp["wk"]),
                                    heads(lp["wv"]), causal=False)
             attn = attn.transpose(1, 2).reshape(B, F, -1)

@@ -240,10 +240,13 @@ def test_flash_attention_explicit_scale_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def _online_softmax_emulation(q, k, v, causal, chunk=16):
-    """The CUDA kernel's arithmetic written in torch: K/V walked 16 keys at
-    a time, masked keys given p = 0, one rescale of (l, acc) per chunk, the
-    output divided by max(l, 1e-30)."""
+def _online_softmax_emulation(q, k, v, causal, chunk=16, base2=False):
+    """The CUDA kernel's arithmetic written in torch: K/V walked ``chunk``
+    keys at a time (the last chunk as long as the keys left), masked keys
+    given p = 0, one rescale of (l, acc) per chunk, the output divided by
+    max(l, 1e-30). The tiles variant takes 16 keys and exp of scaled
+    scores; the rows variant takes 8 and ``base2``: q pre-scaled by
+    scale * log2(e), and exp2."""
     Hq, Sq, Dh = q.shape[1:]
     group = Hq // k.shape[1]
     kq = torch.repeat_interleave(k, group, dim=1)
@@ -254,15 +257,19 @@ def _online_softmax_emulation(q, k, v, causal, chunk=16):
     acc = torch.zeros(q.shape)
     horizon = torch.arange(Sq) + (Skv - Sq) if causal else torch.full(
         (Sq,), Skv)
+    exp = torch.exp2 if base2 else torch.exp
+    q_scaled = q * (Dh ** -0.5 * 1.4426950408889634) if base2 else q
     for j0 in range(0, Skv, chunk):
         pos = torch.arange(j0, min(j0 + chunk, Skv))
-        s = torch.einsum("bhqd,bhkd->bhqk", q, kq[:, :, pos]) / Dh ** 0.5
+        s = torch.einsum("bhqd,bhkd->bhqk", q_scaled, kq[:, :, pos])
+        if not base2:
+            s = s / Dh ** 0.5
         valid = pos[None, :] <= horizon[:, None]
         s = torch.where(valid, s, float("-inf"))
         m_new = torch.maximum(m, s.amax(-1))
         seen = m_new != float("-inf")
-        corr = torch.where(seen, torch.exp(m - m_new), 1.0)
-        p = torch.where(seen[..., None], torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.where(seen, exp(m - m_new), 1.0)
+        p = torch.where(seen[..., None], exp(s - m_new[..., None]), 0.0)
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
                                                    vq[:, :, pos])
