@@ -12,12 +12,24 @@ Phases, each printing JSON lines:
                   and spill bytes for every kernel entry (flash_attention's
                   attention_rows_kernel and attention_tiles_kernel
                   instances among them).
+   profile        torch.profiler's device kernels, one line each, of one
+                  examination_nll_cuda call at 65,536 x 10 and of DeepFM's
+                  first-order bag_lookup at its main shape.
 3. kernels        each hand-written kernel against its plain PyTorch
                   version on the card, at its main-path shape and at edge
                   shapes; times of kernel, plain version, library call, and
-                  the bound. The loss kernels at 65,536 x 10; embedding_bag
-                  at DeepFM's first-order bag over the real 80,000,000-row
-                  table; fm_interaction at (65,536, 39, 10);
+                  the bound. The loss kernels at 65,536 x 10, and for
+                  examination_nll repeated calls, two batches back to back
+                  and a graph replay equal to the bit, one device kernel
+                  per call in the profiler, its launch plan's rows per
+                  block beside their neighbours and two yardsticks (a
+                  torch.sum over the same bytes, a one-float launch);
+                  embedding_bag at DeepFM's first-order bag over the real
+                  80,000,000-row table with int32 and int64 ids, edge cases
+                  with ids past the table, L = 130 and int32 ids, the
+                  variant each case took, its tile sizes swept, and the
+                  main shape on L2-resident and on uniform
+                  ids; fm_interaction at (65,536, 39, 10);
                   flash_attention at AutoInt's (65,536, 2, 2, 39, 39, 16)
                   in float32 and bfloat16, contiguous and in AutoInt's
                   (B, S, H, Dh)-backed layout, each case with the variant
@@ -45,7 +57,9 @@ Phases, each printing JSON lines:
                   512 and 262,144 rows and scores 1,000,000 candidates;
                   exactly one embedding_bag and one fm_interaction launch
                   per forward; the kernels' forward agrees with the plain
-                  one.
+                  one. Then its forward at 65,536 rows and serve at 512
+                  with and without the id passes bag_lookup ran before the
+                  kernel took the clamp (clamp_fold).
 10. train_deepfm  the same model takes 8 AdamW(1e-3) steps at 65,536 rows of
                   a synthetic Criteo-shaped log; the held-out loss must fall.
 11. serve_autoint, train_autoint   the same for AutoInt: three
@@ -54,9 +68,11 @@ Phases, each printing JSON lines:
                   (kernels) agree on loss and every gradient.
 
 Every phase that drives a path sets every kernel's launch count to 0 just
-before it and reads the counts just after; they must be exact. Then the
-kernel summary line, the card's name and power limit as nvidia-smi prints
-them, and the final status line. Any mismatch raises, and the script exits
+before it and reads the counts just after; they must be exact. A control
+line holds the device times of the kernels this slice left untouched
+beside the last run before it. Then the kernel summary line, the card's
+name and power limit as nvidia-smi prints them, and the final status
+line. Any mismatch raises, and the script exits
 non-zero; it exits non-zero without a result when no GPU is visible. It
 imports nothing of JAX or of the JAX package.
 """
@@ -84,6 +100,10 @@ PEAK_FP32_PER_S = 67e12
 OPS_PER_ELEMENT = {"examination_nll": 44, "session_nll": 18}
 BYTES_PER_ELEMENT = {"examination_nll": 6 * 4 + 1, "session_nll": 2 * 4 + 1}
 RTOL, ATOL = 1e-5, 1e-6
+# Device ms of the kernels this slice leaves untouched, from the last run
+# before it (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W).
+CONTROL_DEVICE_MS = {"session_nll": 0.0106, "fm_interaction": 0.0439,
+                     "flash_attention": 0.507, "dcn_cross": 0.0712}
 
 
 def emit(phase: str, **data) -> None:
@@ -238,6 +258,9 @@ def edge_cases(name, make, gen, device):
                    ).float()
         args[3] = torch.full_like(args[3], 1e-12)
         cases["saturating_skip_runs"] = args
+        # Rows too long for 48 KB of staged spans: one row per block, the
+        # block opts into more shared memory.
+        cases["long_rows_5x2500"] = make(gen, 5, 2500, device)
     return cases
 
 
@@ -354,7 +377,153 @@ def phase_kernels(card):
              max_abs_err=err,
              first_call_s=first_call_s, edge_cases=len(edge_errs),
              max_edge_abs_err=max(edge_errs.values()))
+        if name == "examination_nll":
+            results[name].update(exam_forms(args, make, gen, device, card))
     return results
+
+
+def exam_forms(args, make, gen, device, card):
+    """examination_nll's single-launch design: repeated calls give the same
+    bits, two batches back to back each their own loss (the last block's
+    ticket is reset), a CUDA-graph replay the eager call's bits, one device
+    kernel per call in the profiler and one count per call; launch_plan's
+    rows per block beside its neighbours (device ms) and each edge case's
+    plan."""
+    import torch
+
+    from repro_torch.kernels import examination_nll_cuda, examination_nll_plain
+    from repro_torch.kernels.examination_nll import launch_plan
+
+    first = examination_nll_cuda(*args)
+    repeats = [examination_nll_cuda(*args) for _ in range(10)]
+    if not all(bool(torch.equal(r, first)) for r in repeats):
+        raise AssertionError("examination_nll: repeated calls differ "
+                             f"{[float(r) for r in repeats]}")
+    other = make(gen, B_MAIN, K_MAIN, device)
+    pair = [examination_nll_cuda(*other), examination_nll_cuda(*args),
+            examination_nll_cuda(*other)]
+    check_close("examination_nll other batch", pair[0],
+                examination_nll_plain(*other))
+    if not (torch.equal(pair[1], first) and torch.equal(pair[2], pair[0])):
+        raise AssertionError("examination_nll: back-to-back batches differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        examination_nll_cuda(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = examination_nll_cuda(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(captured, first):
+            raise AssertionError(f"examination_nll: graph replay "
+                                 f"{float(captured)} != eager "
+                                 f"{float(first)}")
+    del graph
+    before = examination_nll_cuda.launches
+    lines, total = profile_kernels(lambda: examination_nll_cuda(*args))
+    counted = examination_nll_cuda.launches - before
+    if total["launches_per_call"] != 1.0 or counted != 23:  # 3 warm + 20
+        raise AssertionError(f"examination_nll: {lines} device kernels, "
+                             f"{counted} counted launches for 23 calls")
+    sweep = {}
+    for rows_per_block in (None, 32, 64, 128, 256):
+        plan = launch_plan(B_MAIN, K_MAIN, rows_per_block)
+        key = f"R{plan.rows_per_block}" + ("_default"
+                                           if rows_per_block is None else "")
+        sweep[key] = graph_ms(lambda: examination_nll_cuda(*args, plan=plan))
+    # Yardsticks of what holds it: one torch.sum over as many bytes as the
+    # kernel reads (a single-launch read of 16.4 MB), and a launch that
+    # does nothing but add 1 to one float (the replay's launch floor).
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    buf = torch.ones(nbytes // 4, device=device)
+    tiny = torch.zeros(1, device=device)
+    yardsticks = {"sum_same_bytes_device_ms": graph_ms(lambda: torch.sum(buf)),
+                  "one_float_add_device_ms": graph_ms(lambda: tiny.add_(1.0)),
+                  "bytes": nbytes}
+    del buf, tiny
+    plans = {case: launch_plan(*case_args[0].shape)._asdict()
+             for case, case_args in edge_cases(
+                 "examination_nll", make, gen, device).items()}
+    forms = {"plan": launch_plan(B_MAIN, K_MAIN)._asdict(),
+             "repeat_bits_equal": True, "graph_replay_bits_equal": True,
+             "back_to_back_batches": [float(x) for x in pair],
+             "profile_kernels_per_call": total["launches_per_call"],
+             "profile_device_us_per_call": total["device_us_per_call"],
+             "plan_sweep_device_ms": sweep, "yardsticks": yardsticks}
+    emit("kernel_forms", name="examination_nll", card=card,
+         shape=[B_MAIN, K_MAIN], edge_plans=plans, **forms)
+    return forms
+
+
+def profile_kernels(fn, calls=20):
+    """One line per device kernel that ``calls`` calls of ``fn()`` run,
+    from torch.profiler (CUDA activity): launches and device microseconds
+    per call, and the total. Warm calls; a synchronize closes the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.name if len(evt.name) <= 120 else evt.name[:117] + "..."
+        n, us = per_kernel.get(name, (0, 0.0))
+        per_kernel[name] = (n + 1, us + evt.time_range.elapsed_us())
+    lines = [{"kernel": name, "launches_per_call": n / calls,
+              "device_us_per_call": us / calls}
+             for name, (n, us) in sorted(per_kernel.items(),
+                                         key=lambda kv: -kv[1][1])]
+    return lines, {"launches_per_call": sum(x["launches_per_call"]
+                                            for x in lines),
+                   "device_us_per_call": sum(x["device_us_per_call"]
+                                             for x in lines)}
+
+
+def phase_profile(card):
+    """The profiler's breakdown, one line per device kernel, of one
+    examination_nll_cuda call at 65,536 x 10 and of DeepFM's first-order
+    term, bag_lookup over the real (80,000,000, 1) table with 65,536 bags
+    of 39 Zipf ids, as the model calls it."""
+    import torch
+
+    from repro_torch.kernels import examination_nll_cuda
+    from repro_torch.models.recsys.embedding import TableConfig, bag_lookup
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    exam = exam_inputs(gen, B_MAIN, K_MAIN, device)
+    log = CriteoLog(device, seed=1)
+    cfg = TableConfig(TABLE_ROWS, 1)
+    params = {"table": torch.randn(TABLE_ROWS, 1, generator=gen,
+                                   device=device)}
+    ids = log.field_ids(B_MAIN)
+    del log
+    out = {}
+    for what, fn in (("examination_nll_cuda", lambda: examination_nll_cuda(
+                          *exam)),
+                     ("bag_lookup", lambda: bag_lookup(cfg, params, ids))):
+        lines, total = profile_kernels(fn)
+        for line in lines:
+            emit("profile", call=what, card=card, **line)
+        out[what] = {**total, "call_ms": time_ms(fn, iters=200),
+                     "graph_device_ms": graph_ms(fn)}
+        emit("profile_total", call=what, card=card, **out[what])
+    del exam, params, ids
+    torch.cuda.empty_cache()
+    return out
 
 
 def _synthetic_log(n_sessions):
@@ -876,7 +1045,9 @@ class CriteoLog:
     the unified table, Zipf-skewed ids within each field (rank r drawn with
     density ~ 1/r, so a field's top ids are most of its traffic), and
     labels from a planted logistic model (a random weight per id, summed
-    over the fields, base rate ~25%), so there is something to learn."""
+    over the fields, base rate ~25%), so there is something to learn. Ids
+    are int32, as the JAX package hands them over (the table has fewer
+    than 2^31 rows)."""
 
     def __init__(self, device, seed=0, rows=TABLE_ROWS, fields=N_FIELDS):
         import torch
@@ -894,7 +1065,7 @@ class CriteoLog:
 
         u = torch.rand(n, self.fields, generator=self.gen, device=self.device)
         rank = torch.floor(torch.pow(float(self.span), u)).long() - 1
-        return rank.clamp_(0, self.span - 1) + self.offsets
+        return (rank.clamp_(0, self.span - 1) + self.offsets).int()
 
     def batch(self, n):
         import torch
@@ -918,8 +1089,8 @@ def bag_bound(table, ids, weights):
     weights) read once, each 32-byte table sector that a live id touches
     read once, the output written once; a multiply-add per gathered float.
     Ids are counted at 4 bytes while the table has fewer than 2^31 rows
-    (the function needs no more; the TPU kernel reads int32), not at the
-    8 bytes of the int64 ids the port's kernel reads. For rows of at most
+    (the function needs no more; the TPU kernel reads int32), whatever
+    width the caller hands over. For rows of at most
     32 bytes (D <= 8; DeepFM's first-order D = 1), each touching one or
     two sectors; the table starts on a sector boundary (torch allocations
     do)."""
@@ -928,7 +1099,7 @@ def bag_bound(table, ids, weights):
     rows, dim = table.shape
     if dim * 4 > 32:
         raise ValueError(f"bag_bound counts rows of <= 32 bytes, got D={dim}")
-    live = ids[ids >= 0]
+    live = torch.clamp(ids[ids >= 0].long(), max=rows - 1)
     sectors = int(torch.unique(torch.cat([
         live * dim * 4 // 32, ((live + 1) * dim * 4 - 1) // 32])).numel())
     id_bytes = 4 if rows < 2 ** 31 else 8
@@ -990,7 +1161,9 @@ def _bag_cases(gen, device):
 
     cases = {f"B{B}_L{L}_D{D}": make(B, L, 1000, D)
              for B, L, D in ((7, 3, 64), (8, 1, 128), (5, 4, 130),
-                             (1, 39, 1), (257, 39, 1), (1000, 39, 3))}
+                             (1, 39, 1), (257, 39, 1), (1000, 39, 3),
+                             (257, 130, 1), (255, 130, 16), (33, 130, 64),
+                             (1000, 39, 16), (300, 39, 17))}
     cases["L1_unweighted"] = make(4097, 1, 5000, 1, weighted=False)
     args = make(300, 39, 1000, 16)
     args[1][:] = -1
@@ -998,6 +1171,17 @@ def _bag_cases(gen, device):
     args = make(65536, 39, 1000, 1, weighted=False, pad=0.0)
     args[1][:] = 7  # every bag on one hot row
     cases["hot_row"] = args
+    # Ids past the table read its last row (bag_lookup's clip).
+    for D, weighted in ((1, False), (16, True), (64, True)):
+        args = make(257, 39, 1000, D, weighted=weighted)
+        args[1] = torch.where(args[1] >= 0, args[1] * 3, -1)
+        cases[f"ids_past_rows_D{D}"] = args
+    # Every case again with int32 ids.
+    for case, args in list(cases.items()):
+        cases[f"{case}_int32"] = [args[0], args[1].int(), args[2]]
+    # A ragged tail and a tile whose spans start off 16 bytes.
+    args = make(1001, 39, 1000, 1)
+    cases["offset_view_int32"] = [args[0], args[1].int()[1:], args[2][1:]]
     return cases
 
 
@@ -1081,6 +1265,7 @@ def phase_recsys_kernels(card):
                                      flash_attention_plain,
                                      fm_interaction_plain,
                                      fm_interaction_triton)
+    from repro_torch.kernels.embedding_bag import plan_for as bag_plan_for
     from repro_torch.kernels.flash_attention import plan_for
 
     device = torch.device("cuda")
@@ -1113,21 +1298,25 @@ def phase_recsys_kernels(card):
              edge_abs_errs=errs, timing_s=time.perf_counter() - t0)
 
     # embedding_bag: DeepFM's first-order bag over the real (80M, 1) table,
-    # unweighted, as DeepFM calls it.
+    # unweighted, with the int32 ids DeepFM hands over; and the same ids as
+    # int64.
     log = CriteoLog(device, seed=1)
     table = torch.randn(TABLE_ROWS, 1, generator=gen, device=device)
     main = [table, log.field_ids(B_MAIN), None]
-    cases = {"main": main, **_bag_cases(gen, device)}
-    errs, over = {}, {}
+    main64 = [table, main[1].long(), None]
+    cases = {"main": main, "main_int64": main64, **_bag_cases(gen, device)}
+    errs, over, variants = {}, {}, {}
     for case, args in cases.items():
         got, want = embedding_bag_cuda(*args), embedding_bag_plain(*args)
         if got.shape != want.shape or got.dtype != torch.float32:
             raise AssertionError(f"embedding_bag {case}: {got.shape}")
         errs[case], over[case] = _max_err(got, want), _over(got, want, 1e-5)
-        if case == "all_padding" and bool(torch.any(got != 0)):
+        variants[case] = bag_plan_for(*args).variant
+        if case.startswith("all_padding") and bool(torch.any(got != 0)):
             raise AssertionError("embedding_bag: all-padding bags not 0")
     torch.cuda.synchronize()
-    emit("kernel_check", name="embedding_bag", abs_errs=errs)
+    emit("kernel_check", name="embedding_bag", abs_errs=errs,
+         variants=variants)
     _hold("embedding_bag", over)
 
     def bag_library(t, ids, w):
@@ -1143,7 +1332,48 @@ def phase_recsys_kernels(card):
            "src/repro/kernels/embedding_bag.py:33",
            [TABLE_ROWS, 1, B_MAIN, N_FIELDS], embedding_bag_cuda,
            embedding_bag_plain, bag_library, main, errs, bag_bound(*main))
-    del table, main, cases, log
+    entry = results["embedding_bag"]
+    entry["plan"] = bag_plan_for(*main)._asdict()
+    entry["int64"] = {
+        "ms": time_ms(lambda: embedding_bag_cuda(*main64), iters=100),
+        "device_ms": graph_ms(lambda: embedding_bag_cuda(*main64)),
+        "plan": bag_plan_for(*main64)._asdict(),
+        "max_abs_err": errs["main_int64"]}
+    # launch_plan's tile of T bags beside its neighbours and the wide
+    # variant, device ms at the main shape with both id widths.
+    sweep = {}
+    for form, args in (("int32", main), ("int64", main64)):
+        for T in (None, "wide", 8, 16, 28, 56, 112):
+            over = ({"variant": "wide"} if T == "wide" else
+                    {} if T is None else {"tile_bags": T})
+            try:
+                plan = bag_plan_for(*args, **over)
+            except ValueError:  # not a whole tile, or too large
+                continue
+            key = (f"{form}_{plan.variant}_T{plan.tile_bags}"
+                   + ("_default" if T is None else ""))
+            sweep[key] = graph_ms(
+                lambda: embedding_bag_cuda(*args, plan=plan), calls=10,
+                replays=5)
+    entry["plan_sweep_device_ms"] = sweep
+    # What holds it: the same call on ids that touch no more sectors than
+    # fit L2 (every id modulo 262,144 rows, 1 MB) and on uniform ids over
+    # the whole table, each beside its own bound.
+    data_forms = {}
+    for form, ids in (("l2_resident", main[1] % 262_144),
+                      ("uniform", torch.randint(
+                          0, TABLE_ROWS, main[1].shape, generator=gen,
+                          device=device, dtype=torch.int32))):
+        args = [table, ids, None]
+        data_forms[form] = {
+            "device_ms": graph_ms(lambda: embedding_bag_cuda(*args)),
+            "bound_ms": bag_bound(*args)[0]}
+    entry["data_forms"] = data_forms
+    emit("kernel_forms", name="embedding_bag", card=card,
+         shape=[TABLE_ROWS, 1, B_MAIN, N_FIELDS],
+         **{k: entry[k] for k in ("plan", "int64", "plan_sweep_device_ms",
+                                  "data_forms")})
+    del table, main, main64, cases, log
 
     # fm_interaction at DeepFM's (B, F, D).
     v = torch.randn(B_MAIN, N_FIELDS, FM_D, generator=gen, device=device)
@@ -1451,6 +1681,41 @@ def phase_train_recsys(arch, model, log, card, steps=8):
     return launches
 
 
+def clamp_fold_timing(model, log, card):
+    """DeepFM's forward at 65,536 rows and serve at 512 rows (no_grad, ms
+    per call from CUDA events) with bag_lookup as it is, handing the ids to
+    the kernel untouched, and with the clip-and-select passes that it ran
+    before the kernel took the clamp put back in front of the same kernel;
+    in turns (before, after, after, before), the best of each."""
+    import torch
+
+    from repro_torch.models.recsys import deepfm, embedding
+
+    folded = deepfm.bag_lookup
+    rows = model.cfg.first_order_table.stored_rows
+
+    def unfolded(cfg, params, ids, *args, **kwargs):
+        ids = torch.where(ids >= 0, torch.clamp(ids, 0, rows - 1), -1)
+        return embedding.bag_lookup(cfg, params, ids, *args, **kwargs)
+
+    batches = {"forward_65536": (log.batch(B_MAIN), model.forward, 50),
+               "serve_512": (log.batch(512), model.serve, 200)}
+    out = {}
+    with torch.no_grad():
+        for what, (batch, fn, iters) in batches.items():
+            times = {"before": [], "after": []}
+            for form in ("before", "after", "after", "before"):
+                deepfm.bag_lookup = unfolded if form == "before" else folded
+                try:
+                    times[form].append(time_ms(lambda: fn(batch),
+                                               iters=iters, warmup=3))
+                finally:
+                    deepfm.bag_lookup = folded
+            out[what] = {form: min(v) for form, v in times.items()}
+    emit("clamp_fold", card=card, **out)
+    return out
+
+
 def phase_recsys(arch, card):
     """Serve, then train, the published-width model; freed afterwards."""
     import torch
@@ -1464,6 +1729,8 @@ def phase_recsys(arch, card):
          seconds=time.perf_counter() - t0,
          memory_allocated=torch.cuda.memory_allocated())
     phase_serve(arch, model, log, card)
+    if arch == "deepfm":
+        clamp_fold_timing(model, log, card)
     launches = phase_train_recsys(arch, model, log, card)
     del model, log
     gc.collect()
@@ -1526,9 +1793,16 @@ def main() -> int:
     t_start = time.perf_counter()
     kind, smi = phase_device()
     phase_build()
+    phase_profile(smi)
     kernels = phase_kernels(smi)
     kernels.update(phase_recsys_kernels(smi))
     kernels.update(phase_dcn_kernel(smi))
+    # The four kernels this run's redesigns left untouched, as the
+    # run-to-run control: their device ms beside the last run before it.
+    emit("control", card=smi, device_ms={
+        name: kernels[name]["device_ms"]["kernel"]
+        for name in ("session_nll", "fm_interaction", "flash_attention",
+                     "dcn_cross")}, earlier_device_ms=CONTROL_DEVICE_MS)
     data = _synthetic_log(17 * B_MAIN)  # 16 training batches + 1 held out
     dbn = phase_train("dbn", data, 16, smi)
     dctr = phase_train("dctr", data, 8, smi)

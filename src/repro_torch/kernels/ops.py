@@ -15,7 +15,7 @@ each backward is plain PyTorch (no TPU kernel has a Pallas backward):
   ``core.recursions``.
 * ``embedding_bag``: ``_bag_bwd`` (``ops.py:153-175``), one ``index_add_``
   and one row dot per bag slot, never a (B*L, D) buffer; d_w is 0 at
-  padding.
+  padding, and an id >= N scatters into row N - 1, as the forward reads.
 * ``fm_interaction``: the closed form
   dv[b,f,d] = g[b] (sum_f v[b,:,d] - v[b,f,d]).
 * ``flash_attention``: autograd of the plain version, recomputed.
@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.dcn_cross import dcn_cross_cuda, dcn_cross_plain
-from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
+from repro_torch.kernels.embedding_bag import (ID_TYPES, embedding_bag_cuda,
                                                embedding_bag_plain)
 from repro_torch.kernels.examination_nll import (examination_nll_cuda,
                                                  examination_nll_plain)
@@ -134,7 +134,7 @@ class _EmbeddingBag(torch.autograd.Function):
         live = ids >= 0
         w = live.float() if weights is None else torch.where(
             live, weights, 0.0).float()
-        safe = torch.clamp_min(ids, 0)
+        safe = torch.clamp(ids, 0, max(table.shape[0] - 1, 0)).long()
         d_table = d_w = None
         want_table = ctx.needs_input_grad[0]
         want_w = weights is not None and ctx.needs_input_grad[2]
@@ -165,10 +165,13 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   combiner: str = "sum") -> torch.Tensor:
     """out[b] = reduce_l table[ids[b, l]]; ids < 0 are padding.
 
-    combiner: "sum" | "mean" (mean over non-padding entries). Ids are read
-    as int64.
+    combiner: "sum" | "mean" (mean over non-padding entries). Ids >= N
+    read the table's last row. int32 and int64 ids are handed over as they
+    are; other integer types are read as int64.
     """
-    ids = ids.long().contiguous()
+    if ids.dtype not in ID_TYPES:
+        ids = ids.long()
+    ids = ids.contiguous()
     if combiner == "mean":
         count = torch.sum((ids >= 0).float(), dim=1, keepdim=True)
         if weights is None:

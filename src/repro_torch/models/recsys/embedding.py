@@ -72,11 +72,12 @@ def bag_lookup(cfg: TableConfig, params: Mapping[str, torch.Tensor],
                combiner: str = "sum") -> torch.Tensor:
     """Fused bag reduction: out[b] = reduce_l w[b,l] * table[ids[b,l]].
 
-    Routes through the ``embedding_bag`` kernel (ids < 0 are padding).
-    QR-compressed tables have no materialized row table to gather from, so
-    they take lookup + reduce.
+    Routes through the ``embedding_bag`` kernel (ids < 0 are padding). An
+    uncompressed table's ids are handed over untouched: the kernel reads an
+    id >= ``stored_rows`` as the last row, which is the clip that JAX's
+    ``bag_lookup`` applies. QR-compressed tables have no materialized row
+    table to gather from, so they take lookup + reduce.
     """
-    ids = ids.long()
     if cfg.compression == "qr":
         rows = table_lookup(cfg, params, torch.clamp_min(ids, 0))
         w = (torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
@@ -87,8 +88,5 @@ def bag_lookup(cfg: TableConfig, params: Mapping[str, torch.Tensor],
             w = w / torch.clamp_min(count, 1.0)
         return torch.einsum("bld,bl->bd", rows.float(), w)
     if cfg.compression == "hash":
-        ids = torch.where(ids >= 0, hash_ids(ids, cfg.stored_rows), -1)
-    else:
-        ids = torch.where(ids >= 0, torch.clamp(ids, 0, cfg.stored_rows - 1),
-                          -1)
+        ids = torch.where(ids >= 0, hash_ids(ids.long(), cfg.stored_rows), -1)
     return embedding_bag(params["table"], ids, weights, combiner=combiner)

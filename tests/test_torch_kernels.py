@@ -8,7 +8,8 @@ shapes covering B in {1, 7, 256, 300} and K in {1, 10, 33, 128, 130}, plus
 the extreme (|x| = 36) and fully masked corpus of the JAX conformance
 harness. The hand-written kernels themselves run only on a GPU
 (chip_smoke.py); here their launch counters must stay at 0 and their
-wrappers must refuse CPU tensors.
+wrappers must refuse CPU tensors, and ``examination_nll``'s plain-Python
+launch plan must cover every row once within a block's shared memory.
 """
 import functools
 
@@ -190,3 +191,51 @@ def test_tensors_on_another_device_have_no_route():
     with pytest.raises(ValueError, match="no route"):
         tk.session_nll(meta[0], meta[1],
                        torch.empty(3, 4, dtype=torch.bool, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# examination_nll's launch plan (the kernel itself runs on a GPU only)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cols", [1, 10, 15, 16, 33, 128, 130, 512, 1024])
+@pytest.mark.parametrize("rows", [1, 7, 255, 257, 65536])
+def test_exam_launch_plan_covers_every_row_once_within_shared_memory(rows,
+                                                                      cols):
+    from repro_torch.kernels.examination_nll import (MAX_THREADS,
+                                                     SMEM_PER_BLOCK,
+                                                     SMEM_TARGET,
+                                                     launch_plan,
+                                                     staged_bytes)
+
+    plan = launch_plan(rows, cols)
+    R = plan.rows_per_block
+    # Rows x K x (six floats and a bool mask), each span on 16 bytes.
+    assert plan.smem_bytes == staged_bytes(R, cols) >= R * cols * 25
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert plan.smem_bytes <= SMEM_TARGET or R == 1
+    if R < 128:  # halved only while over the target
+        assert staged_bytes(2 * R, cols) > SMEM_TARGET
+    # One thread per row at least, whole warps, within the kernel's limit.
+    assert R <= plan.threads <= MAX_THREADS and plan.threads % 32 == 0
+    # Block g owns rows [g R, min((g + 1) R, rows)): each row exactly once.
+    owned = np.zeros(rows, dtype=np.int64)
+    for g in {0, plan.grid - 1}:
+        owned[g * R:min((g + 1) * R, rows)] += 1
+    assert plan.grid == -(-rows // R) and (plan.grid - 1) * R < rows
+    starts = np.arange(plan.grid) * R
+    assert np.minimum(R, rows - starts).sum() == rows
+    assert owned.max() == 1
+
+
+def test_exam_launch_plan_main_shape_long_rows_and_overrides():
+    from repro_torch.kernels.examination_nll import launch_plan
+
+    main = launch_plan(65536, 10)
+    assert (main.rows_per_block, main.threads, main.grid) == (128, 512, 512)
+    long_rows = launch_plan(5, 2500)      # one row opts into > 48 KB
+    assert long_rows.rows_per_block == 1 and long_rows.smem_bytes > 48 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        launch_plan(5, 10_000)
+    assert launch_plan(65536, 10, 256).grid == 256
+    with pytest.raises(ValueError, match="rows_per_block"):
+        launch_plan(65536, 10, 1024)
