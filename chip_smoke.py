@@ -7,23 +7,29 @@ Phases, each printing JSON lines:
 
 1. device         the card's name, count, power limit (nvidia-smi).
 2. build          nvcc builds every CUDA source (examination_nll,
-                  embedding_bag, flash_attention, dcn_cross) at once into
-                  src/repro_torch/kernels/build/, with ptxas's registers
-                  and spill bytes for every kernel entry (flash_attention's
-                  attention_rows_kernel and attention_tiles_kernel
-                  instances among them).
+                  session_nll, embedding_bag, flash_attention, dcn_cross)
+                  at once into src/repro_torch/kernels/build/, with
+                  ptxas's registers and spill bytes for every kernel entry
+                  (flash_attention's attention_rows_kernel and
+                  attention_tiles_kernel instances among them).
    profile        torch.profiler's device kernels, one line each, of one
-                  examination_nll_cuda call at 65,536 x 10 and of DeepFM's
-                  first-order bag_lookup at its main shape.
+                  examination_nll_cuda and one session_nll_cuda call at
+                  65,536 x 10 and of DeepFM's first-order bag_lookup at its
+                  main shape.
 3. kernels        each hand-written kernel against its plain PyTorch
                   version on the card, at its main-path shape and at edge
                   shapes; times of kernel, plain version, library call, and
-                  the bound. The loss kernels at 65,536 x 10, and for
-                  examination_nll repeated calls, two batches back to back
-                  and a graph replay equal to the bit, one device kernel
-                  per call in the profiler, its launch plan's rows per
-                  block beside their neighbours and two yardsticks (a
-                  torch.sum over the same bytes, a one-float launch);
+                  the bound. The loss kernels at 65,536 x 10, each with
+                  repeated calls, two batches back to back and a graph
+                  replay equal to the bit, calls in flight at once on two
+                  streams and two graphs replayed at once equal to their
+                  eager bits (each call its own last-block counter), one
+                  device kernel per call in the profiler, its launch plan
+                  beside its neighbours and two yardsticks (a torch.sum
+                  over the same bytes, a one-float launch); session_nll
+                  also on views with a storage offset (equal to the bit to
+                  their aligned copies) and its first design (Triton)
+                  timed;
                   embedding_bag at DeepFM's first-order bag over the real
                   80,000,000-row table with int32 and int64 ids, edge cases
                   with ids past the table, L = 130 and int32 ids, the
@@ -45,9 +51,10 @@ Phases, each printing JSON lines:
 6. train_ubm      the paper-width UBM (214,748,672 hashed rows), 8 steps;
                   no kernel; its test pass runs ubm_marginal_clicks at
                   65,536 x 10 x 10, held to predict_clicks_loop.
-7. cpu_vs_gpu     small DBN, DCTR, CM, UBM, two-tower PBM and DCTR and a
-                  mixture with a shared tower: CPU (plain versions) and GPU
-                  (kernels) agree on loss and every gradient.
+7. cpu_vs_gpu     small DBN, DCTR, GCTR, RCTR, CM, UBM, two-tower PBM and
+                  DCTR and a mixture with a shared tower: CPU (plain
+                  versions) and GPU (kernels) agree on loss and every
+                  gradient.
 8. train_two_tower_pbm, train_two_tower_dctr   the paper's Listing-4 pair
                   (DeepCrossV2 attraction over 16 features) takes 8
                   AdamW(1e-2) steps at 65,536 x 10 on a PBM-behaviour log:
@@ -69,8 +76,8 @@ Phases, each printing JSON lines:
 
 Every phase that drives a path sets every kernel's launch count to 0 just
 before it and reads the counts just after; they must be exact. A control
-line holds the device times of the kernels this slice left untouched
-beside the last run before it. Then the kernel summary line, the card's
+line holds the device times of the kernels this slice left untouched, and
+of examination_nll, beside the last run before it. Then the kernel summary line, the card's
 name and power limit as nvidia-smi prints them, and the final status
 line. Any mismatch raises, and the script exits
 non-zero; it exits non-zero without a result when no GPU is visible. It
@@ -97,13 +104,16 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # Operations per (B, K) element, counted from the kernel sources (compares,
 # selects, adds, multiplies, divides and transcendentals each count one).
-OPS_PER_ELEMENT = {"examination_nll": 44, "session_nll": 18}
+OPS_PER_ELEMENT = {"examination_nll": 44, "session_nll": 12}
 BYTES_PER_ELEMENT = {"examination_nll": 6 * 4 + 1, "session_nll": 2 * 4 + 1}
 RTOL, ATOL = 1e-5, 1e-6
-# Device ms of the kernels this slice leaves untouched, from the last run
-# before it (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W).
-CONTROL_DEVICE_MS = {"session_nll": 0.0106, "fm_interaction": 0.0439,
-                     "flash_attention": 0.507, "dcn_cross": 0.0712}
+# Device ms, from the last run before this slice (PERF.md's kernel table;
+# NVIDIA H100 80GB HBM3, 700.00 W), of the kernels it leaves untouched and
+# of examination_nll, whose finish moved into a header shared with
+# session_nll.
+CONTROL_DEVICE_MS = {"examination_nll": 0.01238, "embedding_bag": 0.02810,
+                     "fm_interaction": 0.0439, "flash_attention": 0.507,
+                     "dcn_cross": 0.0712}
 
 
 def emit(phase: str, **data) -> None:
@@ -168,7 +178,7 @@ def kernel_counters():
     from repro_torch import kernels as k
 
     return {"examination_nll": k.examination_nll_cuda,
-            "session_nll": k.session_nll_triton,
+            "session_nll": k.session_nll_cuda,
             "embedding_bag": k.embedding_bag_cuda,
             "fm_interaction": k.fm_interaction_triton,
             "flash_attention": k.flash_attention_cuda,
@@ -238,7 +248,8 @@ def session_inputs(gen, rows, cols, device):
 
 def edge_cases(name, make, gen, device):
     """Ragged B and K, |x| = 36, a fully masked batch and, for the chain
-    loss, skip runs whose odds saturate."""
+    loss, skip runs whose odds saturate; for session_nll, views with a
+    storage offset."""
     import torch
 
     cases = {f"random_{rows}x{cols}": make(gen, rows, cols, device)
@@ -261,6 +272,8 @@ def edge_cases(name, make, gen, device):
         # Rows too long for 48 KB of staged spans: one row per block, the
         # block opts into more shared memory.
         cases["long_rows_5x2500"] = make(gen, 5, 2500, device)
+    else:
+        cases.update(offset_views(gen, device))
     return cases
 
 
@@ -319,8 +332,8 @@ def phase_kernels(card):
     import torch
 
     from repro_torch.kernels import (examination_nll_cuda,
-                                     examination_nll_plain,
-                                     session_nll_plain, session_nll_triton)
+                                     examination_nll_plain, session_nll_cuda,
+                                     session_nll_plain)
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device)
@@ -330,12 +343,12 @@ def phase_kernels(card):
          None, exam_inputs, "cuda",
          "src/repro_torch/kernels/csrc/examination_nll.cu",
          "src/repro/kernels/examination_nll.py:48"),
-        ("session_nll", session_nll_triton, session_nll_plain,
+        ("session_nll", session_nll_cuda, session_nll_plain,
          lambda x, c, m: torch.nn.functional.binary_cross_entropy_with_logits(
              x, c, weight=m.float(), reduction="sum")
          / m.float().sum().clamp_min(1.0),
-         session_inputs, "triton",
-         "src/repro_torch/kernels/session_nll.py",
+         session_inputs, "cuda",
+         "src/repro_torch/kernels/csrc/session_nll.cu",
          "src/repro/kernels/session_nll.py:24"),
     ]
     results = {}
@@ -377,66 +390,88 @@ def phase_kernels(card):
              max_abs_err=err,
              first_call_s=first_call_s, edge_cases=len(edge_errs),
              max_edge_abs_err=max(edge_errs.values()))
-        if name == "examination_nll":
-            results[name].update(exam_forms(args, make, gen, device, card))
+        results[name].update(loss_forms(name, kernel, plain, args, make,
+                                        gen, device, card))
     return results
 
 
-def exam_forms(args, make, gen, device, card):
-    """examination_nll's single-launch design: repeated calls give the same
-    bits, two batches back to back each their own loss (the last block's
-    ticket is reset), a CUDA-graph replay the eager call's bits, one device
-    kernel per call in the profiler and one count per call; launch_plan's
-    rows per block beside its neighbours (device ms) and each edge case's
-    plan."""
+def plan_sweep(name, kernel, args):
+    """Device ms of the loss kernel's default launch plan beside its
+    neighbours at the main shape."""
+    if name == "examination_nll":
+        from repro_torch.kernels.examination_nll import launch_plan
+
+        plans = {}
+        for rows_per_block in (None, 32, 64, 128, 256):
+            plan = launch_plan(B_MAIN, K_MAIN, rows_per_block)
+            plans[f"R{plan.rows_per_block}" + (
+                "_default" if rows_per_block is None else "")] = plan
+    else:
+        from repro_torch.kernels.session_nll import launch_plan
+
+        plans = {}
+        for threads, vectors in ((None, None), (256, 1), (256, 2), (512, 2),
+                                 (1024, 1), (128, 4)):
+            plan = launch_plan(B_MAIN * K_MAIN, threads, vectors)
+            plans[f"T{plan.threads}_V{plan.vectors}"
+                  + ("_default" if threads is None else "")] = plan
+    return {key: graph_ms(lambda: kernel(*args, plan=plan))
+            for key, plan in plans.items()}
+
+
+def loss_forms(name, kernel, plain, args, make, gen, device, card):
+    """A one-launch loss kernel's design, held and timed: repeated calls
+    give the same bits, two batches back to back each their own loss (the
+    last block's ticket is reset), a CUDA-graph replay the eager call's
+    bits, calls in flight at once on two streams and two graphs replayed at
+    once each their own eager bits (concurrency_check), one device kernel
+    per call in the profiler and one count per call; the launch plan beside
+    its neighbours (device ms) and two yardsticks. session_nll also: views
+    with a storage offset (read element by element) give the bits of their
+    aligned copies, and the first design (Triton, five device kernels) is
+    timed."""
     import torch
 
-    from repro_torch.kernels import examination_nll_cuda, examination_nll_plain
-    from repro_torch.kernels.examination_nll import launch_plan
-
-    first = examination_nll_cuda(*args)
-    repeats = [examination_nll_cuda(*args) for _ in range(10)]
+    first = kernel(*args)
+    repeats = [kernel(*args) for _ in range(10)]
     if not all(bool(torch.equal(r, first)) for r in repeats):
-        raise AssertionError("examination_nll: repeated calls differ "
+        raise AssertionError(f"{name}: repeated calls differ "
                              f"{[float(r) for r in repeats]}")
     other = make(gen, B_MAIN, K_MAIN, device)
-    pair = [examination_nll_cuda(*other), examination_nll_cuda(*args),
-            examination_nll_cuda(*other)]
-    check_close("examination_nll other batch", pair[0],
-                examination_nll_plain(*other))
+    pair = [kernel(*other), kernel(*args), kernel(*other)]
+    check_close(f"{name} other batch", pair[0], plain(*other))
     if not (torch.equal(pair[1], first) and torch.equal(pair[2], pair[0])):
-        raise AssertionError("examination_nll: back-to-back batches differ")
+        raise AssertionError(f"{name}: back-to-back batches differ")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        examination_nll_cuda(*args)
+        kernel(*args)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = examination_nll_cuda(*args)
+        captured = kernel(*args)
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()
         if not torch.equal(captured, first):
-            raise AssertionError(f"examination_nll: graph replay "
-                                 f"{float(captured)} != eager "
-                                 f"{float(first)}")
+            raise AssertionError(f"{name}: graph replay {float(captured)} "
+                                 f"!= eager {float(first)}")
     del graph
-    before = examination_nll_cuda.launches
-    lines, total = profile_kernels(lambda: examination_nll_cuda(*args))
-    counted = examination_nll_cuda.launches - before
+    concurrency = concurrency_check(name, kernel, make, gen, device)
+    if any(concurrency["stream_results_wrong"]) or any(
+            concurrency["graph_results_wrong"]):
+        raise AssertionError(f"{name}: calls in flight at once differ from "
+                             f"their eager bits: {concurrency}")
+    before = kernel.launches
+    lines, total = profile_kernels(lambda: kernel(*args))
+    counted = kernel.launches - before
     if total["launches_per_call"] != 1.0 or counted != 23:  # 3 warm + 20
-        raise AssertionError(f"examination_nll: {lines} device kernels, "
-                             f"{counted} counted launches for 23 calls")
-    sweep = {}
-    for rows_per_block in (None, 32, 64, 128, 256):
-        plan = launch_plan(B_MAIN, K_MAIN, rows_per_block)
-        key = f"R{plan.rows_per_block}" + ("_default"
-                                           if rows_per_block is None else "")
-        sweep[key] = graph_ms(lambda: examination_nll_cuda(*args, plan=plan))
+        raise AssertionError(f"{name}: {lines} device kernels, {counted} "
+                             "counted launches for 23 calls")
+    sweep = plan_sweep(name, kernel, args)
     # Yardsticks of what holds it: one torch.sum over as many bytes as the
-    # kernel reads (a single-launch read of 16.4 MB), and a launch that
-    # does nothing but add 1 to one float (the replay's launch floor).
+    # kernel reads (a single-launch read), and a launch that does nothing
+    # but add 1 to one float (the replay's launch floor).
     nbytes = sum(t.numel() * t.element_size() for t in args)
     buf = torch.ones(nbytes // 4, device=device)
     tiny = torch.zeros(1, device=device)
@@ -444,18 +479,141 @@ def exam_forms(args, make, gen, device, card):
                   "one_float_add_device_ms": graph_ms(lambda: tiny.add_(1.0)),
                   "bytes": nbytes}
     del buf, tiny
-    plans = {case: launch_plan(*case_args[0].shape)._asdict()
-             for case, case_args in edge_cases(
-                 "examination_nll", make, gen, device).items()}
-    forms = {"plan": launch_plan(B_MAIN, K_MAIN)._asdict(),
-             "repeat_bits_equal": True, "graph_replay_bits_equal": True,
+    forms = {"repeat_bits_equal": True, "graph_replay_bits_equal": True,
              "back_to_back_batches": [float(x) for x in pair],
+             "concurrency": concurrency,
              "profile_kernels_per_call": total["launches_per_call"],
              "profile_device_us_per_call": total["device_us_per_call"],
              "plan_sweep_device_ms": sweep, "yardsticks": yardsticks}
-    emit("kernel_forms", name="examination_nll", card=card,
-         shape=[B_MAIN, K_MAIN], edge_plans=plans, **forms)
+    if name == "examination_nll":
+        from repro_torch.kernels.examination_nll import launch_plan
+
+        forms["plan"] = launch_plan(B_MAIN, K_MAIN)._asdict()
+        forms["edge_plans"] = {
+            case: launch_plan(*case_args[0].shape)._asdict()
+            for case, case_args in edge_cases(name, make, gen,
+                                              device).items()}
+    else:
+        forms.update(session_forms(args, gen, device))
+    emit("kernel_forms", name=name, card=card, shape=[B_MAIN, K_MAIN],
+         **forms)
     return forms
+
+
+def session_forms(args, gen, device):
+    """session_nll_cuda's plan, its offset views beside their aligned
+    copies (to the bit), and its first design (Triton) at the main shape:
+    device and call ms, five device kernels per call."""
+    import torch
+
+    from repro_torch.kernels import (session_nll_cuda, session_nll_plain,
+                                     session_nll_triton)
+    from repro_torch.kernels.session_nll import launch_plan
+
+    offsets = {}
+    for case, views in offset_views(gen, device).items():
+        copies = [t.clone() for t in views]
+        got, aligned = session_nll_cuda(*views), session_nll_cuda(*copies)
+        if not torch.equal(got, aligned):
+            raise AssertionError(f"session_nll {case}: {float(got)} != "
+                                 f"aligned copy {float(aligned)}")
+        offsets[case] = check_close(f"session_nll {case}", got,
+                                    session_nll_plain(*views))
+    err = check_close("session_nll triton", session_nll_triton(*args),
+                      session_nll_plain(*args))
+    _, total = profile_kernels(lambda: session_nll_triton(*args))
+    return {"plan": launch_plan(B_MAIN * K_MAIN)._asdict(),
+            "offset_views_bits_equal_aligned": offsets,
+            "triton_design": {
+                "device_ms": graph_ms(lambda: session_nll_triton(*args)),
+                "ms": time_ms(lambda: session_nll_triton(*args)),
+                "profile_kernels_per_call": total["launches_per_call"],
+                "profile_device_us_per_call": total["device_us_per_call"],
+                "max_abs_err": err}}
+
+
+def offset_views(gen, device, rows=257, cols=33):
+    """session_nll inputs that are contiguous (rows, cols) views starting
+    ``off`` elements into their storage: none 16-byte aligned, or floats
+    aligned and the mask not."""
+    cases = {}
+    for x_off, m_off in ((1, 1), (2, 2), (3, 3), (4, 1)):
+        flat = session_inputs(gen, 1, rows * cols + 4, device)
+        cases[f"offset_{x_off}_mask_{m_off}_{rows}x{cols}"] = [
+            t.view(-1)[off:off + rows * cols].view(rows, cols)
+            for t, off in zip(flat, (x_off, x_off, m_off))]
+    return cases
+
+
+#: Device cycles that gate_streams holds two streams back (~55 ms at the
+#: H100's 1.8 GHz): long enough for the host to queue every call behind it.
+GATE_CYCLES = 100_000_000
+
+
+def gate_streams(streams):
+    """Hold ``streams`` behind a device-side sleep on the current stream, so
+    that what the host queues on them next runs at the same time."""
+    import torch
+
+    torch.cuda._sleep(GATE_CYCLES)
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+
+
+def concurrency_check(name, kernel, make, gen, device, pairs=50,
+                      replays=10, calls=10):
+    """Calls of one loss kernel in flight at once must not share a
+    last-block counter. (a) Two batches on two streams, ``pairs``
+    interleaved pairs queued behind one gate with no synchronise between
+    them; (b) two graphs of ``calls`` calls each, captured apart, replayed
+    at once on two streams ``replays`` times. Every result is compared to
+    the bit with its batch's eager call on the default stream; returns the
+    counts of results that differ (the caller decides)."""
+    import torch
+
+    batches = [make(gen, B_MAIN, K_MAIN, device) for _ in range(2)]
+    eager = [kernel(*args) for args in batches]
+    current = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream() for _ in batches]
+    gate_streams(streams)
+    outs = [[], []]
+    for _ in range(pairs):
+        for s, args, out in zip(streams, batches, outs):
+            with torch.cuda.stream(s):
+                out.append(kernel(*args))
+    for s in streams:
+        current.wait_stream(s)
+    torch.cuda.synchronize()
+    stream_wrong = [sum(not bool(torch.equal(r, want)) for r in out)
+                    for out, want in zip(outs, eager)]
+    worst = max(abs(float(r) - float(want))
+                for out, want in zip(outs, eager) for r in out)
+
+    graphs = []
+    for args in batches:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = [kernel(*args) for _ in range(calls)]
+        graphs.append((graph, captured))
+    graph_wrong = [0, 0]
+    for _ in range(replays):
+        gate_streams(streams)
+        for s, (graph, _) in zip(streams, graphs):
+            with torch.cuda.stream(s):
+                graph.replay()
+        for s in streams:
+            current.wait_stream(s)
+        torch.cuda.synchronize()
+        for i, ((_, captured), want) in enumerate(zip(graphs, eager)):
+            graph_wrong[i] += sum(not bool(torch.equal(r, want))
+                                  for r in captured)
+            worst = max([worst] + [abs(float(r) - float(want))
+                                   for r in captured])
+    del graphs
+    return {"stream_pairs": pairs, "stream_results_wrong": stream_wrong,
+            "graph_replays": replays, "graph_calls": calls,
+            "graph_results_wrong": graph_wrong, "max_abs_gap": worst,
+            "eager": [float(x) for x in eager]}
 
 
 def profile_kernels(fn, calls=20):
@@ -493,18 +651,19 @@ def profile_kernels(fn, calls=20):
 
 def phase_profile(card):
     """The profiler's breakdown, one line per device kernel, of one
-    examination_nll_cuda call at 65,536 x 10 and of DeepFM's first-order
-    term, bag_lookup over the real (80,000,000, 1) table with 65,536 bags
-    of 39 Zipf ids, as the model calls it."""
+    examination_nll_cuda and one session_nll_cuda call at 65,536 x 10 and
+    of DeepFM's first-order term, bag_lookup over the real (80,000,000, 1)
+    table with 65,536 bags of 39 Zipf ids, as the model calls it."""
     import torch
 
-    from repro_torch.kernels import examination_nll_cuda
+    from repro_torch.kernels import examination_nll_cuda, session_nll_cuda
     from repro_torch.models.recsys.embedding import TableConfig, bag_lookup
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
     exam = exam_inputs(gen, B_MAIN, K_MAIN, device)
+    sess = session_inputs(gen, B_MAIN, K_MAIN, device)
     log = CriteoLog(device, seed=1)
     cfg = TableConfig(TABLE_ROWS, 1)
     params = {"table": torch.randn(TABLE_ROWS, 1, generator=gen,
@@ -514,6 +673,7 @@ def phase_profile(card):
     out = {}
     for what, fn in (("examination_nll_cuda", lambda: examination_nll_cuda(
                           *exam)),
+                     ("session_nll_cuda", lambda: session_nll_cuda(*sess)),
                      ("bag_lookup", lambda: bag_lookup(cfg, params, ids))):
         lines, total = profile_kernels(fn)
         for line in lines:
@@ -521,7 +681,7 @@ def phase_profile(card):
         out[what] = {**total, "call_ms": time_ms(fn, iters=200),
                      "graph_device_ms": graph_ms(fn)}
         emit("profile_total", call=what, card=card, **out[what])
-    del exam, params, ids
+    del exam, sess, params, ids
     torch.cuda.empty_cache()
     return out
 
@@ -798,9 +958,10 @@ def _feature_batch(rows, features, seed):
 def phase_cpu_vs_gpu(data):
     """The same weights on the CPU (plain versions) and the card (kernels):
     loss and every gradient agree to 1e-5, and the GPU loss launches
-    exactly its path's kernels. Small hashed-table DBN, DCTR, CM and UBM on
-    the DBN log; the reduced two-tower PBM and DCTR (8 features) and a
-    mixture of PBM, DCTR and GCTR sharing one tower on a feature batch."""
+    exactly its path's kernels. Small hashed-table DBN, DCTR, CM and UBM,
+    and GCTR and RCTR, on the DBN log; the reduced two-tower PBM and DCTR
+    (8 features) and a mixture of PBM, DCTR and GCTR sharing one tower on a
+    feature batch."""
     import numpy as np
     import torch
 
@@ -809,7 +970,7 @@ def phase_cpu_vs_gpu(data):
     from repro_torch.core import (CascadeModel, Compression, DocumentCTR,
                                   DynamicBayesianNetwork,
                                   EmbeddingParameterConfig, GlobalCTR,
-                                  MixtureModel, UserBrowsingModel)
+                                  MixtureModel, RankCTR, UserBrowsingModel)
 
     cfg = EmbeddingParameterConfig(
         parameters=4000, compression=Compression.HASH, compression_ratio=2.0,
@@ -831,6 +992,10 @@ def phase_cpu_vs_gpu(data):
                                                  **kw),
                 table_rows, {"examination_nll": 1}),
         "dctr": (lambda d: DocumentCTR(device=d, **kw), table_rows,
+                 {"session_nll": 1}),
+        "gctr": (lambda d: GlobalCTR(positions=K_MAIN, device=d), table_rows,
+                 {"session_nll": 1}),
+        "rctr": (lambda d: RankCTR(positions=K_MAIN, device=d), table_rows,
                  {"session_nll": 1}),
         "cm": (lambda d: CascadeModel(device=d, **kw), table_rows, {}),
         "ubm": (lambda d: UserBrowsingModel(device=d, **kw), table_rows, {}),
@@ -1797,12 +1962,11 @@ def main() -> int:
     kernels = phase_kernels(smi)
     kernels.update(phase_recsys_kernels(smi))
     kernels.update(phase_dcn_kernel(smi))
-    # The four kernels this run's redesigns left untouched, as the
+    # The kernels this slice left untouched, and examination_nll, as the
     # run-to-run control: their device ms beside the last run before it.
     emit("control", card=smi, device_ms={
         name: kernels[name]["device_ms"]["kernel"]
-        for name in ("session_nll", "fm_interaction", "flash_attention",
-                     "dcn_cross")}, earlier_device_ms=CONTROL_DEVICE_MS)
+        for name in CONTROL_DEVICE_MS}, earlier_device_ms=CONTROL_DEVICE_MS)
     data = _synthetic_log(17 * B_MAIN)  # 16 training batches + 1 held out
     dbn = phase_train("dbn", data, 16, smi)
     dctr = phase_train("dctr", data, 8, smi)

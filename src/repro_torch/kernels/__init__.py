@@ -1,8 +1,9 @@
 """The port's Hopper kernels, each beside its plain-torch version (port of
-``repro.kernels``): ``examination_nll``, ``embedding_bag``,
-``flash_attention`` and ``dcn_cross`` in CUDA C++, ``session_nll`` and
+``repro.kernels``): ``examination_nll``, ``session_nll``,
+``embedding_bag``, ``flash_attention`` and ``dcn_cross`` in CUDA C++,
 ``fm_interaction`` in Triton, plus the public ops with autograd that route
-by device."""
+by device. ``session_nll_triton`` is ``session_nll``'s first design, kept
+to be timed beside the CUDA kernel."""
 from repro_torch.kernels.dcn_cross import dcn_cross_cuda, dcn_cross_plain
 from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
                                                embedding_bag_plain)
@@ -18,7 +19,8 @@ from repro_torch.kernels.ops import (dcn_cross, embedding_bag,
 from repro_torch.kernels.ref import (dcn_cross_ref, embedding_bag_ref,
                                      examination_nll_ref, flash_attention_ref,
                                      fm_interaction_ref, session_nll_ref)
-from repro_torch.kernels.session_nll import (session_nll_plain,
+from repro_torch.kernels.session_nll import (session_nll_cuda,
+                                             session_nll_plain,
                                              session_nll_triton)
 
 __all__ = [
@@ -28,6 +30,6 @@ __all__ = [
     "examination_nll_plain", "examination_nll_ref", "flash_attention",
     "flash_attention_cuda", "flash_attention_plain", "flash_attention_ref",
     "fm_interaction", "fm_interaction_plain", "fm_interaction_ref",
-    "fm_interaction_triton", "session_nll", "session_nll_plain",
-    "session_nll_ref", "session_nll_triton",
+    "fm_interaction_triton", "session_nll", "session_nll_cuda",
+    "session_nll_plain", "session_nll_ref", "session_nll_triton",
 ]

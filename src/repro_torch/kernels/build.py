@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, which the kernel's module
 loads with ``ctypes``. The library lands in ``kernels/build/``
-(git-ignored) under a name that carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+(git-ignored) under a name that carries a hash of the source, the
+headers beside it and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.
 :func:`build_all` compiles every ``csrc/*.cu`` at once, one ``nvcc`` per
 source. Nothing here runs at import time.
 """
@@ -22,6 +23,9 @@ from typing import Dict, List, NamedTuple
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "build")
+
+#: Files under csrc/ that a source may include.
+HEADERS = (".cuh", ".h")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -43,9 +47,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (hash of source and flags)."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, of every header under ``csrc/`` (a source may include any of
+    them) and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(HEADERS))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

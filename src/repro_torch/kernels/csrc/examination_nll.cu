@@ -28,11 +28,11 @@
 // shared memory, and one thread per row runs the recurrence between them.
 // The block's masked NLL sum and mask count go to
 // a (2, G) partial array. The last block to finish, found with
-// __threadfence() and an atomic ticket on a per-device counter that it
-// resets to 0, sums the partials in a fixed order and writes
-// sum / max(count, 1). No float atomics, so the loss has the same bits
-// from call to call and under CUDA-graph replay; two calls on one device
-// must not run concurrently on two streams (they share the counter).
+// __threadfence() and an atomic ticket on the call's counter (one per
+// stream, or one per captured call) that it resets to 0, sums the partials
+// in a fixed order and writes sum / max(count, 1): last_block.cuh, shared
+// with session_nll.cu. No float atomics, so the loss has the same bits
+// from call to call and under CUDA-graph replay.
 //
 // Numerics follow repro/core/recursions.py: ODDS_FLOOR on denominators,
 // ODDS_CAP on the odds. A sequential solve never forms composite growth
@@ -45,6 +45,8 @@
 // (repro_torch/kernels/build.py). Plain C interface, loaded with ctypes.
 
 #include <cuda_runtime.h>
+
+#include "last_block.cuh"
 
 namespace {
 
@@ -103,37 +105,6 @@ __device__ __forceinline__ void stage(unsigned char* dst,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-// The block's sums of a and b, valid in thread 0; the same order for the
-// same blockDim, whatever the data.
-__device__ __forceinline__ float2 block_sum(float a, float b, float* s_a,
-                                           float* s_b) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  a = warp_sum(a);
-  b = warp_sum(b);
-  if (lane == 0) {
-    s_a[warp] = a;
-    s_b[warp] = b;
-  }
-  __syncthreads();
-  const int warps = blockDim.x >> 5;
-  if (warp == 0) {
-    a = lane < warps ? s_a[lane] : 0.f;
-    b = lane < warps ? s_b[lane] : 0.f;
-    a = warp_sum(a);
-    b = warp_sum(b);
-  }
-  return make_float2(a, b);
-}
-
 __global__ void __launch_bounds__(kMaxThreads)
 examination_nll_kernel(const float* __restrict__ x_in,
                        const float* __restrict__ c_in,
@@ -147,9 +118,6 @@ examination_nll_kernel(const float* __restrict__ x_in,
                        float* __restrict__ out, int rows, int cols,
                        int rows_per_block) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float s_a[kMaxWarps];
-  __shared__ float s_b[kMaxWarps];
-  __shared__ bool s_last;
 
   const int row0 = blockIdx.x * rows_per_block;
   const int here = min(rows_per_block, rows - row0);
@@ -219,33 +187,8 @@ examination_nll_kernel(const float* __restrict__ x_in,
     mask_sum += m;
   }
 
-  const float2 block = block_sum(nll_sum, mask_sum, s_a, s_b);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = block.x;
-    partials[gridDim.x + blockIdx.x] = block.y;
-    __threadfence();  // the partials are visible before the ticket moves
-    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!s_last) return;
-
-  // The last block: every other block's partials are visible. Each thread
-  // sums a fixed stride of them, then the fixed block tree: the order does
-  // not depend on which block came last.
-  __threadfence();
-  float sum = 0.f;
-  float count = 0.f;
-  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x);
-       i += blockDim.x) {
-    sum += __ldcg(partials + i);
-    count += __ldcg(partials + gridDim.x + i);
-  }
-  __syncthreads();  // s_a, s_b are reused
-  const float2 total = block_sum(sum, count, s_a, s_b);
-  if (threadIdx.x == 0) {
-    *out = total.x / fmaxf(total.y, 1.f);
-    atomicExch(ticket, 0u);  // ready for the next launch on this device
-  }
+  last_block::finish_mean<kMaxWarps>(nll_sum, mask_sum, partials, ticket,
+                                     out);
 }
 
 }  // namespace
@@ -256,7 +199,7 @@ extern "C" {
 // `rows_per_block` rows per block, `threads` threads (a multiple of 32,
 // >= rows_per_block, <= 512) and `smem_bytes` of dynamic shared memory,
 // as launch_plan gives them. partials holds 2 * ceil(rows /
-// rows_per_block) floats; ticket is this device's counter, 0 between
+// rows_per_block) floats; ticket is the call's counter, 0 between
 // launches; out is the float32 scalar loss. Returns cudaGetLastError()
 // (0 on success). Does not synchronise.
 int examination_nll_forward(const void* x, const void* clicks,

@@ -9,9 +9,10 @@ Two forms of one function, (B, K) inputs -> scalar fp32 masked-mean NLL:
   session row through the capped death-odds recurrence and the two-log
   NLL, each block writes one masked (sum, count) pair, and the last block
   to finish writes ``sum / max(count, 1)``: one launch per call, nothing
-  after it. :func:`launch_plan` sizes the rows per block and the shared
-  memory from K. Its source says what bounds it and how its design
-  answers that.
+  after it. Its counter is the stream's, or the captured call's own
+  (:mod:`last_block`), so calls may run at once on several streams.
+  :func:`launch_plan` sizes the rows per block and the shared memory from
+  K. Its source says what bounds it and how its design answers that.
 * :func:`examination_nll_plain`, the plain-torch form of
   ``examination_nll_xla`` (odds via the capped doubling scan, then the
   kernel's two-log NLL). The CPU path runs it, and the chip smoke holds the
@@ -23,11 +24,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.recursions import conditional_examination_odds
+from repro_torch.kernels import last_block
 
 
 def examination_nll_plain(attr_logits, clicks, mask, p_skip_survive,
@@ -128,19 +130,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-_TICKETS: Dict[int, torch.Tensor] = {}
-
-
-def _ticket(device: torch.device) -> torch.Tensor:
-    """The device's last-block counter, zeroed once at first use; every
-    launch leaves it at 0 again."""
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if index not in _TICKETS:
-        _TICKETS[index] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _TICKETS[index]
-
-
 def examination_nll_cuda(attr_logits, clicks, mask, p_skip_survive, p_death,
                          p_reset, p_reset_not, plan: Optional[Plan] = None
                          ) -> torch.Tensor:
@@ -182,7 +171,7 @@ def examination_nll_cuda(attr_logits, clicks, mask, p_skip_survive, p_death,
     lib = _library()
     partials = torch.empty(2 * plan.grid, dtype=torch.float32, device=device)
     out = torch.empty((), dtype=torch.float32, device=device)
-    ticket = _ticket(device)
+    ticket = last_block.counter(device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.examination_nll_forward(

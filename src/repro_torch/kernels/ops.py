@@ -15,7 +15,11 @@ each backward is plain PyTorch (no TPU kernel has a Pallas backward):
   ``core.recursions``.
 * ``embedding_bag``: ``_bag_bwd`` (``ops.py:153-175``), one ``index_add_``
   and one row dot per bag slot, never a (B*L, D) buffer; d_w is 0 at
-  padding, and an id >= N scatters into row N - 1, as the forward reads.
+  padding. As in ``_bag_bwd``, a slot whose id is >= N adds nothing to
+  d_table and its d_w is NaN (``jnp.take`` fills), though the forward
+  reads row N - 1 there (as JAX's ``pallas`` forward does). With
+  ``clip_ids=True`` (``bag_lookup``'s clip, folded into the op) such an id
+  is row N - 1 in the backward too.
 * ``fm_interaction``: the closed form
   dv[b,f,d] = g[b] (sum_f v[b,:,d] - v[b,f,d]).
 * ``flash_attention``: autograd of the plain version, recomputed.
@@ -40,8 +44,8 @@ from repro_torch.kernels.flash_attention import layout as attention_layout
 from repro_torch.kernels.fm_interaction import (fm_interaction_plain,
                                                 fm_interaction_triton)
 from repro_torch.kernels.ref import examination_nll_ref
-from repro_torch.kernels.session_nll import (session_nll_plain,
-                                             session_nll_triton)
+from repro_torch.kernels.session_nll import (session_nll_cuda,
+                                             session_nll_plain)
 
 
 def _route(device: torch.device, kernel, plain):
@@ -56,7 +60,7 @@ class _SessionNLL(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, clicks, mask):
         ctx.save_for_backward(logits, clicks, mask)
-        fn = _route(logits.device, session_nll_triton, session_nll_plain)
+        fn = _route(logits.device, session_nll_cuda, session_nll_plain)
         return fn(logits, clicks, mask)
 
     @staticmethod
@@ -122,8 +126,9 @@ def examination_nll(attr_logits, clicks, mask, p_skip_survive, p_death,
 
 class _EmbeddingBag(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, ids, weights):
+    def forward(ctx, table, ids, weights, clip_ids):
         ctx.save_for_backward(table, ids, weights)
+        ctx.clip_ids = clip_ids
         fn = _route(table.device, embedding_bag_cuda, embedding_bag_plain)
         return fn(table, ids, weights)
 
@@ -132,8 +137,12 @@ class _EmbeddingBag(torch.autograd.Function):
         table, ids, weights = ctx.saved_tensors
         g = g.float()
         live = ids >= 0
-        w = live.float() if weights is None else torch.where(
-            live, weights, 0.0).float()
+        # An id past the table is row N - 1 under clip_ids; else, as in
+        # _bag_bwd, it adds nothing to d_table and its d_w is NaN.
+        past = None if ctx.clip_ids else ids >= table.shape[0]
+        scatter = live if past is None else live & ~past
+        w = scatter.float() if weights is None else torch.where(
+            scatter, weights, 0.0).float()
         safe = torch.clamp(ids, 0, max(table.shape[0] - 1, 0)).long()
         d_table = d_w = None
         want_table = ctx.needs_input_grad[0]
@@ -156,18 +165,25 @@ class _EmbeddingBag(torch.autograd.Function):
         if want_table:
             d_table = d_table.to(table.dtype)
         if want_w:
+            if past is not None:
+                d_w = torch.where(past, float("nan"), d_w)
             d_w = torch.where(live, d_w, 0.0).to(weights.dtype)
-        return d_table, None, d_w
+        return d_table, None, d_w, None
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   weights: Optional[torch.Tensor] = None,
-                  combiner: str = "sum") -> torch.Tensor:
+                  combiner: str = "sum", clip_ids: bool = False
+                  ) -> torch.Tensor:
     """out[b] = reduce_l table[ids[b, l]]; ids < 0 are padding.
 
     combiner: "sum" | "mean" (mean over non-padding entries). Ids >= N
-    read the table's last row. int32 and int64 ids are handed over as they
-    are; other integer types are read as int64.
+    read the table's last row in the forward; in the backward they add
+    nothing to the table's gradient and give a NaN weight gradient, as
+    JAX's ``_bag_bwd``, unless ``clip_ids`` makes them the last row there
+    too (what JAX's ``bag_lookup`` gets by clipping the ids first). int32
+    and int64 ids are handed over as they are; other integer types are
+    read as int64.
     """
     if ids.dtype not in ID_TYPES:
         ids = ids.long()
@@ -182,7 +198,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"unknown combiner {combiner!r}")
     if weights is not None:
         weights = weights.contiguous()
-    return _EmbeddingBag.apply(table.contiguous(), ids, weights)
+    return _EmbeddingBag.apply(table.contiguous(), ids, weights, clip_ids)
 
 
 class _FMInteraction(torch.autograd.Function):

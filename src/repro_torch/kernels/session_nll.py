@@ -1,31 +1,52 @@
 """Fused session NLL (GCTR / RCTR / DCTR loss): masked mean of
 softplus(x) - c x, straight from logits.
 
-* :func:`session_nll_triton`, a hand-written Triton kernel that replaces the
-  TPU kernel ``repro/kernels/session_nll.py`` (``_session_nll_kernel``).
-  What bounds it: bytes. Per element it reads a float32 logit, a float32
-  click and a bool mask (9 bytes) for ~10 flops; at the main-path shape
-  (65,536 x 10) that is 5.9 MB, 1.8 us at 3.35 TB/s, so one launch is
-  launch-bound. Design: the work is one fused elementwise pass and a sum,
-  so the (B, K) batch is flattened and cut into power-of-two blocks with a
-  masked tail (K = 10 needs no padding to a lane width). Each program writes
-  one (sum, count) partial; the caller sums the partials (no atomics, so the
-  loss is the same from run to run).
+Three forms of one function, (B, K) float32 logits and clicks and a bool
+mask -> the scalar float32 masked-mean NLL:
+
+* :func:`session_nll_cuda`, the hand-written CUDA C++ kernel in
+  ``csrc/session_nll.cu`` that replaces the TPU kernel
+  ``repro/kernels/session_nll.py`` (``_session_nll_kernel``). Every thread
+  loads its 4-element vectors of x, c and the mask before any arithmetic,
+  each block writes one (sum, count) pair, and the last block to finish
+  writes ``sum / max(count, 1)`` (``csrc/last_block.cuh``, with the
+  stream's or the captured call's own counter from :mod:`last_block`): one
+  launch per call, nothing after it. :func:`launch_plan` gives its
+  geometry. Its source says what bounds it and how its design answers
+  that.
+* :func:`session_nll_triton`, the first design (Triton, masked 1024-element
+  blocks whose partials the caller sums with four more device kernels).
+  No path runs it; the chip smoke times it beside the CUDA kernel.
 * :func:`session_nll_plain`, the plain-torch form (``repro/kernels/ops.py``
   ``_session_nll_xla``), which the CPU path runs and the chip smoke holds
-  the kernel against.
+  the kernels against.
 
-``triton`` is imported on the first launch, never at module import.
-``session_nll_triton.launches`` counts kernel launches.
+``triton`` is imported on the first launch, never at module import. Each
+kernel's wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
 import torch
 
+from repro_torch.kernels import last_block
+
+#: The Triton design's elements per program.
 BLOCK = 1024
 
 tl = None  # triton.language, bound by _kernel() on the first launch
 _compiled = None
+
+#: The CUDA kernel's default geometry: threads per block and 4-element
+#: vectors per thread (2,048 elements a block, 320 blocks at 65,536 x 10).
+THREADS = 512
+VECTORS = 1
+#: Vectors per thread the source instantiates; threads per block it takes.
+VECTOR_CHOICES = (1, 2, 4)
+MAX_THREADS = 1024
 
 
 def session_nll_plain(logits, clicks, mask) -> torch.Tensor:
@@ -65,13 +86,12 @@ def _kernel():
     return _compiled
 
 
-def session_nll_triton(logits, clicks, mask) -> torch.Tensor:
-    """Launch the Triton kernel. Inputs are (B, K) contiguous CUDA tensors on
-    one device: float32 logits and clicks, bool mask. Raises on anything
-    else."""
+def _check(name, logits, clicks, mask) -> None:
+    """Raise unless the inputs are contiguous CUDA tensors of one shape on
+    one device: float32 logits and clicks, a bool mask."""
     device = logits.device
     if device.type != "cuda":
-        raise ValueError(f"session_nll_triton needs CUDA tensors, got {device}")
+        raise ValueError(f"{name} needs CUDA tensors, got {device}")
     for t in (logits, clicks, mask):
         if t.shape != logits.shape or t.device != device:
             raise ValueError("session_nll inputs differ in shape or device")
@@ -82,6 +102,14 @@ def session_nll_triton(logits, clicks, mask) -> torch.Tensor:
                         f"{logits.dtype} and {clicks.dtype}")
     if mask.dtype != torch.bool:
         raise TypeError(f"session_nll takes a bool mask, got {mask.dtype}")
+
+
+def session_nll_triton(logits, clicks, mask) -> torch.Tensor:
+    """Launch the Triton kernel (the first design), then sum its partials.
+    Inputs are (B, K) contiguous CUDA tensors on one device: float32 logits
+    and clicks, bool mask. Raises on anything else."""
+    _check("session_nll_triton", logits, clicks, mask)
+    device = logits.device
     n = logits.numel()
     if n == 0:
         return logits.new_zeros(())
@@ -96,3 +124,94 @@ def session_nll_triton(logits, clicks, mask) -> torch.Tensor:
 
 
 session_nll_triton.launches = 0
+
+
+class Plan(NamedTuple):
+    """How :func:`session_nll_cuda` launches over n elements: ``threads``
+    threads a block, ``vectors`` 4-element vectors a thread, ``grid``
+    blocks (one (sum, count) partial pair each)."""
+    threads: int
+    vectors: int
+    grid: int
+
+
+def launch_plan(n: int, threads: Optional[int] = None,
+                vectors: Optional[int] = None) -> Plan:
+    """The geometry of one call over n elements: 512 threads of one
+    4-element vector by default, so that a (65,536, 10) batch is 320 blocks
+    that the card holds at once. ``threads`` (a multiple of 32 up to 1024)
+    and ``vectors`` (1, 2 or 4) may be given to measure other
+    geometries."""
+    threads = THREADS if threads is None else threads
+    vectors = VECTORS if vectors is None else vectors
+    if threads % 32 or not 32 <= threads <= MAX_THREADS:
+        raise ValueError(f"threads must be a multiple of 32 in 32.."
+                         f"{MAX_THREADS}, got {threads}")
+    if vectors not in VECTOR_CHOICES:
+        raise ValueError(f"vectors must be one of {VECTOR_CHOICES}, got "
+                         f"{vectors}")
+    per_block = 4 * vectors * threads
+    return Plan(threads, vectors, max(1, -(-n // per_block)))
+
+
+def vector_loads(logits_addr: int, clicks_addr: int, mask_addr: int) -> bool:
+    """Whether the kernel may load whole vectors: 16-byte logits and clicks
+    and 4-byte-aligned mask words (else it reads every element alone)."""
+    return logits_addr % 16 == 0 and clicks_addr % 16 == 0 \
+        and mask_addr % 4 == 0
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library, with its C signatures:
+    ctypes would otherwise pass each pointer as a 32-bit int."""
+    from repro_torch.kernels import build
+
+    lib = ctypes.CDLL(build.build("session_nll").path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.session_nll_forward.argtypes = ([ptr] * 6 + [ctypes.c_longlong]
+                                        + [i32] * 3 + [ptr])
+    lib.session_nll_forward.restype = i32
+    lib.session_nll_error_string.argtypes = [i32]
+    lib.session_nll_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def session_nll_cuda(logits, clicks, mask,
+                     plan: Optional[Plan] = None) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream; one launch writes the
+    scalar loss, and nothing runs after it. Inputs are (B, K) contiguous
+    CUDA tensors on one device (a storage offset is fine): float32 logits
+    and clicks, bool mask. ``plan`` (default ``launch_plan(B * K)``) may be
+    given to measure another geometry. Raises on anything else, for 2^31
+    elements or more, and if the launch is refused."""
+    _check("session_nll_cuda", logits, clicks, mask)
+    device = logits.device
+    n = logits.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"batch of {n} elements exceeds the kernel's int32 "
+                         "element indices")
+    if n == 0:
+        return logits.new_zeros(())
+    if plan is None:
+        plan = launch_plan(n)
+    lib = _library()
+    partials = torch.empty(2 * plan.grid, dtype=torch.float32, device=device)
+    out = torch.empty((), dtype=torch.float32, device=device)
+    ticket = last_block.counter(device)
+    vector = vector_loads(logits.data_ptr(), clicks.data_ptr(),
+                          mask.data_ptr())
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.session_nll_forward(
+            logits.data_ptr(), clicks.data_ptr(), mask.data_ptr(),
+            partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), n,
+            plan.threads, plan.vectors, int(vector), stream)
+    if err != 0:
+        raise RuntimeError("session_nll kernel launch failed: "
+                           + lib.session_nll_error_string(err).decode())
+    session_nll_cuda.launches += 1
+    return out
+
+
+session_nll_cuda.launches = 0

@@ -73,10 +73,11 @@ def bag_lookup(cfg: TableConfig, params: Mapping[str, torch.Tensor],
     """Fused bag reduction: out[b] = reduce_l w[b,l] * table[ids[b,l]].
 
     Routes through the ``embedding_bag`` kernel (ids < 0 are padding). An
-    uncompressed table's ids are handed over untouched: the kernel reads an
-    id >= ``stored_rows`` as the last row, which is the clip that JAX's
-    ``bag_lookup`` applies. QR-compressed tables have no materialized row
-    table to gather from, so they take lookup + reduce.
+    uncompressed table's ids are handed over untouched with ``clip_ids``:
+    the op reads an id >= ``stored_rows`` as the last row in the forward
+    and the backward, which is the clip that JAX's ``bag_lookup`` applies.
+    QR-compressed tables have no materialized row table to gather from, so
+    they take lookup + reduce.
     """
     if cfg.compression == "qr":
         rows = table_lookup(cfg, params, torch.clamp_min(ids, 0))
@@ -89,4 +90,5 @@ def bag_lookup(cfg: TableConfig, params: Mapping[str, torch.Tensor],
         return torch.einsum("bld,bl->bd", rows.float(), w)
     if cfg.compression == "hash":
         ids = torch.where(ids >= 0, hash_ids(ids.long(), cfg.stored_rows), -1)
-    return embedding_bag(params["table"], ids, weights, combiner=combiner)
+    return embedding_bag(params["table"], ids, weights, combiner=combiner,
+                         clip_ids=True)

@@ -7,10 +7,13 @@ exactly once, tiles start on 16 bytes and shared memory stays within a
 block's budget, over the B, L, D and id widths the contract names. Then
 int32 and int64 ids through the port's ``embedding_bag`` against JAX's
 (``impl="pallas"`` in interpret mode and ``impl="ref"``), and the port's
-``bag_lookup`` against JAX's with ids past ``stored_rows`` and padding:
-values and table gradients, the backward scattering past-the-end ids into
-the last row as the forward reads them, and no pass over an uncompressed
-table's ids before the op. Tolerance: rtol and atol 1e-5 (float32, sums
+the raw op at ids past the table against JAX's pallas forward and
+``_bag_bwd`` (past-the-end slots dropped from the table's gradient, a NaN
+weight gradient), and the port's ``bag_lookup`` against JAX's with ids
+past ``stored_rows`` and padding: values and table gradients, the
+backward scattering past-the-end ids into the last row as the forward
+reads them (the clip JAX's ``bag_lookup`` applies, folded into the op),
+and no pass over an uncompressed table's ids before the op. Tolerance: rtol and atol 1e-5 (float32, sums
 of up to 130 products in another order). Inputs and weights come from
 numpy with a seed. The kernel itself runs only on a GPU (chip_smoke.py).
 """
@@ -180,6 +183,44 @@ def test_plain_version_reads_ids_past_the_table_as_its_last_row():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("impl", ["pallas", "ref"])
+@pytest.mark.parametrize("id_type", sorted(ID_TYPES))
+def test_ids_past_the_table_follow_jax_bag_bwd(id_type, impl):
+    """The raw op at ids >= N: the forward reads row N - 1, as JAX's pallas
+    forward; the backward is JAX's ``_bag_bwd``, which drops those slots
+    from d_table and gives them a NaN d_w (``jnp.take`` fills), whatever
+    the forward impl."""
+    id_np, _ = ID_TYPES[id_type]
+    table = np.arange(12, dtype=np.float32).reshape(4, 3)
+    ids = np.array([[0, 4, -1], [3, 7, 1]], dtype=id_np)
+    weights = np.array([[1, 2, 3], [4, 5, 6]], dtype=np.float32)
+
+    def jax_sum(t, w, impl):
+        return jnp.sum(jk.embedding_bag(t, jnp.asarray(ids.astype(np.int32)),
+                                        w, impl=impl))
+
+    want = np.asarray(jk.embedding_bag(
+        jnp.asarray(table), jnp.asarray(ids.astype(np.int32)),
+        jnp.asarray(weights), impl="pallas"))
+    d_want = [np.asarray(d) for d in jax.grad(jax_sum, argnums=(0, 1))(
+        jnp.asarray(table), jnp.asarray(weights), impl)]
+    t = torch.from_numpy(table).requires_grad_(True)
+    w = torch.from_numpy(weights).requires_grad_(True)
+    got = tk.embedding_bag(t, torch.from_numpy(ids), w)
+    d_got = [d.numpy() for d in torch.autograd.grad(got.sum(), [t, w])]
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    for g, wv in zip(d_got, d_want):
+        np.testing.assert_allclose(g, wv, equal_nan=True, **TOL)
+    np.testing.assert_array_equal(d_got[0][3], [4.0, 4.0, 4.0])
+    assert np.isnan(d_got[1][:, 1]).all() and d_got[1][0, 2] == 0.0
+    # bag_lookup's clip, folded into the op: row N - 1 both ways.
+    t.grad = None
+    clipped = tk.embedding_bag(t, torch.from_numpy(ids), w, clip_ids=True)
+    d_clip = torch.autograd.grad(clipped.sum(), [t, w])
+    np.testing.assert_array_equal(d_clip[0][3].numpy(), [11.0, 11.0, 11.0])
+    assert torch.isfinite(d_clip[1]).all()
+
+
 # ---------------------------------------------------------------------------
 # bag_lookup: ids past stored_rows and padding, values and table gradients
 # ---------------------------------------------------------------------------
@@ -227,9 +268,11 @@ def test_bag_lookup_hands_an_uncompressed_tables_ids_over_untouched(
         monkeypatch):
     seen = []
 
-    def record(table, ids, weights=None, combiner="sum"):
+    def record(table, ids, weights=None, combiner="sum", clip_ids=False):
         seen.append(ids)
-        return ops.embedding_bag(table, ids, weights, combiner=combiner)
+        assert clip_ids  # the clip is the op's, not a pass over the ids
+        return ops.embedding_bag(table, ids, weights, combiner=combiner,
+                                 clip_ids=clip_ids)
 
     monkeypatch.setattr(temb, "embedding_bag", record)
     cfg = temb.TableConfig(100, 1)

@@ -179,11 +179,11 @@ def test_kernels_are_not_launched_on_cpu_and_refuse_cpu_tensors():
     tk.examination_nll(*exam)
     tk.session_nll(*sess)
     assert tk.examination_nll_cuda.launches == 0
-    assert tk.session_nll_triton.launches == 0
+    assert tk.session_nll_cuda.launches == 0
     with pytest.raises(ValueError, match="CUDA"):
         tk.examination_nll_cuda(*exam)
     with pytest.raises(ValueError, match="CUDA"):
-        tk.session_nll_triton(*sess)
+        tk.session_nll_cuda(*sess)
 
 
 def test_tensors_on_another_device_have_no_route():
