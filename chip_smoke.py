@@ -7,7 +7,8 @@ Phases, each printing JSON lines:
 
 1. device         the card's name, count, power limit (nvidia-smi).
 2. build          nvcc builds every CUDA source (examination_nll,
-                  session_nll, embedding_bag, flash_attention, dcn_cross)
+                  session_nll, embedding_bag, flash_attention, dcn_cross,
+                  adamw, sparse_adamw)
                   at once into src/repro_torch/kernels/build/, with
                   ptxas's registers and spill bytes for every kernel entry
                   (flash_attention's attention_rows_kernel and
@@ -42,11 +43,33 @@ Phases, each printing JSON lines:
                   (rows or tiles) its launch plan took, and the first
                   design (the tiles variant) timed at the main shape;
                   dcn_cross at the two-tower's (655,360, 16), the
-                  conformance and sweep shapes, (65,536, 1024) and bf16.
+                  conformance and sweep shapes, (65,536, 1024) and bf16;
+                  adamw over the DBN's two 214,748,672-row tables against
+                  the plain chain (moments and parameters, equal to the bit
+                  or not), timed beside torch.optim.AdamW(fused=True), and
+                  its edges (n = 1, 7, 1,000,003, 10 x 10, a 0-d scalar,
+                  bf16 moments, an injected lr, adam, count 1 and 10,000,
+                  an unaligned view, and lr = 0.05, wd = 0.1 over five
+                  steps, where dropping the decay term would fail the hold
+                  by over a hundred tolerances); sparse_adamw over one such
+                  table at the 655,360 slots of the DBN log's first batch,
+                  hashed as row_ids does, with sentinel padding against its
+                  plain version, untouched rows equal to the bit, row 0
+                  untouched and row R-1 touched, its dedupe timed, beside
+                  torch.optim.SparseAdam; edges: unhashed Zipf ranks at
+                  the same size, d = 3, bf16 moments, every row touched,
+                  and the same decay case.
 4. train_dbn      the paper-width DBN (2 x 214,748,672 hashed rows, batch
                   65,536, AdamW 3e-3) takes 16 steps through the Trainer;
-                  the examination_nll kernel must be launched 16 times and a
+                  the examination_nll kernel must be launched 16 times,
+                  adamw 5 times a step (one per parameter tensor), and a
                   fixed held-out batch's loss must fall.
+   train_dbn_sparse  the same DBN through Trainer(sparse_tables=True): 16
+                  examination_nll, 32 sparse_adamw (two tables a step) and
+                  48 adamw (the three dense tensors a step).
+   Every train phase also runs one optimizer update under
+   torch.cuda.set_sync_debug_mode("error") (no host sync), and reports
+   step_breakdown_ms (forward, backward, optimizer) and its peak memory.
 5. train_dctr     the same for DCTR, 8 steps, through session_nll.
 6. train_ubm      the paper-width UBM (214,748,672 hashed rows), 8 steps;
                   no kernel; its test pass runs ubm_marginal_clicks at
@@ -68,7 +91,8 @@ Phases, each printing JSON lines:
                   with and without the id passes bag_lookup ran before the
                   kernel took the clamp (clamp_fold).
 10. train_deepfm  the same model takes 8 AdamW(1e-3) steps at 65,536 rows of
-                  a synthetic Criteo-shaped log; the held-out loss must fall.
+                  a synthetic Criteo-shaped log, one adamw launch per
+                  parameter tensor a step; the held-out loss must fall.
 11. serve_autoint, train_autoint   the same for AutoInt: three
                   flash_attention launches per forward.
 12. cpu_vs_gpu_recsys   the reduced DeepFM and AutoInt: CPU (plain) and GPU
@@ -76,8 +100,9 @@ Phases, each printing JSON lines:
 
 Every phase that drives a path sets every kernel's launch count to 0 just
 before it and reads the counts just after; they must be exact. A control
-line holds the device times of the kernels this slice left untouched, and
-of examination_nll, beside the last run before it. Then the kernel summary line, the card's
+line holds the device times of the six kernels this slice left untouched
+beside the last runs before it. Then the kernel summary line (eight
+kernels: the six ports of TPU kernels and the optimizer's two), the card's
 name and power limit as nvidia-smi prints them, and the final status
 line. Any mismatch raises, and the script exits
 non-zero; it exits non-zero without a result when no GPU is visible. It
@@ -107,13 +132,12 @@ PEAK_FP32_PER_S = 67e12
 OPS_PER_ELEMENT = {"examination_nll": 44, "session_nll": 12}
 BYTES_PER_ELEMENT = {"examination_nll": 6 * 4 + 1, "session_nll": 2 * 4 + 1}
 RTOL, ATOL = 1e-5, 1e-6
-# Device ms, from the last run before this slice (PERF.md's kernel table;
-# NVIDIA H100 80GB HBM3, 700.00 W), of the kernels it leaves untouched and
-# of examination_nll, whose finish moved into a header shared with
-# session_nll.
-CONTROL_DEVICE_MS = {"examination_nll": 0.01238, "embedding_bag": 0.02810,
-                     "fm_interaction": 0.0439, "flash_attention": 0.507,
-                     "dcn_cross": 0.0712}
+# Device ms of the six kernels this slice leaves untouched, from the last
+# runs before it (PERF.md's kernel table and the runs it cites; NVIDIA H100
+# 80GB HBM3, 700.00 W).
+CONTROL_DEVICE_MS = {"examination_nll": 0.01265, "session_nll": 0.00551,
+                     "embedding_bag": 0.02810, "fm_interaction": 0.0439,
+                     "flash_attention": 0.507, "dcn_cross": 0.0712}
 
 
 def emit(phase: str, **data) -> None:
@@ -182,7 +206,9 @@ def kernel_counters():
             "embedding_bag": k.embedding_bag_cuda,
             "fm_interaction": k.fm_interaction_triton,
             "flash_attention": k.flash_attention_cuda,
-            "dcn_cross": k.dcn_cross_cuda}
+            "dcn_cross": k.dcn_cross_cuda,
+            "adamw": k.adamw_cuda,
+            "sparse_adamw": k.sparse_adamw_cuda}
 
 
 def reset_counts() -> None:
@@ -704,15 +730,16 @@ def _device_batch(data, lo, hi):
     return {k: torch.from_numpy(v[lo:hi]).cuda() for k, v in data.items()}
 
 
-def _step_breakdown(model, optimizer, batch, reps=3):
-    """Host-clock ms of forward, backward and AdamW update of one step,
-    each closed by a synchronize (taken after the counted run)."""
+def _step_breakdown(engine, batch, reps=3):
+    """Host-clock ms of forward, backward and optimizer update of one step
+    (the engine's own ``apply_update``: the fused adamw kernel, and
+    sparse_adamw for sparse tables), each closed by a synchronize (taken
+    after the counted run)."""
     import torch
 
-    from repro_torch import optim
-
-    params = list(model.parameters())
-    state = optimizer.init(params)
+    model = engine.model
+    params = engine.params
+    state = engine.init_opt_state()
     parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -723,9 +750,7 @@ def _step_breakdown(model, optimizer, batch, reps=3):
         loss.backward()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        updates, state = optimizer.update([p.grad for p in params], state,
-                                          params)
-        optim.apply_updates(params, updates)
+        state = engine.apply_update(state, batch)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         for p in params:
@@ -736,14 +761,11 @@ def _step_breakdown(model, optimizer, batch, reps=3):
     return {k: min(v) for k, v in parts.items()}
 
 
-def _enqueue_ms(model, optimizer, batch, n=4, reps=2):
+def _enqueue_ms(engine, batch, n=4, reps=2):
     """(host ms to enqueue one n-step engine chunk, ms until the device has
     run it): equal numbers mean the host cannot run ahead of the device."""
     import torch
 
-    from repro_torch.train import TrainEngine
-
-    engine = TrainEngine(model, optimizer, chunk_batches=n)
     state = engine.init_opt_state()
     chunk = {k: v.expand(n, *v.shape).contiguous() for k, v in batch.items()}
     for _ in range(reps):
@@ -758,9 +780,12 @@ def _enqueue_ms(model, optimizer, batch, n=4, reps=2):
 
 
 def _train_spec(kind):
-    """(model, optimizer factory, launches per step, dcn_cross launches per
-    forward) of a training path: the paper-width ``dbn``, ``dctr`` and
-    ``ubm``, and the Listing-4 pair ``two_tower_pbm`` / ``two_tower_dctr``."""
+    """(model, optimizer factory, sparse-table keyword arguments of the
+    Trainer and engine, loss-kernel launches per step, dcn_cross launches
+    per forward) of a training path: the paper-width ``dbn``, ``dctr`` and
+    ``ubm``, ``dbn_sparse`` (the DBN with sparse lazy AdamW on its two
+    tables), and the Listing-4 pair ``two_tower_pbm`` /
+    ``two_tower_dctr``."""
     from repro_torch import optim
     from repro_torch.configs.clax_baidu import make_model, make_two_tower
 
@@ -770,11 +795,50 @@ def _train_spec(kind):
         if twin == "dctr":
             per_step["session_nll"] = 1
         return (make_two_tower(twin, device="cuda"),
-                lambda: optim.adamw(1e-2), per_step, 2)
+                lambda: optim.adamw(1e-2), {}, per_step, 2)
+    base = kind.split("_")[0]
     per_step = {"dbn": {"examination_nll": 1}, "dctr": {"session_nll": 1},
-                "ubm": {}}[kind]
-    return (make_model(kind, device="cuda"),
-            lambda: optim.adamw(3e-3, weight_decay=1e-4), per_step, 0)
+                "ubm": {}}[base]
+    sparse = (dict(sparse_tables=True,
+                   sparse_table_kwargs=dict(lr=3e-3, weight_decay=1e-4))
+              if kind.endswith("_sparse") else {})
+    return (make_model(base, device="cuda"),
+            lambda: optim.adamw(3e-3, weight_decay=1e-4), sparse, per_step,
+            0)
+
+
+def _optimizer_launches(engine, steps):
+    """The optimizer kernels' launches in ``steps`` engine steps: one adamw
+    per dense tensor (none for an empty one) and one sparse_adamw per
+    sparse table."""
+    out = {"adamw": steps * sum(1 for p in engine.dense_params
+                                if p.numel())}
+    if engine.sparse_parts:
+        out["sparse_adamw"] = steps * len(engine.sparse_parts)
+    return out
+
+
+def no_sync_check(engine, batch):
+    """One backward, then the engine's optimizer update under
+    torch.cuda.set_sync_debug_mode("error"): any host sync in the update
+    (the dedupe's sort, cumsum and scatter, the gathers, the kernels'
+    wrappers) raises."""
+    import torch
+
+    state = engine.init_opt_state()
+    loss = engine.model.compute_loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = engine.apply_update(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for p in engine.params:
+        p.grad = None
+    del state
+    return True
 
 
 def phase_train(kind, data, steps, card, extra=None):
@@ -787,17 +851,22 @@ def phase_train(kind, data, steps, card, extra=None):
 
     from repro_torch.configs.clax_baidu import TRAIN_BATCH
     from repro_torch.data import ClickLogLoader, DevicePrefetcher
-    from repro_torch.train import Trainer
+    from repro_torch.train import TrainEngine, Trainer
 
     train = {k: v[:steps * TRAIN_BATCH] for k, v in data.items()}
     held_lo = len(data["clicks"]) - TRAIN_BATCH
     held_out = _device_batch(data, held_lo, held_lo + TRAIN_BATCH)
     torch.cuda.reset_peak_memory_stats()
-    model, make_optimizer, per_step, per_forward = _train_spec(kind)
+    model, make_optimizer, sparse, per_step, per_forward = _train_spec(kind)
+
+    def make_engine(chunk_batches=1):
+        return TrainEngine(model, make_optimizer(),
+                           chunk_batches=chunk_batches, **sparse)
+
     with torch.no_grad():
         loss_before = float(model.compute_loss(held_out))
     trainer = Trainer(make_optimizer(), epochs=1, chunk_batches=4,
-                      device="cuda", log_fn=lambda s: None)
+                      device="cuda", log_fn=lambda s: None, **sparse)
     loader = ClickLogLoader(train, batch_size=TRAIN_BATCH, seed=0)
 
     torch.cuda.synchronize()
@@ -807,7 +876,8 @@ def phase_train(kind, data, steps, card, extra=None):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = check_counts(f"train_{kind}", {
-        k: n * steps for k, n in per_step.items()})
+        **{k: n * steps for k, n in per_step.items()},
+        **_optimizer_launches(make_engine(), steps)})
     train_loss = history[-1]["train_loss"]
     if not math.isfinite(train_loss):
         raise AssertionError(f"{kind}: non-finite train loss {train_loss}")
@@ -841,8 +911,9 @@ def phase_train(kind, data, steps, card, extra=None):
         pass
     torch.cuda.synchronize()
     input_seconds = time.perf_counter() - t0
-    breakdown = _step_breakdown(model, make_optimizer(), held_out)
-    chunk_timing = _enqueue_ms(model, make_optimizer(), held_out)
+    breakdown = _step_breakdown(make_engine(), held_out)
+    chunk_timing = _enqueue_ms(make_engine(chunk_batches=4), held_out)
+    found["no_host_sync_in_update"] = no_sync_check(make_engine(), held_out)
     emit(f"train_{kind}", card=card, steps=steps, batch=TRAIN_BATCH,
          params=model.n_params(), seconds=seconds,
          steps_per_s=steps / seconds,
@@ -1192,6 +1263,394 @@ def phase_dcn_kernel(card):
         "plain_ms": timing["main"]["plain_ms"], "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "device_ms": timing["main"]["device_ms"], "held": True}}
+
+
+# ---------------------------------------------------------------------------
+# the optimizer's kernels: dense AdamW in one pass, sparse lazy AdamW
+# ---------------------------------------------------------------------------
+
+DBN_ROWS = 214_748_672      # configs/clax_baidu.py: 2^31 ids hashed 10x
+SPARSE_SLOTS = B_MAIN * K_MAIN
+ADAMW_BYTES_PER_ELEMENT = {"float32": 28, "bfloat16": 20}
+ADAMW_OPS_PER_ELEMENT = 16  # counted from csrc/adamw.cu, wd on
+SECTOR = 32
+
+
+def _adam_run(make_opt, params0, grads, steps, fused, start_count=0):
+    """``steps`` updates of copies of ``params0``, the step count starting
+    at ``start_count``: through optim.step (the kernel) or through update +
+    apply_updates (the plain chain). Returns the parameters and the
+    state."""
+    from repro_torch import optim
+
+    params = [p.clone() for p in params0]
+    opt = make_opt()
+    state = opt.init(params)
+    state[0].count.fill_(start_count)
+    for _ in range(steps):
+        if fused:
+            state = optim.step(opt, grads, state, params)
+        else:
+            updates, state = opt.update(grads, state, params)
+            optim.apply_updates(params, updates)
+            del updates
+    return params, state
+
+
+def _adam_compare(make_opt, params0, grads, steps=3, start_count=0):
+    """Kernel against plain chain from the same inputs: max abs error of the
+    parameters and the moments, whether each is equal to the bit, and how
+    far past rtol = atol = 1e-6 they are (one or two ulps of values of
+    order 1)."""
+    import torch
+
+    out = {}
+    runs = []
+    for fused in (True, False):
+        params, state = _adam_run(make_opt, params0, grads, steps, fused,
+                                  start_count)
+        runs.append((params, state[0].mu, state[0].nu))
+        out["count"] = int(state[0].count)
+    (pk, mk, vk), (pp, mp, vp) = runs
+    out["params_abs_err"] = max(_max_err(a, b) for a, b in zip(pk, pp))
+    out["moments_abs_err"] = max(_max_err(a.float(), b.float())
+                                 for a, b in zip(mk + vk, mp + vp))
+    out["params_bit_equal"] = all(torch.equal(a, b) for a, b in zip(pk, pp))
+    out["moments_bit_equal"] = all(torch.equal(a, b)
+                                   for a, b in zip(mk + vk, mp + vp))
+    out["over"] = max([_over(a, b, 1e-6, 1e-6) for a, b in zip(pk, pp)]
+                      + [_over(a.float(), b.float(), 1e-6, 1e-6)
+                         for a, b in zip(mk + vk, mp + vp)])
+    return out
+
+
+def _decay_sensitivity(run):
+    """How many times past the hold's tolerance (rtol = atol = 1e-6) the
+    plain form without weight decay lands from the plain form with it,
+    ``run(wd)`` giving the parameters after a decay edge case's steps: a
+    kernel that dropped the decay term would be that far off."""
+    with_decay, without = run(0.1), run(0.0)
+    return float(((without - with_decay).abs()
+                  / (1e-6 + 1e-6 * with_decay.abs())).max())
+
+
+def _check_sensitive(name, times):
+    if not times > 100.0:
+        raise AssertionError(f"{name}: the decay edge case is only {times} "
+                             f"tolerances from its no-decay form")
+
+
+def adamw_bound(n, moments="float32"):
+    t_bytes = n * ADAMW_BYTES_PER_ELEMENT[moments] / PEAK_BYTES_PER_S
+    t_ops = n * ADAMW_OPS_PER_ELEMENT / PEAK_FP32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sparse_adamw_bound(live_rows, slots):
+    """For a (R, 1) float32 table and moments: each distinct 32-byte sector
+    that this run's touched rows fall in (eight rows a sector), read and
+    written, in each of p, m and v; every slot's 8-byte id, and each live
+    slot's 4-byte gradient (the kernel reads no gradient of a sentinel
+    slot), read in order."""
+    import torch
+
+    sectors = torch.unique(live_rows // (SECTOR // 4)).numel()
+    t_bytes = (sectors * 6 * SECTOR + slots * 8
+               + live_rows.numel() * 4) / PEAK_BYTES_PER_S
+    t_ops = live_rows.numel() * ADAMW_OPS_PER_ELEMENT / PEAK_FP32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_optimizer_kernels(card, data):
+    """adamw over the paper-width DBN's two 214,748,672-row tables, against
+    the plain chain (three steps from the same inputs) and timed beside
+    torch.optim.AdamW(fused=True) on the same tensors (which applies the
+    decay first, p *= 1 - lr wd: another order, so it is timed, not held);
+    its edge cases. sparse_adamw over one table at the 655,360 slots of
+    ``data``'s first batch (the train_dbn_sparse path's ids), with sentinel
+    padding, against its plain version, rows it did not touch equal to the
+    bit, row 0 untouched and row R-1 touched; timed beside
+    torch.optim.SparseAdam (no weight decay: another function, timed at
+    wd = 0). Each kernel has an edge case where the decay term moves the
+    parameters far past the tolerance, checked to be so."""
+    import numpy as np
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.core.parameterization import hash_ids
+    from repro_torch.kernels import sparse_adamw_cuda, sparse_adamw_plain
+    from repro_torch.optim.sparse import (init_sparse_table_state,
+                                          unique_rows_with_sentinel)
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    results = {}
+
+    def adamw_3e3():
+        return optim.adamw(3e-3, weight_decay=1e-4)
+
+    # --- adamw: the DBN's two tables, (R, 1) float32 -----------------------
+    params = [torch.randn(DBN_ROWS, 1, generator=gen, device=device) * 0.5
+              for _ in range(2)]
+    grads = [torch.randn(DBN_ROWS, 1, generator=gen, device=device) * 1e-3
+             for _ in range(2)]
+    main = _adam_compare(adamw_3e3, params, grads, steps=2)
+    torch.cuda.synchronize()
+    opt = adamw_3e3()
+    work = [p.clone() for p in params]
+    state = opt.init(work)
+    ms = time_ms(lambda: optim.step(opt, grads, state, work), iters=20,
+                 warmup=2)
+    device_ms = {"kernel": graph_ms(lambda: optim.step(opt, grads, state,
+                                                       work),
+                                    calls=5, replays=4)}
+
+    def plain_step():
+        updates, _ = opt.update(grads, state, work)
+        optim.apply_updates(work, updates)
+
+    plain_ms = time_ms(plain_step, iters=5, warmup=1)
+    del work, state
+    torch.cuda.empty_cache()
+    lib_params = [torch.nn.Parameter(p.clone()) for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=3e-3, weight_decay=1e-4,
+                            fused=True)
+    library_ms = time_ms(lib.step, iters=20, warmup=2)
+    del lib, lib_params
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = adamw_bound(2 * DBN_ROWS)
+
+    edges = {}
+    small = {"n1": (1,), "n7": (7,), "n1000003": (1_000_003,),
+             "10x10": (10, 10), "scalar": ()}
+    for case, shape in small.items():
+        p = [torch.randn(shape, generator=gen, device=device)]
+        g = [torch.randn(shape, generator=gen, device=device) * 3]
+        edges[case] = _adam_compare(adamw_3e3, p, g)
+    p = [torch.randn(4099, generator=gen, device=device)]
+    g = [torch.randn(4099, generator=gen, device=device)]
+    edges["bf16_moments"] = _adam_compare(
+        lambda: optim.adamw(3e-3, weight_decay=1e-4,
+                            moment_dtype=torch.bfloat16), p, g)
+    edges["injected_lr"] = _adam_compare(
+        lambda: optim.adamw(3e-3, weight_decay=1e-4, inject_lr=True), p, g)
+    edges["adam_no_decay"] = _adam_compare(lambda: optim.adam(3e-3), p, g)
+    edges["count_1"] = _adam_compare(adamw_3e3, p, g, steps=1)
+    edges["count_10000"] = _adam_compare(adamw_3e3, p, g, steps=1,
+                                         start_count=9_999)
+    # a view one float past an aligned start: the element-by-element path
+    base = torch.randn(4100, generator=gen, device=device)
+    edges["unaligned_view"] = _adam_compare(adamw_3e3, [base[1:]],
+                                            [g[0][:4099]])
+    # The main case's decay moves p by lr wd |p| = 3e-7 |p| a step, inside
+    # the tolerance: here it moves it by 5e-3 |p|, so a kernel that dropped
+    # the term would fail. `decay_sensitivity` says by how many tolerances.
+    edges["decay_dominant"] = _adam_compare(
+        lambda: optim.adamw(0.05, weight_decay=0.1), p, g, steps=5)
+    decay_sensitivity = {"adamw": _decay_sensitivity(
+        lambda wd: _adam_run(lambda: optim.adamw(0.05, weight_decay=wd),
+                             p, g, 5, False)[0][0])}
+    # The chain on the CPU, whose division is a true division: the kernel
+    # keeps its arithmetic, so the bits should agree.
+    p = [torch.randn(1_000_003, generator=gen, device=device)]
+    g = [torch.randn(1_000_003, generator=gen, device=device) * 3]
+    kp, ks = _adam_run(adamw_3e3, p, g, 3, True)
+    cp, cs = _adam_run(adamw_3e3, [x.cpu() for x in p], [x.cpu() for x in g],
+                       3, False)
+    vs_cpu_chain = {
+        "params_abs_err": _max_err(kp[0].cpu(), cp[0]),
+        "params_bit_equal": bool(torch.equal(kp[0].cpu(), cp[0])),
+        "moments_bit_equal": bool(torch.equal(ks[0].mu[0].cpu(), cs[0].mu[0])
+                                  and torch.equal(ks[0].nu[0].cpu(),
+                                                  cs[0].nu[0]))}
+    over = {"main": main.pop("over"),
+            "vs_cpu_chain": _over(kp[0].cpu(), cp[0], 1e-6, 1e-6),
+            **{case: e.pop("over") for case, e in edges.items()}}
+    if edges["count_10000"]["count"] != 10_000:
+        raise AssertionError(f"adamw count {edges['count_10000']['count']}")
+    _check_sensitive("adamw", decay_sensitivity["adamw"])
+    emit("kernel", name="adamw", shape=[2, DBN_ROWS, 1], card=card,
+         kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         library="torch.optim.AdamW(fused=True): decays p first, another "
+                 "order; timed, not held",
+         device_ms=device_ms, bound_ms=bound_ms, bound_by=bound_by,
+         max_abs_err=main["params_abs_err"], main=main,
+         vs_cpu_chain=vs_cpu_chain, edge_cases=edges,
+         decay_sensitivity=decay_sensitivity["adamw"])
+    _hold("adamw", over)
+    results["adamw"] = {
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "src/repro/optim/optimizers.py:93 (no pallas_call: the "
+                    "loop XLA fuses from scale_by_adam, add_decayed_weights "
+                    "and scale)",
+        "max_abs_err": main["params_abs_err"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "device_ms": device_ms, "held": True}
+    del params, grads
+    torch.cuda.empty_cache()
+
+    # --- sparse_adamw: one DBN table, a batch's 655,360 slots --------------
+    # The ids the train_dbn_sparse path sends: the first batch of its
+    # synthetic log, hashed into the table as row_ids does, so the touched
+    # rows lie scattered over it.
+    ids = hash_ids(torch.from_numpy(
+        data["query_doc_ids"][:B_MAIN].reshape(-1)).to(device), DBN_ROWS)
+    ids = torch.where(ids == 0, 1, ids)  # row 0 stays untouched
+    ids[0] = DBN_ROWS - 1                # row R-1 is touched
+    rows = unique_rows_with_sentinel(ids, DBN_ROWS)
+    live = int((rows < DBN_ROWS).sum())
+    # Unhashed Zipf ranks, the hot rows side by side at the table's start:
+    # an edge case of the same size.
+    rng = np.random.default_rng(5)
+    draws = rng.zipf(1.2, SPARSE_SLOTS) % (DBN_ROWS - 2) + 1  # never row 0
+    draws[rng.integers(0, SPARSE_SLOTS)] = DBN_ROWS - 1
+    zipf_rows = unique_rows_with_sentinel(
+        torch.from_numpy(draws.astype(np.int64)).to(device), DBN_ROWS)
+    zipf_live = int((zipf_rows < DBN_ROWS).sum())
+    before = torch.randn(DBN_ROWS, 1, generator=gen, device=device) * 0.5
+    row_grads = torch.randn(SPARSE_SLOTS, 1, generator=gen, device=device)
+    kw = dict(lr=3e-3, weight_decay=1e-4)
+
+    def run(kernel, base, rows_, grads_, steps, kw_, mdt=torch.float32):
+        t = base.clone()
+        st = init_sparse_table_state(t, mdt)
+        for _ in range(steps):
+            st.count.add_(1)
+            kernel(t, st.mu, st.nu, rows_, grads_, st.count, **kw_)
+        return t, st
+
+    (tk, sk), (tp, sp) = [run(kernel, before, rows, row_grads, 2, kw)
+                          for kernel in (sparse_adamw_cuda,
+                                         sparse_adamw_plain)]
+    torch.cuda.synchronize()
+    touched = torch.zeros(DBN_ROWS, dtype=torch.bool, device=device)
+    touched[ids] = True
+    checks = {
+        "untouched_rows_bit_equal": bool(torch.equal(tk[~touched],
+                                                     before[~touched])),
+        "untouched_moments_zero": bool((sk.mu[~touched] == 0).all()
+                                       and (sk.nu[~touched] == 0).all()),
+        "row_0_untouched": bool(torch.equal(tk[0], before[0])),
+        "row_last_touched": bool(not torch.equal(tk[-1], before[-1])),
+        "moments_bit_equal": bool(torch.equal(sk.mu, sp.mu)
+                                  and torch.equal(sk.nu, sp.nu)),
+        "params_bit_equal": bool(torch.equal(tk, tp))}
+    err = _max_err(tk, tp)
+    s_over = {"main": max(_over(tk, tp, 1e-6, 1e-6),
+                          _over(sk.mu, sp.mu, 1e-6, 1e-6),
+                          _over(sk.nu, sp.nu, 1e-6, 1e-6))}
+    del tk, sk, tp, sp
+    torch.cuda.empty_cache()
+    (tk, sk), (tp, sp) = [run(kernel, before, zipf_rows, row_grads, 2, kw)
+                          for kernel in (sparse_adamw_cuda,
+                                         sparse_adamw_plain)]
+    s_over["zipf_ranks"] = max(_over(tk, tp, 1e-6, 1e-6),
+                               _over(sk.mu, sp.mu, 1e-6, 1e-6),
+                               _over(sk.nu, sp.nu, 1e-6, 1e-6))
+    checks["zipf_ranks_abs_err"] = _max_err(tk, tp)
+    del tk, sk, tp, sp
+    torch.cuda.empty_cache()
+    # edges: d = 3 rows, bfloat16 moments, a slot of every id in [0, 64),
+    # and lr wd |p| = 5e-3 a step (the main case's 3e-7 |p| is inside the
+    # tolerance), where a kernel without the decay term would fail
+    decay_kw = dict(lr=0.05, weight_decay=0.1)
+    for case, (n_rows, d, mdt, n_ids, steps, case_kw) in {
+            "d3": (1000, 3, torch.float32, 700, 3, kw),
+            "bf16_moments": (1000, 1, torch.bfloat16, 700, 3, kw),
+            "every_row": (64, 2, torch.float32, 64, 3, kw),
+            "decay_dominant": (1000, 3, torch.float32, 700, 5,
+                               decay_kw)}.items():
+        e_ids = torch.randint(0, n_rows, (n_ids,), generator=gen,
+                              device=device)
+        if case == "every_row":
+            e_ids = torch.randperm(n_rows, generator=gen, device=device)
+        e_rows = unique_rows_with_sentinel(e_ids, n_rows)
+        e_g = torch.randn(n_ids, d, generator=gen, device=device)
+        base = torch.randn(n_rows, d, generator=gen, device=device)
+        outs = [run(kernel, base, e_rows, e_g, steps, case_kw, mdt)
+                for kernel in (sparse_adamw_cuda, sparse_adamw_plain)]
+        s_over[case] = max(_over(outs[0][0], outs[1][0], 1e-6, 1e-6),
+                           _over(outs[0][1].mu.float(),
+                                 outs[1][1].mu.float(), 1e-6, 1e-6))
+        checks[f"{case}_abs_err"] = _max_err(outs[0][0], outs[1][0])
+        if case == "d3":
+            # the plain form on the CPU, whose division is a true division
+            t, st = run(sparse_adamw_plain, base.cpu(), e_rows.cpu(),
+                        e_g.cpu(), steps, kw)
+            checks["d3_vs_cpu_plain_bit_equal"] = bool(
+                torch.equal(outs[0][0].cpu(), t)
+                and torch.equal(outs[0][1].mu.cpu(), st.mu)
+                and torch.equal(outs[0][1].nu.cpu(), st.nu))
+        if case == "decay_dominant":
+            decay_sensitivity["sparse_adamw"] = _decay_sensitivity(
+                lambda wd: run(sparse_adamw_plain, base, e_rows, e_g, steps,
+                               dict(lr=0.05, weight_decay=wd))[0])
+    _check_sensitive("sparse_adamw", decay_sensitivity["sparse_adamw"])
+    t = before.clone()
+    st = init_sparse_table_state(t)
+
+    def sparse_kernel(rows_=rows):
+        sparse_adamw_cuda(t, st.mu, st.nu, rows_, row_grads, st.count, **kw)
+
+    s_ms = time_ms(sparse_kernel, iters=100)
+    s_device = {"kernel": graph_ms(sparse_kernel),
+                "dedupe": graph_ms(lambda: unique_rows_with_sentinel(
+                    ids, DBN_ROWS)),
+                "zipf_ranks_kernel": graph_ms(
+                    lambda: sparse_kernel(zipf_rows))}
+    s_plain_ms = time_ms(lambda: sparse_adamw_plain(
+        t, st.mu, st.nu, rows, row_grads, st.count, **kw), iters=5,
+        warmup=1)
+    dedupe_ms = time_ms(lambda: unique_rows_with_sentinel(ids, DBN_ROWS),
+                        iters=50)
+    del t, st
+    torch.cuda.empty_cache()
+    lib_param = torch.nn.Parameter(before)
+    live_rows = rows[:live]
+    lib_param.grad = torch.sparse_coo_tensor(
+        live_rows[None], row_grads[:live], (DBN_ROWS, 1)).coalesce()
+    lib = torch.optim.SparseAdam([lib_param], lr=3e-3)
+    s_library_ms = time_ms(lib.step, iters=20, warmup=2)
+    del lib, lib_param
+    s_bound_ms, s_bound_by = sparse_adamw_bound(live_rows, SPARSE_SLOTS)
+    zipf_bound_ms, _ = sparse_adamw_bound(zipf_rows[:zipf_live],
+                                          SPARSE_SLOTS)
+    emit("kernel", name="sparse_adamw", shape=[DBN_ROWS, 1, SPARSE_SLOTS],
+         live_rows=live, card=card, kernel_ms=s_ms, plain_ms=s_plain_ms,
+         library_ms=s_library_ms,
+         library="torch.optim.SparseAdam on the live rows' COO gradient "
+                 "(no weight decay: timed, not held)",
+         dedupe_ms=dedupe_ms, device_ms=s_device, bound_ms=s_bound_ms,
+         bound_by=s_bound_by, max_abs_err=err, checks=checks,
+         zipf_ranks={"live_rows": zipf_live, "bound_ms": zipf_bound_ms},
+         decay_sensitivity=decay_sensitivity["sparse_adamw"])
+    _hold("sparse_adamw", s_over)
+    # Held: untouched rows and the moments; the parameters are held at the
+    # tolerance above (the plain form on the card can differ in the last
+    # bit), and the CPU comparison is reported.
+    for name, ok in checks.items():
+        if ok is False and name not in ("params_bit_equal",
+                                        "d3_vs_cpu_plain_bit_equal"):
+            raise AssertionError(f"sparse_adamw: {name} failed")
+    results["sparse_adamw"] = {
+        "name": "sparse_adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sparse_adamw.cu",
+        "replaces": "src/repro/optim/sparse.py:105 (no pallas_call: the "
+                    "gathers and drop-mode scatters XLA fuses from "
+                    "sparse_adamw_update)",
+        "max_abs_err": err, "ms": s_ms, "plain_ms": s_plain_ms,
+        "bound_ms": s_bound_ms, "bound_by": s_bound_by,
+        "library_ms": s_library_ms, "device_ms": s_device, "held": True}
+    del before, touched, ids, rows, zipf_rows, row_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1765,8 +2224,9 @@ def phase_serve(arch, model, log, card):
 
 
 def _recsys_breakdown(model, optimizer, state, batch, reps=3):
-    """Host-clock ms of forward, backward and AdamW update of one step,
-    each closed by a synchronize (taken after the counted run)."""
+    """Host-clock ms of forward, backward and AdamW update (optim.step: the
+    fused adamw kernel) of one step, each closed by a synchronize (taken
+    after the counted run)."""
     import torch
 
     from repro_torch import optim
@@ -1782,11 +2242,10 @@ def _recsys_breakdown(model, optimizer, state, batch, reps=3):
         grads = torch.autograd.grad(loss, params)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        updates, state = optimizer.update(list(grads), state, params)
-        optim.apply_updates(params, updates)
+        state = optim.step(optimizer, grads, state, params)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        del grads, updates
+        del grads
         parts["forward_ms"].append((t1 - t0) * 1e3)
         parts["backward_ms"].append((t2 - t1) * 1e3)
         parts["optimizer_ms"].append((t3 - t2) * 1e3)
@@ -1823,7 +2282,8 @@ def phase_train_recsys(arch, model, log, card, steps=8):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = check_counts(f"train_{arch}", {
-        k: n * steps for k, n in per_forward(model).items()})
+        **{k: n * steps for k, n in per_forward(model).items()},
+        "adamw": steps * sum(1 for p in model.parameters() if p.numel())})
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses):
@@ -1962,13 +2422,15 @@ def main() -> int:
     kernels = phase_kernels(smi)
     kernels.update(phase_recsys_kernels(smi))
     kernels.update(phase_dcn_kernel(smi))
-    # The kernels this slice left untouched, and examination_nll, as the
-    # run-to-run control: their device ms beside the last run before it.
+    data = _synthetic_log(17 * B_MAIN)  # 16 training batches + 1 held out
+    kernels.update(phase_optimizer_kernels(smi, data))
+    # The six kernels this slice left untouched, as the run-to-run control:
+    # their device ms beside the last run before it.
     emit("control", card=smi, device_ms={
         name: kernels[name]["device_ms"]["kernel"]
         for name in CONTROL_DEVICE_MS}, earlier_device_ms=CONTROL_DEVICE_MS)
-    data = _synthetic_log(17 * B_MAIN)  # 16 training batches + 1 held out
-    dbn = phase_train("dbn", data, 16, smi)
+    phase_train("dbn", data, 16, smi)
+    dbn = phase_train("dbn_sparse", data, 16, smi)
     dctr = phase_train("dctr", data, 8, smi)
     phase_train("ubm", data, 8, smi, extra=ubm_marginal_check)
     phase_cpu_vs_gpu(data)
@@ -1985,7 +2447,8 @@ def main() -> int:
                          ("embedding_bag", deepfm),
                          ("fm_interaction", deepfm),
                          ("flash_attention", autoint),
-                         ("dcn_cross", two_tower)):
+                         ("dcn_cross", two_tower),
+                         ("adamw", dbn), ("sparse_adamw", dbn)):
         kernels[name]["launches"] = counts[name]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -2,8 +2,10 @@
 ``repro.kernels``): ``examination_nll``, ``session_nll``,
 ``embedding_bag``, ``flash_attention`` and ``dcn_cross`` in CUDA C++,
 ``fm_interaction`` in Triton, plus the public ops with autograd that route
-by device. ``session_nll_triton`` is ``session_nll``'s first design, kept
+by device; and the optimizer's two kernels, ``adamw`` (dense, one pass)
+and ``sparse_adamw`` (lazy, touched rows only), in CUDA C++. ``session_nll_triton`` is ``session_nll``'s first design, kept
 to be timed beside the CUDA kernel."""
+from repro_torch.kernels.adamw import adamw_cuda
 from repro_torch.kernels.dcn_cross import dcn_cross_cuda, dcn_cross_plain
 from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,
                                                embedding_bag_plain)
@@ -22,9 +24,11 @@ from repro_torch.kernels.ref import (dcn_cross_ref, embedding_bag_ref,
 from repro_torch.kernels.session_nll import (session_nll_cuda,
                                              session_nll_plain,
                                              session_nll_triton)
+from repro_torch.kernels.sparse_adamw import (sparse_adamw_cuda,
+                                              sparse_adamw_plain)
 
 __all__ = [
-    "dcn_cross", "dcn_cross_cuda", "dcn_cross_plain", "dcn_cross_ref",
+    "adamw_cuda", "dcn_cross", "dcn_cross_cuda", "dcn_cross_plain", "dcn_cross_ref",
     "embedding_bag", "embedding_bag_cuda", "embedding_bag_plain",
     "embedding_bag_ref", "examination_nll", "examination_nll_cuda",
     "examination_nll_plain", "examination_nll_ref", "flash_attention",
@@ -32,4 +36,5 @@ __all__ = [
     "fm_interaction", "fm_interaction_plain", "fm_interaction_ref",
     "fm_interaction_triton", "session_nll", "session_nll_cuda",
     "session_nll_plain", "session_nll_ref", "session_nll_triton",
+    "sparse_adamw_cuda", "sparse_adamw_plain",
 ]

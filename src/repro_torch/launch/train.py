@@ -2,11 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --model ubm \\
         [--sessions 200000] [--epochs 20] [--batch 2048] \\
-        [--compression hash --ratio 10] [--chunk-batches 8] [--device cuda]
+        [--compression hash --ratio 10] [--chunk-batches 8] \\
+        [--sparse-tables] [--device cuda]
 
 Synthesizes a DBN-behaviour click log, splits it 80/10/10, trains any of
 the ten click models (UBM by default, as in ``repro.launch.train``) with
-AdamW and prints the test metrics. Runs on the GPU unless ``--device cpu``.
+AdamW (with ``--sparse-tables``, sparse lazy AdamW for the embedding
+tables) and prints the test metrics. Runs on the GPU unless ``--device cpu``.
 Port of the in-memory path of ``repro.launch.train``; the store, replica,
 fault-tolerance and telemetry options wait for later slices.
 """
@@ -36,9 +38,16 @@ def main(argv=None):
     ap.add_argument("--chunk-batches", type=int, default=8,
                     help="optimizer steps per engine chunk (losses are read "
                          "once per chunk)")
+    ap.add_argument("--sparse-tables", action="store_true",
+                    help="lazy-AdamW updates of the embedding tables: "
+                         "optimizer state traffic O(unique batch rows) "
+                         "instead of O(table rows)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cuda, or cpu)")
     args = ap.parse_args(argv)
+    if args.sparse_tables and args.compression == "quotient_remainder":
+        ap.error("--sparse-tables does not support quotient_remainder "
+                 "compression (two coupled tables, no single row-id stream)")
 
     cfg = SyntheticConfig(n_sessions=args.sessions,
                           n_queries=max(args.sessions // 100, 1),
@@ -63,7 +72,10 @@ def main(argv=None):
 
     trainer = Trainer(optimizer=optim.adamw(args.lr, weight_decay=1e-4),
                       epochs=args.epochs, patience=1,
-                      chunk_batches=args.chunk_batches, device=args.device)
+                      chunk_batches=args.chunk_batches, device=args.device,
+                      sparse_tables=args.sparse_tables,
+                      # mirrors the dense optimizer above
+                      sparse_table_kwargs=dict(lr=args.lr, weight_decay=1e-4))
     trainer.train(model, train_loader, val_loader)
     results = trainer.test(model, test_loader)
     print("[train] test:", {k: round(v, 4) for k, v in results.items()

@@ -30,8 +30,10 @@ class TabularModel(Module):
 
         Unlike the JAX step, which returns new params, this one updates the
         module's parameters (and the Adam moments) in place: at full width
-        the tables hold ~0.9-1.3B floats, and one copy of each is kept. The
-        loss comes back as a device tensor, so the step does not sync.
+        the tables hold ~0.9-1.3B floats, and one copy of each is kept. On
+        the card the update is ``optim.step``'s fused pass (one ``adamw``
+        launch per tensor). The loss comes back as a device tensor, so the
+        step does not sync.
         """
         optimizer = optimizer or optim_lib.adamw(1e-3)
         params = list(self.parameters())
@@ -39,9 +41,7 @@ class TabularModel(Module):
         def step(opt_state, batch):
             loss = self.loss(batch)
             grads = torch.autograd.grad(loss, params)
-            updates, opt_state = optimizer.update(list(grads), opt_state,
-                                                  params)
-            optim_lib.apply_updates(params, updates)
+            opt_state = optim_lib.step(optimizer, grads, opt_state, params)
             return opt_state, loss.detach()
 
         step.init = lambda: optimizer.init(params)

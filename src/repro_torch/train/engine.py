@@ -1,4 +1,5 @@
-"""Single-device training engine: chunked steps with device-resident losses.
+"""Single-device training engine: chunked steps with device-resident losses,
+and sparse embedding tables.
 
 Port of the single-device core of ``repro.train.engine.TrainEngine``.
 ``DevicePrefetcher(chunk_batches=N)`` stacks N host batches into one
@@ -7,17 +8,65 @@ optimizer steps over it as a Python loop (the JAX version's ``lax.scan``)
 and returns the per-step losses as one ``(N,)`` tensor that stays on the
 device until the caller drains it. The loop body is :meth:`_one_step`, so a
 chunk of N gives bit-for-bit the same parameters and losses as N chunks of
-one. Parameters live in the model and are updated in place; replicas, the
-mesh, sparse tables, the non-finite guard and telemetry wait for later
+one. Parameters live in the model and are updated in place through
+``optim.step``: the fused ``adamw`` kernel on the card, the chain on the CPU.
+
+**Sparse tables.** With ``sparse_tables=True`` every
+:class:`~repro_torch.core.parameterization.EmbeddingParameter` table is
+updated by lazy AdamW (:mod:`repro_torch.optim.sparse`): only the batch's
+distinct rows are read and written, and the dense optimizer holds no
+moments for a table. ``backward`` still makes the full (R, d) table
+gradient, as the JAX engine's autodiff does; its rows are gathered at the
+batch's distinct ids. ``sparse_table_kwargs`` must give ``lr`` and
+``weight_decay`` mirroring the dense optimizer, since a transformation
+cannot be introspected.
+
+Replicas, the mesh, the non-finite guard and telemetry wait for later
 slices.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import optim as optim_lib
+from repro_torch.core.parameterization import Compression, EmbeddingParameter
+from repro_torch.optim.sparse import (init_sparse_table_state,
+                                      sparse_adamw_update,
+                                      unique_rows_with_sentinel)
+
+SPARSE_PATH_SEP = "/"
+
+
+def discover_sparse_tables(model) -> Dict[Tuple[str, ...],
+                                          EmbeddingParameter]:
+    """Map param path -> EmbeddingParameter for every table part of
+    ``model``.
+
+    Only single-table parameterizations qualify: QR compression splits each
+    logical row across two tables and has no single row-id stream.
+    """
+    parts = getattr(model, "parts", None) or {}
+    out = {}
+    for name, part in parts.items():
+        if isinstance(part, EmbeddingParameter):
+            if part.config.compression == Compression.QR:
+                raise NotImplementedError(
+                    f"sparse_tables: part {name!r} uses quotient-remainder "
+                    "compression (two coupled tables, no single row-id "
+                    "stream) — train it with the dense optimizer")
+            out[(name, "table")] = part
+    if not out:
+        raise ValueError(
+            "sparse_tables=True but the model has no EmbeddingParameter "
+            "parts — nothing to update sparsely")
+    return out
+
+
+def _grads(params):
+    return [torch.zeros_like(p) if p.grad is None else p.grad
+            for p in params]
 
 
 class TrainEngine:
@@ -31,16 +80,68 @@ class TrainEngine:
             # losses: (n,) device tensor; read it one chunk behind
     """
 
-    def __init__(self, model, optimizer, *, chunk_batches: int = 1):
+    def __init__(self, model, optimizer, *, chunk_batches: int = 1,
+                 sparse_tables: bool = False,
+                 sparse_table_kwargs: Optional[Dict[str, Any]] = None):
         if chunk_batches < 1:
             raise ValueError(f"chunk_batches must be >= 1, got {chunk_batches}")
         self.model = model
         self.optimizer = optimizer
         self.chunk_batches = int(chunk_batches)
         self.params = list(model.parameters())
+        tables = discover_sparse_tables(model) if sparse_tables else {}
+        self.sparse_parts = {SPARSE_PATH_SEP.join(path): part
+                             for path, part in tables.items()}
+        self.sparse_kwargs = {}
+        if self.sparse_parts:
+            kwargs = dict(sparse_table_kwargs or {})
+            missing = [k for k in ("lr", "weight_decay") if k not in kwargs]
+            if missing:
+                # The defaults disagree (optim.adamw decays at 1e-4,
+                # sparse_adamw_update at 0.0): silence would quietly break
+                # the touched-rows == dense-AdamW guarantee.
+                raise ValueError(
+                    f"sparse_tables=True needs sparse_table_kwargs with "
+                    f"{missing} mirroring the dense optimizer (pass b1/b2/"
+                    f"eps too if the dense optimizer overrides them)")
+            self.sparse_kwargs = kwargs
+        table_ids = {id(part.table) for part in self.sparse_parts.values()}
+        self.dense_params = [p for p in self.params
+                             if id(p) not in table_ids]
 
     def init_opt_state(self):
-        return self.optimizer.init(self.params)
+        """The dense optimizer's state, or ``{"dense": ..., "sparse":
+        {"attraction/table": SparseTableState, ...}}`` with sparse tables
+        (the dense state then covers every parameter but the tables)."""
+        if not self.sparse_parts:
+            return self.optimizer.init(self.params)
+        return {"dense": self.optimizer.init(self.dense_params),
+                "sparse": {key: init_sparse_table_state(part.table)
+                           for key, part in self.sparse_parts.items()}}
+
+    def apply_update(self, opt_state, batch: Dict[str, torch.Tensor]):
+        """The optimizer half of a step, from the gradients that
+        ``backward`` left in ``.grad``; returns the new state."""
+        if not self.sparse_parts:
+            return optim_lib.step(self.optimizer, _grads(self.params),
+                                  opt_state, self.params)
+        dense = optim_lib.step(self.optimizer, _grads(self.dense_params),
+                               opt_state["dense"], self.dense_params)
+        sparse = {}
+        for key, part in self.sparse_parts.items():
+            table = part.table
+            n_rows = table.shape[0]
+            # backward already summed duplicate lookups into the table
+            # gradient's rows: take exactly the batch's distinct rows (the
+            # sentinel pads read the last row, and are skipped).
+            rows = unique_rows_with_sentinel(part.row_ids(batch), n_rows)
+            (d_table,) = _grads([table])
+            d_rows = torch.index_select(d_table, 0,
+                                        torch.clamp(rows, max=n_rows - 1))
+            _, sparse[key] = sparse_adamw_update(
+                table, opt_state["sparse"][key], rows, d_rows,
+                **self.sparse_kwargs)
+        return {"dense": dense, "sparse": sparse}
 
     def _one_step(self, opt_state, batch: Dict[str, torch.Tensor]):
         """One optimizer step; returns the new state and the detached loss."""
@@ -48,11 +149,7 @@ class TrainEngine:
             p.grad = None
         loss = self.model.compute_loss(batch)
         loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in self.params]
-        updates, opt_state = self.optimizer.update(grads, opt_state,
-                                                   self.params)
-        optim_lib.apply_updates(self.params, updates)
+        opt_state = self.apply_update(opt_state, batch)
         for p in self.params:
             p.grad = None
         return opt_state, loss.detach()

@@ -8,15 +8,17 @@ path of ``repro.train.trainer``.
 Training runs through :class:`TrainEngine` in chunks of ``chunk_batches``
 steps; each chunk's ``(n,)`` loss tensor is read one chunk behind, so the
 host waits on the device once per chunk and never on the chunk it just
-queued. Each epoch is validated with the paper's click metrics (LL,
-perplexity, conditional perplexity) and training stops after ``patience``
-epochs without a val-loss improvement (paper §6). Checkpoints, preemption,
+queued. With ``sparse_tables=True`` the embedding tables take sparse lazy
+AdamW (see :class:`TrainEngine`). Each epoch is validated with the
+paper's click metrics (LL, perplexity, conditional perplexity) and
+training stops after ``patience`` epochs without a val-loss improvement
+(paper §6). Checkpoints, preemption,
 the watchdog, replica sweeps and profiling wait for later slices.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -60,9 +62,13 @@ def default_metrics() -> MultiMetric:
 class Trainer:
     def __init__(self, optimizer, epochs: int = 100, patience: int = 1,
                  chunk_batches: int = 1, device="cuda",
+                 sparse_tables: bool = False,
+                 sparse_table_kwargs: Optional[Dict[str, Any]] = None,
                  metrics_factory: Callable[[], MultiMetric] = default_metrics,
                  log_fn: Callable[[str], None] = print):
         self.optimizer = optimizer
+        self.sparse_tables = sparse_tables
+        self.sparse_table_kwargs = sparse_table_kwargs
         self.epochs = epochs
         self.patience = patience
         self.chunk_batches = chunk_batches
@@ -80,7 +86,9 @@ class Trainer:
               ) -> List[Dict[str, float]]:
         self._check_device(model)
         engine = TrainEngine(model, self.optimizer,
-                             chunk_batches=self.chunk_batches)
+                             chunk_batches=self.chunk_batches,
+                             sparse_tables=self.sparse_tables,
+                             sparse_table_kwargs=self.sparse_table_kwargs)
         opt_state = engine.init_opt_state()
         history: List[Dict[str, float]] = []
         best_val, bad_epochs = float("inf"), 0

@@ -170,3 +170,24 @@ def test_launcher_runs_to_its_test_print_on_cpu(capsys):
     assert "[train] test:" in out
     assert all(np.isfinite(results[k]) for k in ("ll", "ppl", "cond_ppl"))
     assert 1.0 < results["ppl"] < 2.0
+
+
+@pytest.mark.parametrize("name", ["dbn", "ubm"])
+def test_sparse_table_trainers_match_jax(log, name):
+    """Trainer(sparse_tables=True): the hashed tables take lazy AdamW in
+    both packages; train loss and val metrics within the file's 1e-4."""
+    cfg, (train, val, _) = log
+    jm, tm = _models(name, cfg)
+    kwargs = dict(sparse_tables=True,
+                  sparse_table_kwargs=dict(lr=3e-3, weight_decay=1e-4))
+    jtrainer = JaxTrainer(jopt.adamw(3e-3, weight_decay=1e-4), epochs=1,
+                          chunk_batches=4, log_fn=lambda s: None, **kwargs)
+    ttrainer = Trainer(topt.adamw(3e-3, weight_decay=1e-4), epochs=1,
+                       chunk_batches=4, device="cpu", log_fn=lambda s: None,
+                       **kwargs)
+    evals = ClickLogLoader(val, batch_size=64, shuffle=False, drop_last=False)
+    (jrec,) = jtrainer.train(jm, _loaders(train), evals)
+    (trec,) = ttrainer.train(tm, _loaders(train), evals)
+    for key in ("train_loss", "val_ll", "val_ppl", "val_cond_ppl"):
+        np.testing.assert_allclose(trec[key], jrec[key], rtol=REL,
+                                   err_msg=key)
