@@ -67,9 +67,28 @@ Phases, each printing JSON lines:
    train_dbn_sparse  the same DBN through Trainer(sparse_tables=True): 16
                   examination_nll, 32 sparse_adamw (two tables a step) and
                   48 adamw (the three dense tensors a step).
-   Every train phase also runs one optimizer update under
-   torch.cuda.set_sync_debug_mode("error") (no host sync), and reports
-   step_breakdown_ms (forward, backward, optimizer) and its peak memory.
+   Every train phase runs through the engine's CUDA graphs: the counted
+   epoch's first chunk runs eagerly and is captured, the rest replay; the
+   held-out evaluation runs twice (eager and captured, then one replay,
+   equal to the bit). A replay runs no wrapper, so each of these runs is
+   profiled: the wrappers' counts must be exact for the eager steps, and
+   the device kernels in the trace, by name, exact for every step; those
+   are the launches reported. Each phase also reports: chunk_timing (host
+   enqueue and device run per step of the eager loop and of a replay, the
+   graphs captured and capture_ms, a whole chunk's copies and replay under
+   torch.cuda.set_sync_debug_mode("error"), the profiler's device kernels
+   per replay held to the chunk's launches, one "profile" line per
+   kernel, and the epoch replayed under the staging thread),
+   staging_thread_capture (a capture taken while the prefetcher's thread
+   stages a batch, the run profiled as above), graph_vs_eager (2 chunks of
+   4 from one state: losses, parameters and moments, eager against eager
+   and captured against eager), three rounds of the input path alone,
+   inline and overlapped (with the loader's gather and the consumer's
+   wait), and the warm step (the second epoch of a two-epoch run: replays
+   only), taken in turned order, with each round's warm step less its
+   overlapped input path; one optimizer update under sync debug
+   "error", step_breakdown_ms and the peak memory (allocated and reserved)
+   with capture.
 5. train_dctr     the same for DCTR, 8 steps, through session_nll.
 6. train_ubm      the paper-width UBM (214,748,672 hashed rows), 8 steps;
                   no kernel; its test pass runs ubm_marginal_clicks at
@@ -99,7 +118,8 @@ Phases, each printing JSON lines:
                   (kernels) agree on loss and every gradient.
 
 Every phase that drives a path sets every kernel's launch count to 0 just
-before it and reads the counts just after; they must be exact. A control
+before it and reads the counts just after; they must be exact (where
+graphs replay, the profiler's device kernels must be exact too). A control
 line holds the device times of the six kernels this slice left untouched
 beside the last runs before it. Then the kernel summary line (eight
 kernels: the six ports of TPU kernels and the optimizer's two), the card's
@@ -675,6 +695,48 @@ def profile_kernels(fn, calls=20):
                                              for x in lines)}
 
 
+def device_kernel_counts(fn):
+    """``fn()`` once under torch.profiler (CUDA activity), closed by a
+    synchronize: its result, the port's kernels that the device ran, by the
+    launch counters' names (every launch: eager, or replayed from a CUDA
+    graph, where no wrapper runs), and the device kernels of any kind."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [evt.name for evt in prof.events()
+             if evt.device_type == DeviceType.CUDA]
+    counts = {name: 0 for name in kernel_counters()}
+    for name, n in _profiled_kernels(
+            [{"kernel": k, "launches_per_call": 1} for k in names]).items():
+        counts[name] += int(n)
+    return out, counts, len(names)
+
+
+def measured_run(what, fn, total, eager):
+    """``fn()`` with every count at 0, under the profiler. The wrappers'
+    counts (the launches made from Python: the eager steps; a capture
+    counts none and a replay runs no wrapper) must be ``eager`` exactly,
+    and the device kernels the trace saw, by name, ``total`` exactly (0
+    for a kernel neither names); a trace without any device kernel fails.
+    Returns ``fn``'s result and ``{"launches": the trace's counts,
+    "wrapper_launches": the wrappers'}``."""
+    reset_counts()
+    out, device, n_kernels = device_kernel_counts(fn)
+    wrappers = check_counts(what, eager)
+    if n_kernels == 0:
+        raise AssertionError(f"{what}: the profiler saw no device kernel")
+    want = {name: total.get(name, 0) for name in device}
+    if device != want:
+        raise AssertionError(f"{what}: device launches {device} != {want}")
+    return out, {"launches": device, "wrapper_launches": wrappers}
+
+
 def phase_profile(card):
     """The profiler's breakdown, one line per device kernel, of one
     examination_nll_cuda and one session_nll_cuda call at 65,536 x 10 and
@@ -761,22 +823,373 @@ def _step_breakdown(engine, batch, reps=3):
     return {k: min(v) for k, v in parts.items()}
 
 
-def _enqueue_ms(engine, batch, n=4, reps=2):
-    """(host ms to enqueue one n-step engine chunk, ms until the device has
-    run it): equal numbers mean the host cannot run ahead of the device."""
+def _chunk_of(batch, n=4):
+    return {k: v.expand(n, *v.shape).contiguous() for k, v in batch.items()}
+
+
+def _host_and_device_ms(fn, reps):
+    """(host ms to enqueue ``fn()``, ms until the device has run it), the
+    best of ``reps``: equal numbers mean the host cannot run ahead."""
     import torch
 
-    state = engine.init_opt_state()
-    chunk = {k: v.expand(n, *v.shape).contiguous() for k, v in batch.items()}
+    enqueue, run = [], []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, _ = engine.step(state, chunk)
+        fn()
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    return {"enqueue_ms": (t1 - t0) * 1e3, "run_ms": (t2 - t0) * 1e3,
-            "steps": n}
+        enqueue.append((t1 - t0) * 1e3)
+        run.append((t2 - t0) * 1e3)
+    return min(enqueue), min(run)
+
+
+def _profiled_kernels(lines):
+    """Launches per call of the port's kernels in profile lines, by the
+    launch counters' names (sparse_adamw before adamw: its name holds
+    adamw's)."""
+    names = ("sparse_adamw", "adamw", "examination_nll", "session_nll",
+             "dcn_cross", "embedding_bag", "fm_interaction", "attention")
+    out = {}
+    for line in lines:
+        for name in names:
+            if name in line["kernel"]:
+                key = "flash_attention" if name == "attention" else name
+                out[key] = out.get(key, 0.0) + line["launches_per_call"]
+                break
+    return out
+
+
+def chunk_timing(engine, batch, kind, card, per_chunk, loader, steps, n=4,
+                 reps=3):
+    """A 4-step chunk of ``batch`` through the eager loop and through
+    ``engine.step`` (its first call: the warm-up and the capture; then one
+    replay a call): host enqueue and device run per step for each, the
+    graphs captured and the capture's ms; a whole chunk (its static copies
+    and its replay) under ``torch.cuda.set_sync_debug_mode("error")``; the
+    profiler's device kernels per replay, held to ``per_chunk`` (a replay
+    runs no wrapper, so the counters must not move); then ``loader``'s
+    epoch replayed under the staging thread (:func:`replay_under_staging`).
+    """
+    import torch
+
+    state = engine.init_opt_state()
+    chunk = _chunk_of(batch, n)
+    eager = _host_and_device_ms(lambda: engine._loop(state, chunk), reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.step(state, chunk)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    replay = _host_and_device_ms(lambda: engine.step(state, chunk), reps)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.step(state, chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    before = read_counts()
+    engine.step(state, chunk)
+    after = read_counts()
+    counted = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if counted:
+        raise AssertionError(f"{kind}: a replay counted {counted} in the "
+                             "wrappers, which a replay does not run")
+    lines, total = profile_kernels(lambda: engine.step(state, chunk),
+                                   calls=3)
+    for line in lines:
+        emit("profile", call=f"replay_{kind}", card=card, **line)
+    profiled = _profiled_kernels(lines)
+    if not total["launches_per_call"]:
+        raise AssertionError(f"{kind}: the profiler saw no device kernel "
+                             "in a replay")
+    if profiled != {k: float(v) for k, v in per_chunk.items()}:
+        raise AssertionError(f"{kind}: the profiler saw {profiled} kernels "
+                             f"per replay, expected {per_chunk}")
+    graphs = engine.graphs
+    staging = replay_under_staging(engine, state, loader, steps)
+    return {**staging, "steps": n,
+            "eager_enqueue_ms_per_step": eager[0] / n,
+            "eager_run_ms_per_step": eager[1] / n,
+            "replay_enqueue_ms_per_step": replay[0] / n,
+            "replay_run_ms_per_step": replay[1] / n,
+            "first_chunk_ms": first_ms, "graphs": graphs.captures,
+            "capture_ms": graphs.capture_seconds * 1e3,
+            "no_host_sync_in_chunk": True,
+            "wrapper_launches_per_replay": counted,
+            "profile_kernels_per_replay": profiled,
+            "profile_device_kernels_per_replay": total["launches_per_call"],
+            "profile_device_ms_per_replay":
+                total["device_us_per_call"] / 1e3}
+
+
+def _tensor_gap(a, b):
+    import torch
+
+    if torch.equal(a, b):
+        return 0.0, 0
+    diff = (a.double() - b.double()).abs()
+    return float(diff.max()), int((a != b).sum())
+
+
+def graph_vs_eager(engine, data, n=4, chunks=2):
+    """From one state, ``chunks`` chunks of ``n`` of ``data``'s batches
+    three times: through the eager loop twice (their spread shows whether
+    the loop repeats its bits: the table gradients come from
+    ``index_put_(accumulate=True)``) and through ``engine.step`` (the first
+    chunk is the eager warm-up, the second a replay). Losses, parameters
+    and both moments are held to the bit against the first eager run, or,
+    if two eager runs differ, within their spread."""
+    import torch
+
+    from repro_torch.configs.clax_baidu import TRAIN_BATCH
+    from repro_torch.train.capture import tree_leaves
+
+    state = engine.init_opt_state()
+    batches = [_device_batch(data, i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+               for i in range(n * chunks)]
+    stacked = [{k: torch.stack([b[k] for b in batches[c * n:(c + 1) * n]])
+                for k in batches[0]} for c in range(chunks)]
+    del batches
+    params = [p.detach() for p in engine.params]
+    moments = [t for t in tree_leaves(state) if t.dim() > 0]
+    start = [t.clone() for t in params + tree_leaves(state)]
+
+    def run(step):
+        for t, s in zip(params + tree_leaves(state), start):
+            t.copy_(s)
+        losses = torch.cat([step(state, c)[1] for c in stacked])
+        return {"losses": losses, "params": [p.clone() for p in params],
+                "moments": [m.clone() for m in moments]}
+
+    def gap(x, y):
+        out = {}
+        for what in ("losses", "params", "moments"):
+            xs, ys = x[what], y[what]
+            pairs = zip(xs, ys) if isinstance(xs, list) else [(xs, ys)]
+            gaps = [_tensor_gap(a, b) for a, b in pairs]
+            out[what] = {"max_abs": max(g[0] for g in gaps),
+                         "elements_differing": sum(g[1] for g in gaps)}
+        return out
+
+    first = run(engine._loop)
+    second = run(engine._loop)
+    eager_spread = gap(first, second)
+    graphed = run(engine.step)
+    graph_gap = gap(first, graphed)
+    if engine.graphs.replays < chunks - 1:
+        raise AssertionError("graph_vs_eager: no chunk was replayed")
+    repeatable = all(v["elements_differing"] == 0
+                     for v in eager_spread.values())
+    for what, g in graph_gap.items():
+        limit = 0.0 if repeatable else eager_spread[what]["max_abs"]
+        if g["max_abs"] > limit:
+            raise AssertionError(
+                f"graph_vs_eager: {what} {g} beyond the eager spread "
+                f"{eager_spread[what]}")
+    out = {"chunks": chunks, "steps_per_chunk": n,
+           "eager_bits_repeat": repeatable, "eager_vs_eager": eager_spread,
+           "graph_vs_eager": graph_gap,
+           "bits_equal": all(v["elements_differing"] == 0
+                             for v in graph_gap.values())}
+    del first, second, graphed, start
+    return out
+
+
+class _GatedLoader:
+    """A loader's batches, the third held back until ``gate`` is set (a
+    capture has begun); ``resumed`` is set when the fourth is asked for,
+    that is once the third has been stacked, copied and queued. Records
+    the time each batch was handed out."""
+
+    def __init__(self, inner, gate, resumed):
+        self.inner, self.gate, self.resumed = inner, gate, resumed
+        self.times = []
+
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def __iter__(self):
+        for i, batch in enumerate(self.inner):
+            if i == 2 and not self.gate.wait(timeout=120):
+                raise RuntimeError("no capture began within 120 s")
+            if i == 3:
+                self.resumed.set()
+            self.times.append(time.perf_counter())
+            yield batch
+
+
+def capture_with_staging_thread(engine, loader, per_step):
+    """A capture taken while the prefetcher's staging thread stages a
+    batch: the loader's third batch waits until the first chunk's capture
+    has begun, and the capture waits, inside, until the thread has stacked
+    that batch into a pinned buffer, copied it to the card, recorded its
+    event and asked for the next (``capture_error_mode="thread_local"``).
+    Every chunk after the first replays; the run is measured
+    (:func:`measured_run`): the wrappers count the first step's launches,
+    the trace every step's. ``engine`` takes chunks of one batch."""
+    import threading
+
+    import torch
+
+    from repro_torch.data import DevicePrefetcher
+    from repro_torch.train.capture import ChunkGraphs
+
+    gate, resumed = threading.Event(), threading.Event()
+    gated = _GatedLoader(loader, gate, resumed)
+    window = []
+    engine.graphs = ChunkGraphs(engine._chunk_body)
+    capture = engine.graphs.backend.capture
+
+    def staged_then(fn):
+        def inside():
+            window.append(time.perf_counter())
+            gate.set()
+            if not resumed.wait(timeout=120):
+                raise RuntimeError("the staging thread did not stage the "
+                                   "third batch within 120 s")
+            fn()
+            window.append(time.perf_counter())
+        return capture(inside)
+
+    engine.graphs.backend.capture = staged_then
+    state = engine.init_opt_state()
+    steps = loader.batches_per_epoch
+
+    def run():
+        losses = []
+        for chunk, _, _ in DevicePrefetcher(gated, size=4, device="cuda",
+                                            chunk_batches=1):
+            losses.append(engine.step(state, chunk)[1])
+        return losses
+
+    losses, counted = measured_run(
+        "capture_with_staging_thread", run,
+        {**{k: v * steps for k, v in per_step.items()},
+         **_optimizer_launches(engine, steps)},
+        {**per_step, **_optimizer_launches(engine, 1)})
+    if len(losses) != steps:
+        raise AssertionError(f"capture_with_staging_thread: {len(losses)} "
+                             f"steps, expected {steps}")
+    if not all(math.isfinite(x) for x in torch.cat(losses).tolist()):
+        raise AssertionError("capture_with_staging_thread: non-finite loss")
+    begun, ended = window
+    staged = [t for t in gated.times if begun < t < ended]
+    if len(staged) < 2:
+        raise AssertionError(
+            "capture_with_staging_thread: the third batch was not staged "
+            f"inside the capture ({begun:.4f}-{ended:.4f}, batches "
+            f"{gated.times[:5]})")
+    return {"steps": steps, "graphs": engine.graphs.captures,
+            "replays": engine.graphs.replays, **counted,
+            "capture_ms": (ended - begun) * 1e3,
+            "batches_handed_out_during_capture": len(staged)}
+
+
+class _TimedLoader:
+    """A loader's batches, each timed while it is made (the gather), on
+    whichever thread pulls it."""
+
+    def __init__(self, inner):
+        self.inner, self.seconds = inner, 0.0
+
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def __iter__(self):
+        batches = iter(self.inner)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(batches)
+            except StopIteration:
+                return
+            self.seconds += time.perf_counter() - t0
+            yield batch
+
+
+def input_path_ms(loader, steps, overlap):
+    """Host ms per step of the input path alone: the epoch's chunks of 4
+    through the loader and the prefetcher, nothing consuming them; and of
+    that, the loader's gather (on the staging thread when overlapped) and
+    the consumer's time blocked waiting for an item."""
+    import torch
+
+    from repro_torch.data import DevicePrefetcher
+
+    timed = _TimedLoader(loader)
+    waited = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    items = iter(DevicePrefetcher(timed, device="cuda", chunk_batches=4,
+                                  overlap=overlap))
+    while True:
+        t1 = time.perf_counter()
+        if next(items, None) is None:
+            break
+        waited += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    return {"ms_per_step": (time.perf_counter() - t0) / steps * 1e3,
+            "gather_ms_per_step": timed.seconds / steps * 1e3,
+            "consumer_wait_ms_per_step": waited / steps * 1e3}
+
+
+def _spread(ms):
+    ms = sorted(ms)
+    return {"min": ms[0], "median": ms[len(ms) // 2], "max": ms[-1]}
+
+
+def warm_and_input_rounds(warm_epoch, loader, steps, rounds=3):
+    """``rounds`` rounds of three readings taken moments apart, in turned
+    order (inline, overlapped, warm in even rounds; warm, overlapped,
+    inline in odd ones), so that a drift of the shared host falls on all
+    three: the input path alone, inline and overlapped
+    (:func:`input_path_ms`), and ``warm_epoch()``'s seconds (an epoch of
+    replays only). Returns every reading, each one's least, median and
+    greatest ms per step, and per round the warm step less the overlapped
+    input path (positive where the warm step is at or above it)."""
+    runs = {"inline": [], "overlap": []}
+    warm = []
+    for r in range(rounds):
+        order = ("inline", "overlap", "warm")
+        for what in (order if r % 2 == 0 else order[::-1]):
+            if what == "warm":
+                warm.append(warm_epoch() / steps * 1e3)
+            else:
+                runs[what].append(
+                    input_path_ms(loader, steps, what == "overlap"))
+    inputs = {mode: {**_spread([x["ms_per_step"] for x in readings]),
+                     "runs": readings} for mode, readings in runs.items()}
+    return ({**_spread(warm), "runs": warm}, inputs,
+            [w - x["ms_per_step"] for w, x in zip(warm, runs["overlap"])])
+
+
+def replay_under_staging(engine, state, loader, steps):
+    """The epoch's chunks from the overlapped prefetcher, each through
+    ``engine.step`` on ``state`` (its graph already captured): host ms to
+    enqueue a replay while the staging thread works (its gathers and
+    stacks hold the interpreter lock part of the time), and the epoch's ms
+    per step."""
+    import torch
+
+    from repro_torch.data import DevicePrefetcher
+
+    captures = engine.graphs.captures
+    torch.cuda.synchronize()
+    enqueue = []
+    t0 = time.perf_counter()
+    for chunk, _, _ in DevicePrefetcher(loader, device="cuda",
+                                        chunk_batches=4):
+        t1 = time.perf_counter()
+        engine.step(state, chunk)
+        enqueue.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    if engine.graphs.captures != captures:
+        raise AssertionError("replay_under_staging: a chunk was captured")
+    return {"replay_enqueue_ms_per_step_with_staging":
+                sum(enqueue) / len(enqueue) / 4,
+            "epoch_ms_per_step": (time.perf_counter() - t0) / steps * 1e3}
 
 
 def _train_spec(kind):
@@ -843,16 +1256,23 @@ def no_sync_check(engine, batch):
 
 def phase_train(kind, data, steps, card, extra=None):
     """``steps`` optimizer steps through the Trainer on ``data``'s first
-    batches, the last batch held out; exact launch counts in the counted
-    epoch and in the held-out evaluation (two forwards per batch: the
-    marginal and the conditional click predictions). ``extra(model,
-    held_out)`` adds path-specific checks and numbers to the phase's line."""
+    batches, the last batch held out. The counted epoch (its first chunk
+    eager, then captured; the rest replays) and the held-out evaluation
+    (two forwards per batch: the marginal and the conditional click
+    predictions), run twice (the second replays the cached graph and must
+    give the first one's bits), are each a :func:`measured_run`: the
+    wrappers' counts exact for the eager steps and the profiler's device
+    kernels exact for every step. ``extra(model,
+    held_out)`` adds path-specific checks and numbers to the phase's
+    line."""
     import torch
 
     from repro_torch.configs.clax_baidu import TRAIN_BATCH
-    from repro_torch.data import ClickLogLoader, DevicePrefetcher
+    from repro_torch.data import ClickLogLoader
     from repro_torch.train import TrainEngine, Trainer
 
+    gc.collect()
+    start_allocated = torch.cuda.memory_allocated()
     train = {k: v[:steps * TRAIN_BATCH] for k, v in data.items()}
     held_lo = len(data["clicks"]) - TRAIN_BATCH
     held_out = _device_batch(data, held_lo, held_lo + TRAIN_BATCH)
@@ -865,23 +1285,30 @@ def phase_train(kind, data, steps, card, extra=None):
 
     with torch.no_grad():
         loss_before = float(model.compute_loss(held_out))
-    trainer = Trainer(make_optimizer(), epochs=1, chunk_batches=4,
-                      device="cuda", log_fn=lambda s: None, **sparse)
+
+    def make_trainer(epochs):
+        return Trainer(make_optimizer(), epochs=epochs, chunk_batches=4,
+                       device="cuda", log_fn=lambda s: None, **sparse)
+
+    trainer = make_trainer(1)
     loader = ClickLogLoader(train, batch_size=TRAIN_BATCH, seed=0)
 
+    eager_steps = min(trainer.chunk_batches, steps)  # the first chunk
     torch.cuda.synchronize()
-    reset_counts()
     t0 = time.perf_counter()
-    history = trainer.train(model, loader)
-    torch.cuda.synchronize()
+    history, counted = measured_run(
+        f"train_{kind}", lambda: trainer.train(model, loader),
+        {**{k: n * steps for k, n in per_step.items()},
+         **_optimizer_launches(make_engine(), steps)},
+        {**{k: n * eager_steps for k, n in per_step.items()},
+         **_optimizer_launches(make_engine(), eager_steps)})
     seconds = time.perf_counter() - t0
-    launches = check_counts(f"train_{kind}", {
-        **{k: n * steps for k, n in per_step.items()},
-        **_optimizer_launches(make_engine(), steps)})
+    launches = counted["launches"]
     train_loss = history[-1]["train_loss"]
     if not math.isfinite(train_loss):
         raise AssertionError(f"{kind}: non-finite train loss {train_loss}")
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
     with torch.no_grad():
         loss_after = float(model.compute_loss(held_out))
     if not loss_after < loss_before:
@@ -890,46 +1317,57 @@ def phase_train(kind, data, steps, card, extra=None):
     held_loader = ClickLogLoader({k: v[held_lo:] for k, v in data.items()},
                                  batch_size=TRAIN_BATCH, shuffle=False,
                                  drop_last=False)
-    reset_counts()
-    metrics = trainer.evaluate(model, held_loader)
-    eval_launches = check_counts(f"evaluate_{kind}", {
-        "dcn_cross": 2 * per_forward} if per_forward else {})
+    per_eval = {"dcn_cross": 2 * per_forward} if per_forward else {}
+    metrics, eval_first = measured_run(
+        f"evaluate_{kind}", lambda: trainer.evaluate(model, held_loader),
+        per_eval, per_eval)
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"{kind}: non-finite held-out metrics {metrics}")
+    replayed, eval_replayed = measured_run(
+        f"evaluate_{kind}_replayed",
+        lambda: trainer.evaluate(model, held_loader), per_eval, {})
+    if replayed != metrics:
+        raise AssertionError(f"{kind}: the replayed evaluation gave "
+                             f"{replayed}, the eager one {metrics}")
     found = extra(model, held_out) if extra is not None else {}
-    # A second epoch, after the counted run: the first one also pays the
-    # process's one-time costs (lazy kernel loading, allocator growth).
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.train(model, loader)
-    torch.cuda.synchronize()
-    warm_seconds = time.perf_counter() - t0
-    # The input path alone: the same epoch's batches through the loader and
-    # the prefetcher's pinned host-to-device copies, with no training.
-    t0 = time.perf_counter()
-    for _ in DevicePrefetcher(loader, device="cuda", chunk_batches=4):
-        pass
-    torch.cuda.synchronize()
-    input_seconds = time.perf_counter() - t0
+    # The warm epoch: the second of a two-epoch run, whose engine captured
+    # its graph in the first, so it is all replays.
+    warm_ms, input_path, warm_over_input = warm_and_input_rounds(
+        lambda: make_trainer(2).train(model, loader)[1]["seconds"], loader,
+        steps)
+    warm = warm_ms["median"] * steps / 1e3
     breakdown = _step_breakdown(make_engine(), held_out)
-    chunk_timing = _enqueue_ms(make_engine(chunk_batches=4), held_out)
+    per_chunk = {**{k: 4 * n for k, n in per_step.items()},
+                 **_optimizer_launches(make_engine(), 4)}
+    timing = chunk_timing(make_engine(chunk_batches=4), held_out, kind, card,
+                          per_chunk, loader, steps)
+    found["staging_thread_capture"] = capture_with_staging_thread(
+        make_engine(), loader, per_step)
     found["no_host_sync_in_update"] = no_sync_check(make_engine(), held_out)
-    emit(f"train_{kind}", card=card, steps=steps, batch=TRAIN_BATCH,
-         params=model.n_params(), seconds=seconds,
-         steps_per_s=steps / seconds,
-         sessions_per_s=steps * TRAIN_BATCH / seconds,
-         warm_seconds=warm_seconds, warm_steps_per_s=steps / warm_seconds,
-         warm_step_ms=warm_seconds / steps * 1e3,
-         warm_sessions_per_s=steps * TRAIN_BATCH / warm_seconds,
-         input_seconds=input_seconds,
-         max_memory_allocated=peak, launches=launches,
-         eval_launches=eval_launches,
-         train_loss=train_loss, held_out_loss_before=loss_before,
-         held_out_loss_after=loss_after, held_out_metrics=metrics,
-         step_breakdown_ms=breakdown, chunk_timing=chunk_timing, **found)
-    del model, trainer
+    found["graph_vs_eager"] = graph_vs_eager(make_engine(chunk_batches=4),
+                                             data)
+    n_params = model.n_params()
+    del model, trainer, held_out
     gc.collect()
     torch.cuda.empty_cache()
+    emit(f"train_{kind}", card=card, steps=steps, batch=TRAIN_BATCH,
+         params=n_params, seconds=seconds,
+         steps_per_s=steps / seconds,
+         sessions_per_s=steps * TRAIN_BATCH / seconds,
+         warm_seconds=warm, warm_steps_per_s=steps / warm,
+         warm_step_ms=warm / steps * 1e3,
+         warm_sessions_per_s=steps * TRAIN_BATCH / warm,
+         warm_step_ms_rounds=warm_ms, input_ms_per_step=input_path,
+         warm_minus_overlapped_input_ms=warm_over_input,
+         max_memory_allocated=peak, max_memory_reserved=peak_reserved,
+         launches=launches, wrapper_launches=counted["wrapper_launches"],
+         eval_launches={"first": eval_first, "replayed": eval_replayed},
+         train_loss=train_loss, held_out_loss_before=loss_before,
+         held_out_loss_after=loss_after, held_out_metrics=metrics,
+         eval_replay_bits_equal=True,
+         step_breakdown_ms=breakdown, chunk_timing=timing,
+         memory_left_allocated=torch.cuda.memory_allocated()
+         - start_allocated, **found)
     return launches
 
 

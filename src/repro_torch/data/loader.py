@@ -1,18 +1,19 @@
 """Deterministic batch loading and the host-to-device prefetcher.
 
 ``split_sessions``, ``LoaderState`` and ``ClickLogLoader`` are copied from
-``repro.data.loader`` (numpy only, but that module imports JAX).
-``DevicePrefetcher`` is the port of its inline mode: host batches (or chunks
-of ``chunk_batches`` stacked batches) are copied to the device from pinned
-memory with ``non_blocking=True``, so the copy of the next item overlaps the
-steps already queued on the device. The overlap staging thread waits for a
-later slice.
+``repro.data.loader`` (numpy only, but that module imports JAX); the
+loader gathers a batch's rows with ``np.take``, which gives the bytes of
+the reference's fancy indexing. ``DevicePrefetcher``
+is the port of the reference's, with both of its modes: a staging thread
+(``overlap=True``, the default) or the consumer's own thread.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, Iterator, Optional, Tuple
+import queue as queue_mod
+import threading
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,7 +98,8 @@ class ClickLogLoader:
                 i = self.state.step
                 idx = order[i * self.batch_size:(i + 1) * self.batch_size]
                 self.state.step += 1
-                yield {k: v[idx] for k, v in self.data.items()}
+                yield {k: np.take(v, idx, axis=0)
+                       for k, v in self.data.items()}
             self.state = LoaderState(epoch=self.state.epoch + 1, step=0)
             return  # one epoch per __iter__ call
 
@@ -114,6 +116,38 @@ class ClickLogLoader:
         self.state = LoaderState.from_dict(d)
 
 
+class _PinnedRing:
+    """``slots`` sets of pinned host buffers, used in turn as the staging
+    area of host-to-device copies. A slot is refilled only after the copy
+    out of it has completed (its event); a slot whose shapes or types do
+    not fit the item is allocated anew."""
+
+    def __init__(self, slots: int, pinned=None):
+        self._slots: List[Tuple[Dict[str, torch.Tensor], object]] = \
+            [({}, None)] * slots
+        self._next = 0
+        self._pinned = pinned or (lambda shape, dtype: torch.empty(
+            shape, dtype=dtype, pin_memory=True))
+
+    def take(self, like: Dict[str, Tuple[tuple, torch.dtype]]):
+        """The next slot's buffers, shaped as ``like`` (key -> (shape,
+        dtype)), once the copy out of them has finished."""
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        buffers, done = self._slots[i]
+        if done is not None:
+            done.synchronize()
+        if {k: (tuple(b.shape), b.dtype) for k, b in buffers.items()} != like:
+            buffers = {k: self._pinned(shape, dtype)
+                       for k, (shape, dtype) in like.items()}
+        self._slots[i] = (buffers, None)
+        return i, buffers
+
+    def copied(self, i: int, done) -> None:
+        """Mark slot ``i``'s copy out as recorded by event ``done``."""
+        self._slots[i] = (self._slots[i][0], done)
+
+
 class DevicePrefetcher:
     """Keeps ``size`` items on the device ahead of the consumer.
 
@@ -124,10 +158,29 @@ class DevicePrefetcher:
     (the chunk's last batch) was produced. A batch whose shapes differ from
     the chunk being gathered (the ``drop_last=False`` tail) flushes the
     chunk and starts its own, so every chunk is rectangular.
+
+    With ``overlap=True`` (the default) the whole host side (pulling the
+    loader's batches, stacking a chunk, the copy to the device and the
+    resume state) runs on a staging thread that feeds a bounded queue of
+    ``size`` finished items, so the consumer only pops them. Items,
+    payloads and resume states are those of ``overlap=False``, where the
+    same work runs on the consumer's thread (one producer, a FIFO queue).
+    An exception on the staging thread is raised on the consumer with its
+    own traceback. Abandoning the iteration stops and joins the thread,
+    which closes the loader's generator: the thread that ran it.
+
+    On CUDA each item is stacked into one of ``size + 1`` pinned host
+    buffers used in turn, and copied to the device with ``non_blocking=True``
+    on a high-priority stream of the prefetcher's own (never one that a
+    CUDA graph is captured on), which records an event. The
+    consumer's stream waits on that event when the item is handed over, and
+    each tensor is marked as used there (``record_stream``), so the caching
+    allocator does not hand its memory out again before the consumer's work
+    on it has run.
     """
 
     def __init__(self, loader, size: int = 2, device="cuda",
-                 chunk_batches: Optional[int] = None):
+                 chunk_batches: Optional[int] = None, overlap: bool = True):
         if size < 1:
             raise ValueError(f"prefetch size must be >= 1, got {size}")
         if chunk_batches is not None and chunk_batches < 1:
@@ -137,24 +190,19 @@ class DevicePrefetcher:
         self.size = size
         self.device = torch.device(device)
         self.chunk_batches = chunk_batches
+        self.overlap = overlap
 
-    def _put(self, batch):
-        out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            else:
-                t = t.to(self.device)
-            out[k] = t
-        return out
-
-    def _items(self):
+    # -- host-side item stream (shared by both modes) ------------------------
+    def _groups(self):
+        """The loader's batches, grouped into items: ``(batches, state,
+        n)`` with ``n`` None outside chunk mode. The loader's generator is
+        created at the first ``next()``: on the staging thread in overlap
+        mode, which therefore also closes it."""
         it = iter(self.loader)
         get_state = getattr(self.loader, "state_dict", lambda: None)
         if self.chunk_batches is None:
             for batch in it:
-                yield (self._put(batch), get_state())
+                yield [batch], get_state(), None
             return
         pushback = []  # one-batch lookahead for the shape-change flush
         while True:
@@ -177,12 +225,80 @@ class DevicePrefetcher:
                 state = s
             if not batches:
                 return
-            chunk = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
-            yield (self._put(chunk), state, len(batches))
+            yield batches, state, len(batches)
 
-    def __iter__(self):
-        """Prime ``size`` items, then refill one ahead of each yield."""
-        items = self._items()
+    def _items(self):
+        """Finished items: ``(tensors, event, state, n)``; ``event`` marks
+        the end of the tensors' copy to the card (None on the CPU)."""
+        groups = self._groups()
+        try:
+            if self.device.type != "cuda":
+                for batches, state, n in groups:
+                    yield self._put_host(batches, n), None, state, n
+                return
+            ring = _PinnedRing(self.size + 1)
+            # High priority: PyTorch hands streams out of one pool per
+            # priority, round robin, and captures on default-priority ones
+            # (torch.cuda.graph's capture stream, the warm-up's side
+            # stream). A copy stream from that pool would in time be the
+            # stream being captured, and the copy would enter the graph.
+            stream = torch.cuda.Stream(self.device, priority=-1)
+            for batches, state, n in groups:
+                tensors, done = self._put_cuda(batches, n, ring, stream)
+                yield tensors, done, state, n
+        finally:
+            groups.close()
+
+    def _put_host(self, batches, n):
+        if n is None:
+            (batch,) = batches
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device) for k, v in batch.items()}
+        return {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(
+            self.device) for k in batches[0]}
+
+    def _put_cuda(self, batches, n, ring, stream):
+        """Stack ``batches`` into the ring's next pinned slot and copy it to
+        the card on ``stream``; returns the device tensors and the copy's
+        event."""
+        first = batches[0]
+        lead = () if n is None else (n,)
+        like = {k: (lead + tuple(v.shape),
+                    torch.from_numpy(np.empty(0, v.dtype)).dtype)
+                for k, v in first.items()}
+        slot, pinned = ring.take(like)
+        for k, buf in pinned.items():
+            host = buf.numpy()
+            if n is None:
+                np.copyto(host, first[k])
+            else:
+                np.stack([b[k] for b in batches], out=host)
+        with torch.cuda.stream(stream):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the prefetcher's copy stream is being "
+                                   "captured into a CUDA graph")
+            out = {k: buf.to(self.device, non_blocking=True)
+                   for k, buf in pinned.items()}
+            done = torch.cuda.Event()
+            done.record(stream)
+        ring.copied(slot, done)
+        return out, done
+
+    def _handed(self, item):
+        """The item as the consumer gets it: its stream waits for the copy,
+        and each tensor is marked as used on that stream."""
+        tensors, done, state, n = item
+        if done is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(done)
+            for t in tensors.values():
+                t.record_stream(consumer)
+        return (tensors, state) if n is None else (tensors, state, n)
+
+    # -- execution modes -----------------------------------------------------
+    def _pump(self, items):
+        """Inline mode: prime ``size`` items, then refill one ahead of each
+        yield, all on the consumer's thread (``overlap=False``)."""
         queue = collections.deque()
         try:
             for item in items:
@@ -193,6 +309,61 @@ class DevicePrefetcher:
                 nxt = next(items, None)
                 if nxt is not None:  # refill before handing back to compute
                     queue.append(nxt)
-                yield queue.popleft()
+                yield self._handed(queue.popleft())
         finally:
             items.close()
+
+    def _staged(self, items):
+        """Overlap mode: the item stream runs on a staging thread feeding a
+        bounded queue; the consumer only pops finished items."""
+        q: queue_mod.Queue = queue_mod.Queue(maxsize=self.size)
+        stop = threading.Event()
+        done = object()
+        fail = []  # [exception], raised on the consumer
+
+        def send(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+
+        def run():
+            try:
+                for item in items:
+                    if not send(item):
+                        return
+                send(done)
+            except BaseException as e:  # noqa: BLE001 - raised on the consumer
+                fail.append(e)
+                send(done)
+            finally:
+                items.close()  # run here, so closed here
+
+        thread = threading.Thread(target=run, daemon=True,
+                                  name="device-prefetch")
+        thread.start()
+        try:
+            while True:
+                try:
+                    item = q.get(timeout=0.2)
+                except queue_mod.Empty:
+                    if not thread.is_alive() and q.empty() and not fail:
+                        return  # ended without a result: nothing to raise
+                    continue
+                if item is done:
+                    if fail:
+                        raise fail[0]  # its own traceback
+                    return
+                yield self._handed(item)
+        finally:
+            stop.set()
+            thread.join(timeout=10.0)
+
+    def __iter__(self):
+        if self.overlap:
+            yield from self._staged(self._items())
+        else:
+            yield from self._pump(self._items())

@@ -4,7 +4,9 @@
 ``fm_interaction`` in Triton, plus the public ops with autograd that route
 by device; and the optimizer's two kernels, ``adamw`` (dense, one pass)
 and ``sparse_adamw`` (lazy, touched rows only), in CUDA C++. ``session_nll_triton`` is ``session_nll``'s first design, kept
-to be timed beside the CUDA kernel."""
+to be timed beside the CUDA kernel. Each wrapper's ``.launches`` counts the
+launches it makes, none while the current stream is being captured into a
+CUDA graph: the graph's replays run the kernel, with no wrapper."""
 from repro_torch.kernels.adamw import adamw_cuda
 from repro_torch.kernels.dcn_cross import dcn_cross_cuda, dcn_cross_plain
 from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,

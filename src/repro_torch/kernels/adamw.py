@@ -127,7 +127,8 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if err != 0:
         raise RuntimeError("adamw kernel launch failed: "
                            + lib.adamw_error_string(err).decode())
-    adamw_cuda.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        adamw_cuda.launches += 1
 
 
 adamw_cuda.launches = 0

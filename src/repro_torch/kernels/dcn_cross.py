@@ -86,7 +86,8 @@ def dcn_cross_cuda(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if err != 0:
         raise RuntimeError("dcn_cross kernel launch failed: "
                            + lib.dcn_cross_error_string(err).decode())
-    dcn_cross_cuda.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        dcn_cross_cuda.launches += 1
     return out
 
 

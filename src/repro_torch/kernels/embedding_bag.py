@@ -218,7 +218,8 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
     if err != 0:
         raise RuntimeError("embedding_bag kernel launch failed: "
                            + lib.embedding_bag_error_string(err).decode())
-    embedding_bag_cuda.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        embedding_bag_cuda.launches += 1
     return out
 
 

@@ -183,7 +183,8 @@ def examination_nll_cuda(attr_logits, clicks, mask, p_skip_survive, p_death,
     if err != 0:
         raise RuntimeError("examination_nll kernel launch failed: "
                            + lib.examination_nll_error_string(err).decode())
-    examination_nll_cuda.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        examination_nll_cuda.launches += 1
     return out
 
 

@@ -312,7 +312,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
-    flash_attention_cuda.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        flash_attention_cuda.launches += 1
     return out
 
 

@@ -116,7 +116,8 @@ def fm_interaction_triton(v: torch.Tensor) -> torch.Tensor:
         # so a row of one field gives exactly 0.
         _kernel()[grid](v, out, B, F, D, BLOCK_B=block_b, BLOCK_F=block_f,
                         BLOCK_D=block_d, num_warps=8, enable_fp_fusion=False)
-    fm_interaction_triton.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        fm_interaction_triton.launches += 1
     return out
 
 

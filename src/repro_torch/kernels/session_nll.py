@@ -119,7 +119,8 @@ def session_nll_triton(logits, clicks, mask) -> torch.Tensor:
     with torch.cuda.device(device):
         _kernel()[(grid,)](logits, clicks, mask.view(torch.uint8), sums,
                            counts, n, BLOCK=BLOCK, num_warps=4)
-    session_nll_triton.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        session_nll_triton.launches += 1
     return torch.sum(sums) / torch.clamp_min(torch.sum(counts), 1.0)
 
 
@@ -210,7 +211,8 @@ def session_nll_cuda(logits, clicks, mask,
     if err != 0:
         raise RuntimeError("session_nll kernel launch failed: "
                            + lib.session_nll_error_string(err).decode())
-    session_nll_cuda.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        session_nll_cuda.launches += 1
     return out
 
 

@@ -125,7 +125,8 @@ def sparse_adamw_cuda(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
     if err != 0:
         raise RuntimeError("sparse_adamw kernel launch failed: "
                            + lib.sparse_adamw_error_string(err).decode())
-    sparse_adamw_cuda.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
+        sparse_adamw_cuda.launches += 1
 
 
 sparse_adamw_cuda.launches = 0

@@ -309,7 +309,8 @@ class InjectLRState(NamedTuple):
     """Learning rate carried as optimizer *state* instead of a baked-in
     constant (optax.inject_hyperparams): a float32 0-d tensor on the
     parameters' device, which the fused ``adamw`` kernel reads there, so
-    :func:`set_injected_lr` retunes a run between steps."""
+    :func:`set_injected_lr` retunes a run between steps (captured ones
+    too: it writes into this tensor)."""
     lr: torch.Tensor
 
 
@@ -349,25 +350,24 @@ def _map_state(node, fn):
 
 
 def set_injected_lr(opt_state, lr):
-    """Replace the lr of every :class:`InjectLRState` in ``opt_state``.
+    """Write ``lr`` into every :class:`InjectLRState` of ``opt_state``, in
+    place, and return ``opt_state``: a step captured in a CUDA graph reads
+    the lr at the tensor's address, so the tensor is kept and refilled.
 
     Raises if the optimizer was not built with ``inject_lr=True``:
     silently returning the input would quietly train at the constructor
     lr."""
     found = []
-
-    def replace(node):
-        found.append(node)
-        return InjectLRState(lr=torch.as_tensor(
-            np.asarray(lr, np.float32)).to(node.lr.device))
-
-    out = _map_state(opt_state, replace)
+    _map_state(opt_state, lambda node: found.append(node) or node)
     if not found:
         raise ValueError(
             "optimizer state has no InjectLRState — build the optimizer "
             "with inject_lr=True (e.g. optim.adamw(lr, inject_lr=True)) "
             "to set per-run learning rates")
-    return out
+    value = float(np.asarray(lr, np.float32))
+    for node in found:
+        node.lr.fill_(value)
+    return opt_state
 
 
 def get_injected_lr(opt_state):

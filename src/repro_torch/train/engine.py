@@ -4,12 +4,25 @@ and sparse embedding tables.
 Port of the single-device core of ``repro.train.engine.TrainEngine``.
 ``DevicePrefetcher(chunk_batches=N)`` stacks N host batches into one
 ``(N, B, ...)`` device tensor per key; :meth:`TrainEngine.step` runs the N
-optimizer steps over it as a Python loop (the JAX version's ``lax.scan``)
-and returns the per-step losses as one ``(N,)`` tensor that stays on the
-device until the caller drains it. The loop body is :meth:`_one_step`, so a
-chunk of N gives bit-for-bit the same parameters and losses as N chunks of
-one. Parameters live in the model and are updated in place through
-``optim.step``: the fused ``adamw`` kernel on the card, the chain on the CPU.
+optimizer steps over it and returns the per-step losses as one ``(N,)``
+tensor that stays on the device until the caller drains it. The body of a
+chunk is a loop over :meth:`_one_step`, so a chunk of N gives bit for bit
+the parameters and losses of N chunks of one. Parameters live in the model
+and are updated in place through ``optim.step``: the fused ``adamw`` kernel
+on the card, the chain on the CPU.
+
+**One dispatch per chunk** (the JAX engine jits its ``lax.scan`` over the
+chunk into one dispatch, since a per-batch loop starves the accelerator).
+A CUDA chunk runs through :class:`~repro_torch.train.capture.ChunkGraphs`:
+the first chunk of each signature (n, and each key's shape and dtype, as
+JAX retraces per shape) runs the loop eagerly, as the warm-up, and is then
+captured in a CUDA graph; every later chunk of that signature is copied
+into the graph's static buffers and replayed, one replay per chunk. The
+graph is bound to the optimizer state it captured: the kernels update the
+parameters and the state in place, so their addresses stay fixed, and a
+call with another state object captures anew. A CPU chunk runs the loop.
+Nothing chooses between the two but the device, and a capture that fails
+raises.
 
 **Sparse tables.** With ``sparse_tables=True`` every
 :class:`~repro_torch.core.parameterization.EmbeddingParameter` table is
@@ -19,7 +32,7 @@ moments for a table. ``backward`` still makes the full (R, d) table
 gradient, as the JAX engine's autodiff does; its rows are gathered at the
 batch's distinct ids. ``sparse_table_kwargs`` must give ``lr`` and
 ``weight_decay`` mirroring the dense optimizer, since a transformation
-cannot be introspected.
+cannot be introspected. Both routes are captured.
 
 Replicas, the mesh, the non-finite guard and telemetry wait for later
 slices.
@@ -35,6 +48,7 @@ from repro_torch.core.parameterization import Compression, EmbeddingParameter
 from repro_torch.optim.sparse import (init_sparse_table_state,
                                       sparse_adamw_update,
                                       unique_rows_with_sentinel)
+from repro_torch.train.capture import ChunkGraphs, tree_leaves
 
 SPARSE_PATH_SEP = "/"
 
@@ -108,6 +122,8 @@ class TrainEngine:
         table_ids = {id(part.table) for part in self.sparse_parts.values()}
         self.dense_params = [p for p in self.params
                              if id(p) not in table_ids]
+        # made at the first CUDA chunk
+        self.graphs: Optional[ChunkGraphs] = None
 
     def init_opt_state(self):
         """The dense optimizer's state, or ``{"dense": ..., "sparse":
@@ -154,9 +170,9 @@ class TrainEngine:
             p.grad = None
         return opt_state, loss.detach()
 
-    def step(self, opt_state, chunk: Dict[str, torch.Tensor]) -> Any:
-        """``n = chunk[k].shape[0]`` optimizer steps, one per stacked batch.
-        Returns the new optimizer state and the ``(n,)`` loss tensor."""
+    def _loop(self, opt_state, chunk: Dict[str, torch.Tensor]):
+        """The chunk's steps one after the other: the CPU's route, and the
+        body that a CUDA chunk captures."""
         n = next(iter(chunk.values())).shape[0]
         losses = []
         for i in range(n):
@@ -164,3 +180,36 @@ class TrainEngine:
                 opt_state, {k: v[i] for k, v in chunk.items()})
             losses.append(loss)
         return opt_state, torch.stack(losses)
+
+    @staticmethod
+    def _chunk_body(chunk: Dict[str, torch.Tensor], bound):
+        """The loop of the bound ``(engine, params, opt_state)`` (a static
+        method, so the graphs hold no reference to the engine). A graph
+        replays the state at the addresses it captured, so every state
+        tensor must be updated in place, as ``optim.step``'s fused pass and
+        ``sparse_adamw_update`` do; a state that moved raises."""
+        engine, _, opt_state = bound
+        state, losses = engine._loop(opt_state, chunk)
+        if any(new is not old for new, old in zip(
+                tree_leaves(state), tree_leaves(opt_state), strict=True)):
+            raise RuntimeError(
+                "TrainEngine: the optimizer made new state tensors; a "
+                "captured chunk needs one that updates its state in place")
+        return {"losses": losses}
+
+    def step(self, opt_state, chunk: Dict[str, torch.Tensor]) -> Any:
+        """``n = chunk[k].shape[0]`` optimizer steps, one per stacked batch.
+        Returns the new optimizer state and the ``(n,)`` loss tensor. A CUDA
+        chunk is one graph replay (after its signature's first chunk, which
+        runs eagerly and is captured); the state object passed in is updated
+        in place and returned."""
+        if next(iter(chunk.values())).device.type != "cuda":
+            return self._loop(opt_state, chunk)
+        if self.graphs is None:
+            self.graphs = ChunkGraphs(self._chunk_body)
+        return self._replayed(opt_state, chunk)
+
+    def _replayed(self, opt_state, chunk: Dict[str, torch.Tensor]):
+        out = self.graphs(chunk, (self, self.params, opt_state))
+        # a copy: the graph's buffer is overwritten by the next replay
+        return opt_state, out["losses"].clone()

@@ -6,18 +6,24 @@ path of ``repro.train.trainer``.
     results = trainer.test(model, test_loader)
 
 Training runs through :class:`TrainEngine` in chunks of ``chunk_batches``
-steps; each chunk's ``(n,)`` loss tensor is read one chunk behind, so the
-host waits on the device once per chunk and never on the chunk it just
-queued. With ``sparse_tables=True`` the embedding tables take sparse lazy
-AdamW (see :class:`TrainEngine`). Each epoch is validated with the
-paper's click metrics (LL, perplexity, conditional perplexity) and
-training stops after ``patience`` epochs without a val-loss improvement
-(paper §6). Checkpoints, preemption,
-the watchdog, replica sweeps and profiling wait for later slices.
+steps (on the card, one CUDA-graph replay per chunk), fed by the
+overlapped :class:`DevicePrefetcher`; each chunk's ``(n,)`` loss tensor is
+read one chunk behind, so the host waits on the device once per chunk and
+never on the chunk it just queued. With ``sparse_tables=True`` the
+embedding tables take sparse lazy AdamW (see :class:`TrainEngine`). Each
+epoch is validated with the paper's click metrics (LL, perplexity,
+conditional perplexity), in chunks of ``chunk_batches`` batches too: on
+the card a captured loss-free body with the metric state as its carry,
+cached for the last few models evaluated. Training stops after
+``patience`` epochs without a val-loss improvement (paper §6).
+Checkpoints, preemption, the watchdog, replica sweeps and profiling wait
+for later slices.
 """
 from __future__ import annotations
 
+import collections
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -25,7 +31,14 @@ import torch
 from repro_torch.core.metrics import (ConditionalPerplexity, LogLikelihood,
                                       MultiMetric, Perplexity)
 from repro_torch.data.loader import DevicePrefetcher
+from repro_torch.train.capture import ChunkGraphs
 from repro_torch.train.engine import TrainEngine
+
+#: Models whose evaluation graphs a Trainer keeps (least recently used
+#: first out), as the JAX Trainer bounds its cache of compiled eval steps.
+#: The cache holds each model weakly: a model the caller drops frees its
+#: parameters and its graphs.
+EVAL_CACHE = 4
 
 
 def _stage(losses: torch.Tensor):
@@ -49,6 +62,56 @@ def _read(staged) -> List[float]:
     if done is not None:
         done.synchronize()
     return host.tolist()
+
+
+_STATE = "metric_state/"
+
+
+def _flat(state) -> Dict[str, torch.Tensor]:
+    """A MultiMetric state (name -> {"sum", "count"}) as one flat dict."""
+    return {f"{_STATE}{name}/{k}": v for name, part in state.items()
+            for k, v in part.items()}
+
+
+def _nest(flat) -> Dict[str, Dict[str, torch.Tensor]]:
+    state: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, v in flat.items():
+        if key.startswith(_STATE):
+            name, k = key[len(_STATE):].rsplit("/", 1)
+            state.setdefault(name, {})[k] = v
+    return state
+
+
+class _EvalStep:
+    """One model's chunked evaluation: :meth:`loop` folds a stacked ``(n,
+    B, K)`` chunk into the metric state batch by batch (the CPU's route);
+    :meth:`replayed` is that loop captured per chunk signature, bound to
+    the model's parameters, with the metric state as its carry (the card's
+    route; JAX ``Trainer._make_eval_chunk_step``). It keeps no reference to
+    the model (each call is given it), and its graphs none to it."""
+
+    def __init__(self, metrics: MultiMetric):
+        self.metrics = metrics
+        self.graphs = ChunkGraphs(self._body)
+
+    def loop(self, model, state, chunk):
+        for i in range(next(iter(chunk.values())).shape[0]):
+            batch = {k: v[i] for k, v in chunk.items()}
+            state = self.metrics.update(
+                state, log_probs=model.predict_clicks(batch),
+                conditional_log_probs=model.predict_conditional_clicks(batch),
+                clicks=batch["clicks"], where=batch["mask"])
+        return state
+
+    @staticmethod
+    def _body(inputs, bound):
+        step, model, _ = bound
+        chunk = {k: v for k, v in inputs.items() if not k.startswith(_STATE)}
+        return _flat(step.loop(model, _nest(inputs), chunk))
+
+    def replayed(self, model, state, chunk):
+        return _nest(self.graphs({**chunk, **_flat(state)},
+                                 (self, model, list(model.parameters()))))
 
 
 def default_metrics() -> MultiMetric:
@@ -75,6 +138,9 @@ class Trainer:
         self.device = torch.device(device)
         self.metrics_factory = metrics_factory
         self.log_fn = log_fn
+        # id(model) -> (weak reference to the model, its _EvalStep)
+        self._eval_cache: "collections.OrderedDict[int, tuple]" = \
+            collections.OrderedDict()
 
     def _check_device(self, model) -> None:
         where = {p.device.type for p in model.parameters()}
@@ -132,21 +198,46 @@ class Trainer:
                 break
         return history
 
+    def _eval_step(self, model) -> "_EvalStep":
+        """The cached :class:`_EvalStep` of ``model``; the entry goes when
+        the model is collected."""
+        cache, key = self._eval_cache, id(model)
+        entry = cache.get(key)
+        if entry is not None and entry[0]() is model:
+            cache.move_to_end(key)
+            return entry[1]
+        cache.pop(key, None)
+        while len(cache) >= EVAL_CACHE:
+            cache.popitem(last=False)
+
+        # weakly: the cache holds forget, so a strong reference would be
+        # a cycle, kept until the collector runs
+        held = weakref.ref(cache)
+
+        def forget(ref):
+            live = held()
+            if live is not None and key in live and live[key][0] is ref:
+                del live[key]
+
+        step = _EvalStep(self.metrics_factory())
+        cache[key] = (weakref.ref(model, forget), step)
+        return step
+
     @torch.no_grad()
     def evaluate(self, model, loader, per_rank: bool = False):
-        """Stream ``loader`` through the click metrics; the metric state
-        stays on the device and is read once at the end."""
+        """Stream ``loader`` through the click metrics in chunks of
+        ``chunk_batches`` batches, each chunk one graph replay on the card;
+        the metric state stays on the device and is read once at the end."""
         self._check_device(model)
-        metrics = self.metrics_factory()
-        state = None
-        for batch, _ in DevicePrefetcher(loader, device=self.device):
+        step = self._eval_step(model)
+        update = step.replayed if self.device.type == "cuda" else step.loop
+        metrics, state = step.metrics, None
+        for chunk, _, _ in DevicePrefetcher(loader, device=self.device,
+                                            chunk_batches=self.chunk_batches):
             if state is None:
-                state = metrics.init_state(batch["positions"].shape[1],
+                state = metrics.init_state(chunk["positions"].shape[2],
                                            self.device)
-            state = metrics.update(
-                state, log_probs=model.predict_clicks(batch),
-                conditional_log_probs=model.predict_conditional_clicks(batch),
-                clicks=batch["clicks"], where=batch["mask"])
+            state = update(model, state, chunk)
         if state is None:
             raise ValueError(
                 "evaluation loader produced no batches — dataset smaller than "
