@@ -25,7 +25,7 @@ Phases, each printing JSON lines:
                   replay equal to the bit, calls in flight at once on two
                   streams and two graphs replayed at once equal to their
                   eager bits (each call its own last-block counter), one
-                  device kernel per call in the profiler, its launch plan
+                  kernel node in a captured call, its launch plan
                   beside its neighbours and two yardsticks (a torch.sum
                   over the same bytes, a one-float launch); session_nll
                   also on views with a storage offset (equal to the bit to
@@ -70,17 +70,19 @@ Phases, each printing JSON lines:
    Every train phase runs through the engine's CUDA graphs: the counted
    epoch's first chunk runs eagerly and is captured, the rest replay; the
    held-out evaluation runs twice (eager and captured, then one replay,
-   equal to the bit). A replay runs no wrapper, so each of these runs is
-   profiled: the wrappers' counts must be exact for the eager steps, and
-   the device kernels in the trace, by name, exact for every step; those
-   are the launches reported. Each phase also reports: chunk_timing (host
-   enqueue and device run per step of the eager loop and of a replay, the
-   graphs captured and capture_ms, a whole chunk's copies and replay under
-   torch.cuda.set_sync_debug_mode("error"), the profiler's device kernels
-   per replay held to the chunk's launches, one "profile" line per
-   kernel, and the epoch replayed under the staging thread),
-   staging_thread_capture (a capture taken while the prefetcher's thread
-   stages a batch, the run profiled as above), graph_vs_eager (2 chunks of
+   equal to the bit). A replay runs no wrapper, so in each of these runs
+   the wrappers' counts must be exact for the eager steps, and every
+   launch, the wrappers' and the replayed graphs' kernel nodes (read from
+   each graph with the CUDA driver API, by function name), exact for every
+   step; those are the launches reported. Each phase also reports:
+   chunk_timing (host enqueue and device run per step of the eager loop
+   and of a replay, the graphs captured and capture_ms, a whole chunk's
+   copies and replay under torch.cuda.set_sync_debug_mode("error"), the
+   replay's graph kernels held to the chunk's launches, one "profile" line
+   per kernel with its device time, and the epoch replayed under the
+   staging thread), staging_thread_capture (a capture taken while the
+   prefetcher's thread stages a batch, the run counted as above),
+   graph_vs_eager (2 chunks of
    4 from one state: losses, parameters and moments, eager against eager
    and captured against eager), three rounds of the input path alone,
    inline and overlapped (with the loader's gather and the consumer's
@@ -116,10 +118,49 @@ Phases, each printing JSON lines:
                   flash_attention launches per forward.
 12. cpu_vs_gpu_recsys   the reduced DeepFM and AutoInt: CPU (plain) and GPU
                   (kernels) agree on loss and every gradient.
+13. The Trainer's run contract, after the earlier paths, on the
+   two-tower PBM and the paper-width DBN (each phase prints its
+   seconds; launches held exactly, the graphs' kernel nodes where graphs
+   replay):
+   train_sweep_two_tower  the pair's PBM as an R = 4 seed sweep (seeds
+                  0-3), 8 steps: dcn_cross 8 a step; each replica against
+                  the model built with its seed, run alone; the replicas'
+                  losses differ.
+   train_sweep_dbn  an R = 4 lr sweep (1.5e-3 .. 1.2e-2, injected lr), 16
+                  steps in chunks of 4 through the engine: examination_nll
+                  4 and adamw 20 a step; each replica against a standalone
+                  run at its lr (losses, parameters, moments, at most 1e-5
+                  apart, the gap printed); replica 2 frozen from the third
+                  chunk, unchanged to the bit with no new capture; a chunk
+                  under sync debug "error". Then the Trainer: the sweep's
+                  warm epoch against four sequential runs' (replica-steps
+                  per second) and its peak memory.
+   guard_dbn      the non-finite guard over 16 batches, the sixth poisoned
+                  by NonFiniteBatchInjector: only its step skipped, its
+                  loss NaN; equal to the bit to a run without it; the
+                  Trainer's record; the finite check's device ms a step.
+                  (adamw's and sparse_adamw's predicate forms are held in
+                  the kernel phase: True equal to the bit to no predicate,
+                  False writes nothing, both timed.)
+   resume_dbn     checkpoints every 8 steps (keep 1) in a temporary
+                  directory; a SIGTERM KillSwitch at batch 9 preempts the
+                  run, a fresh Trainer resumes it: parameters, moments and
+                  history equal to the bit to an uninterrupted run; save
+                  and restore seconds and bytes. Then the launcher's
+                  SIGKILL drill at its default size (3 epochs):
+                  --fault-kill-at-step 100 --max-restarts 1 exits 0 with
+                  the uninterrupted run's records and test metrics.
+   em             Figure 1 on the card: GCTR, RCTR, DCTR and SDBN by MLE,
+                  PBM and UBM by 30 EM iterations, on 1,048,576 sessions,
+                  each timed on the card alone, then held against the
+                  CPU port's fit, and evaluated on the held-out batch
+                  beside gradient-trained PBM and UBM (launches counted as
+                  above).
 
 Every phase that drives a path sets every kernel's launch count to 0 just
 before it and reads the counts just after; they must be exact (where
-graphs replay, the profiler's device kernels must be exact too). A control
+graphs replay, the wrappers' and the graphs' kernel nodes together). A
+control
 line holds the device times of the six kernels this slice left untouched
 beside the last runs before it. Then the kernel summary line (eight
 kernels: the six ports of TPU kernels and the optimizer's two), the card's
@@ -138,6 +179,8 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -470,8 +513,8 @@ def loss_forms(name, kernel, plain, args, make, gen, device, card):
     give the same bits, two batches back to back each their own loss (the
     last block's ticket is reset), a CUDA-graph replay the eager call's
     bits, calls in flight at once on two streams and two graphs replayed at
-    once each their own eager bits (concurrency_check), one device kernel
-    per call in the profiler and one count per call; the launch plan beside
+    once each their own eager bits (concurrency_check), one kernel node in
+    a captured call and one count per call; the launch plan beside
     its neighbours (device ms) and two yardsticks. session_nll also: views
     with a storage offset (read element by element) give the bits of their
     aligned copies, and the first design (Triton, five device kernels) is
@@ -493,9 +536,16 @@ def loss_forms(name, kernel, plain, args, make, gen, device, card):
     with torch.cuda.stream(side):
         kernel(*args)
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         captured = kernel(*args)
+    graph.instantiate()
+    from repro_torch.train.capture import graph_kernels
+
+    nodes = graph_kernels(graph.raw_cuda_graph())
+    if sum(nodes.values()) != 1 or port_kernels(nodes) != {name: 1}:
+        raise AssertionError(f"{name}: a captured call holds the kernel "
+                             f"nodes {dict(nodes)}, not one {name}")
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()
@@ -511,9 +561,9 @@ def loss_forms(name, kernel, plain, args, make, gen, device, card):
     before = kernel.launches
     lines, total = profile_kernels(lambda: kernel(*args))
     counted = kernel.launches - before
-    if total["launches_per_call"] != 1.0 or counted != 23:  # 3 warm + 20
-        raise AssertionError(f"{name}: {lines} device kernels, {counted} "
-                             "counted launches for 23 calls")
+    if counted != 23:  # 3 warm + 20
+        raise AssertionError(f"{name}: {counted} counted launches for 23 "
+                             "calls")
     sweep = plan_sweep(name, kernel, args)
     # Yardsticks of what holds it: one torch.sum over as many bytes as the
     # kernel reads (a single-launch read), and a launch that does nothing
@@ -526,6 +576,7 @@ def loss_forms(name, kernel, plain, args, make, gen, device, card):
                   "bytes": nbytes}
     del buf, tiny
     forms = {"repeat_bits_equal": True, "graph_replay_bits_equal": True,
+             "graph_kernel_nodes_per_call": sum(nodes.values()),
              "back_to_back_batches": [float(x) for x in pair],
              "concurrency": concurrency,
              "profile_kernels_per_call": total["launches_per_call"],
@@ -695,46 +746,66 @@ def profile_kernels(fn, calls=20):
                                              for x in lines)}
 
 
-def device_kernel_counts(fn):
-    """``fn()`` once under torch.profiler (CUDA activity), closed by a
-    synchronize: its result, the port's kernels that the device ran, by the
-    launch counters' names (every launch: eager, or replayed from a CUDA
-    graph, where no wrapper runs), and the device kernels of any kind."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def port_kernels(named_counts) -> dict:
+    """Counts by device kernel name (a mangled or demangled function name)
+    as counts by the launch counters' names, for the port's kernels only
+    (sparse_adamw before adamw: its name holds adamw's)."""
+    names = ("sparse_adamw", "adamw", "examination_nll", "session_nll",
+             "dcn_cross", "embedding_bag", "fm_interaction", "attention")
+    out = {}
+    for kernel, n in named_counts.items():
+        for name in names:
+            if name in kernel:
+                key = "flash_attention" if name == "attention" else name
+                out[key] = out.get(key, 0) + n
+                break
+    return out
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+def replayed_launches(fn):
+    """``fn()``, and the port's kernels that its graph replays launched, by
+    the launch counters' names: each replay's graph's kernel nodes, read
+    from the graph itself (``capture.graph_kernels``), so the count is
+    exact (a replay runs no wrapper)."""
+    import torch
+
+    from repro_torch.train import capture
+
+    capture.replayed_kernels = Counter()
+    try:
         out = fn()
         torch.cuda.synchronize()
-    names = [evt.name for evt in prof.events()
-             if evt.device_type == DeviceType.CUDA]
-    counts = {name: 0 for name in kernel_counters()}
-    for name, n in _profiled_kernels(
-            [{"kernel": k, "launches_per_call": 1} for k in names]).items():
-        counts[name] += int(n)
-    return out, counts, len(names)
+        replayed = capture.replayed_kernels
+    finally:
+        capture.replayed_kernels = None
+    return out, port_kernels(replayed), sum(replayed.values())
 
 
 def measured_run(what, fn, total, eager):
-    """``fn()`` with every count at 0, under the profiler. The wrappers'
-    counts (the launches made from Python: the eager steps; a capture
-    counts none and a replay runs no wrapper) must be ``eager`` exactly,
-    and the device kernels the trace saw, by name, ``total`` exactly (0
-    for a kernel neither names); a trace without any device kernel fails.
-    Returns ``fn``'s result and ``{"launches": the trace's counts,
-    "wrapper_launches": the wrappers'}``."""
+    """``fn()`` with every count at 0. The wrappers' counts (the launches
+    made from Python: the eager steps; a capture counts none and a replay
+    runs no wrapper) must be ``eager`` exactly, and every launch, the
+    wrappers' and those of the replayed graphs' kernel nodes
+    (:func:`replayed_launches`), ``total`` exactly (0 for a kernel neither
+    names). ``total`` and ``eager`` may be functions of ``fn``'s result,
+    for a run whose steps are known only once it has run. Returns ``fn``'s
+    result and ``{"launches": every launch, "wrapper_launches": the
+    wrappers', "replayed_launches": the replays', "replayed_kernels": every
+    kernel node the replays launched, the port's or not}``."""
     reset_counts()
-    out, device, n_kernels = device_kernel_counts(fn)
+    out, replayed, replayed_all = replayed_launches(fn)
+    if callable(total):  # counts that depend on the run: read from it
+        total, eager = total(out), eager(out)
     wrappers = check_counts(what, eager)
-    if n_kernels == 0:
-        raise AssertionError(f"{what}: the profiler saw no device kernel")
-    want = {name: total.get(name, 0) for name in device}
-    if device != want:
-        raise AssertionError(f"{what}: device launches {device} != {want}")
-    return out, {"launches": device, "wrapper_launches": wrappers}
+    launches = {name: n + replayed.get(name, 0)
+                for name, n in wrappers.items()}
+    want = {name: total.get(name, 0) for name in launches}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} (replayed "
+                             f"{replayed}) != {want}")
+    return out, {"launches": launches, "wrapper_launches": wrappers,
+                 "replayed_launches": replayed,
+                 "replayed_kernels": replayed_all}
 
 
 def phase_profile(card):
@@ -847,30 +918,25 @@ def _host_and_device_ms(fn, reps):
 
 def _profiled_kernels(lines):
     """Launches per call of the port's kernels in profile lines, by the
-    launch counters' names (sparse_adamw before adamw: its name holds
-    adamw's)."""
-    names = ("sparse_adamw", "adamw", "examination_nll", "session_nll",
-             "dcn_cross", "embedding_bag", "fm_interaction", "attention")
-    out = {}
-    for line in lines:
-        for name in names:
-            if name in line["kernel"]:
-                key = "flash_attention" if name == "attention" else name
-                out[key] = out.get(key, 0.0) + line["launches_per_call"]
-                break
-    return out
+    launch counters' names."""
+    return port_kernels({line["kernel"]: line["launches_per_call"]
+                         for line in lines})
 
 
 def chunk_timing(engine, batch, kind, card, per_chunk, loader, steps, n=4,
                  reps=3):
     """A 4-step chunk of ``batch`` through the eager loop and through
     ``engine.step`` (its first call: the warm-up and the capture; then one
-    replay a call): host enqueue and device run per step for each, the
+    replay a call): host enqueue and device run per step for each (a
+    replay also while its kernels are counted, and the one read of the
+    graph's nodes), the
     graphs captured and the capture's ms; a whole chunk (its static copies
     and its replay) under ``torch.cuda.set_sync_debug_mode("error")``; the
-    profiler's device kernels per replay, held to ``per_chunk`` (a replay
-    runs no wrapper, so the counters must not move); then ``loader``'s
-    epoch replayed under the staging thread (:func:`replay_under_staging`).
+    port's kernels a replay launches, from its graph's kernel nodes, held
+    to ``per_chunk`` (a replay runs no wrapper, so the counters must not
+    move), and the profiler's device time per kernel of a replay; then
+    ``loader``'s epoch replayed under the staging thread
+    (:func:`replay_under_staging`).
     """
     import torch
 
@@ -883,6 +949,21 @@ def chunk_timing(engine, batch, kind, card, per_chunk, loader, steps, n=4,
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     replay = _host_and_device_ms(lambda: engine.step(state, chunk), reps)
+    # what counting the replays' kernels costs: the graph's nodes read
+    # once, then one Counter update a replay
+    from repro_torch.train import capture
+
+    t0 = time.perf_counter()
+    nodes = [capture.CudaGraphs.kernels(e.graph)
+             for e in engine.graphs._entries.values()]
+    read_nodes_ms = (time.perf_counter() - t0) * 1e3
+    capture.replayed_kernels = Counter()
+    try:
+        counting = _host_and_device_ms(lambda: engine.step(state, chunk),
+                                       reps)
+    finally:
+        capture.replayed_kernels = None
+    del nodes
     torch.cuda.set_sync_debug_mode("error")
     try:
         engine.step(state, chunk)
@@ -890,12 +971,18 @@ def chunk_timing(engine, batch, kind, card, per_chunk, loader, steps, n=4,
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     before = read_counts()
-    engine.step(state, chunk)
+    _, per_replay, nodes = replayed_launches(
+        lambda: engine.step(state, chunk))
     after = read_counts()
     counted = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     if counted:
         raise AssertionError(f"{kind}: a replay counted {counted} in the "
                              "wrappers, which a replay does not run")
+    if per_replay != per_chunk:
+        raise AssertionError(f"{kind}: a replay's graph launched "
+                             f"{per_replay} kernels, expected {per_chunk}")
+    # the device time per kernel (the trace's counts are printed, not
+    # held: a trace can drop records)
     lines, total = profile_kernels(lambda: engine.step(state, chunk),
                                    calls=3)
     for line in lines:
@@ -904,9 +991,6 @@ def chunk_timing(engine, batch, kind, card, per_chunk, loader, steps, n=4,
     if not total["launches_per_call"]:
         raise AssertionError(f"{kind}: the profiler saw no device kernel "
                              "in a replay")
-    if profiled != {k: float(v) for k, v in per_chunk.items()}:
-        raise AssertionError(f"{kind}: the profiler saw {profiled} kernels "
-                             f"per replay, expected {per_chunk}")
     graphs = engine.graphs
     staging = replay_under_staging(engine, state, loader, steps)
     return {**staging, "steps": n,
@@ -914,10 +998,15 @@ def chunk_timing(engine, batch, kind, card, per_chunk, loader, steps, n=4,
             "eager_run_ms_per_step": eager[1] / n,
             "replay_enqueue_ms_per_step": replay[0] / n,
             "replay_run_ms_per_step": replay[1] / n,
+            "counted_replay_enqueue_ms_per_step": counting[0] / n,
+            "counted_replay_run_ms_per_step": counting[1] / n,
+            "graph_kernels_read_ms": read_nodes_ms,
             "first_chunk_ms": first_ms, "graphs": graphs.captures,
             "capture_ms": graphs.capture_seconds * 1e3,
             "no_host_sync_in_chunk": True,
             "wrapper_launches_per_replay": counted,
+            "graph_launches_per_replay": per_replay,
+            "graph_kernel_nodes_per_replay": nodes,
             "profile_kernels_per_replay": profiled,
             "profile_device_kernels_per_replay": total["launches_per_call"],
             "profile_device_ms_per_replay":
@@ -1028,7 +1117,8 @@ def capture_with_staging_thread(engine, loader, per_step):
     event and asked for the next (``capture_error_mode="thread_local"``).
     Every chunk after the first replays; the run is measured
     (:func:`measured_run`): the wrappers count the first step's launches,
-    the trace every step's. ``engine`` takes chunks of one batch."""
+    the replays' graphs every later step's. ``engine`` takes chunks of one
+    batch."""
     import threading
 
     import torch
@@ -1261,10 +1351,9 @@ def phase_train(kind, data, steps, card, extra=None):
     (two forwards per batch: the marginal and the conditional click
     predictions), run twice (the second replays the cached graph and must
     give the first one's bits), are each a :func:`measured_run`: the
-    wrappers' counts exact for the eager steps and the profiler's device
-    kernels exact for every step. ``extra(model,
-    held_out)`` adds path-specific checks and numbers to the phase's
-    line."""
+    wrappers' counts exact for the eager steps and, with the replayed
+    graphs' kernel nodes, exact for every step. ``extra(model, held_out)``
+    adds path-specific checks and numbers to the phase's line."""
     import torch
 
     from repro_torch.configs.clax_baidu import TRAIN_BATCH
@@ -1762,6 +1851,39 @@ def _adam_compare(make_opt, params0, grads, steps=3, start_count=0):
     return out
 
 
+def _adam_pred_forms(make_opt, params0, grads):
+    """The fused pass with a step predicate (the non-finite guard's, a
+    sweep's active replica) from the same inputs as without one: two steps
+    with pred = True equal two steps without a predicate to the bit
+    (parameters, both moments, the count), and a step with pred = False
+    after one without leaves everything as that one step left it."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.train.capture import tree_leaves
+
+    device = params0[0].device
+    yes = torch.ones((), dtype=torch.bool, device=device)
+    no = torch.zeros((), dtype=torch.bool, device=device)
+
+    def run(preds):
+        params = [p.clone() for p in params0]
+        opt = make_opt()
+        state = opt.init(params)
+        for pred in preds:
+            state = optim.step(opt, grads, state, params, pred)
+        return params + tree_leaves(state)
+
+    def same(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys, strict=True))
+
+    out = {"pred_true_bit_equal": same(run([None, None]), run([yes, yes]))}
+    torch.cuda.empty_cache()
+    out["pred_false_unchanged"] = same(run([None]), run([None, no]))
+    torch.cuda.empty_cache()
+    return out
+
+
 def _decay_sensitivity(run):
     """How many times past the hold's tolerance (rtol = atol = 1e-6) the
     plain form without weight decay lands from the plain form with it,
@@ -1862,6 +1984,21 @@ def phase_optimizer_kernels(card, data):
     del lib, lib_params
     torch.cuda.empty_cache()
     bound_ms, bound_by = adamw_bound(2 * DBN_ROWS)
+    # The predicate forms at the main shape: held to the bit, and timed
+    # (pred = True does the same work; pred = False reads one byte).
+    predicate = _adam_pred_forms(adamw_3e3, params, grads)
+    work = [p.clone() for p in params]
+    state = opt.init(work)
+    for name, value in (("kernel_pred_true", True),
+                        ("kernel_pred_false", False)):
+        pred = torch.full((), value, dtype=torch.bool, device=device)
+        device_ms[name] = graph_ms(
+            lambda: optim.step(opt, grads, state, work, pred), calls=5,
+            replays=4)
+    del work, state
+    torch.cuda.empty_cache()
+    if not all(predicate.values()):
+        raise AssertionError(f"adamw predicate forms: {predicate}")
 
     edges = {}
     small = {"n1": (1,), "n7": (7,), "n1000003": (1_000_003,),
@@ -1918,7 +2055,7 @@ def phase_optimizer_kernels(card, data):
                  "order; timed, not held",
          device_ms=device_ms, bound_ms=bound_ms, bound_by=bound_by,
          max_abs_err=main["params_abs_err"], main=main,
-         vs_cpu_chain=vs_cpu_chain, edge_cases=edges,
+         vs_cpu_chain=vs_cpu_chain, edge_cases=edges, predicate=predicate,
          decay_sensitivity=decay_sensitivity["adamw"])
     _hold("adamw", over)
     results["adamw"] = {
@@ -1929,7 +2066,8 @@ def phase_optimizer_kernels(card, data):
                     "and scale)",
         "max_abs_err": main["params_abs_err"], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "device_ms": device_ms, "held": True}
+        "library_ms": library_ms, "device_ms": device_ms,
+        "predicate": predicate, "held": True}
     del params, grads
     torch.cuda.empty_cache()
 
@@ -1955,12 +2093,15 @@ def phase_optimizer_kernels(card, data):
     row_grads = torch.randn(SPARSE_SLOTS, 1, generator=gen, device=device)
     kw = dict(lr=3e-3, weight_decay=1e-4)
 
-    def run(kernel, base, rows_, grads_, steps, kw_, mdt=torch.float32):
+    def run(kernel, base, rows_, grads_, steps, kw_, mdt=torch.float32,
+            preds=None):
         t = base.clone()
         st = init_sparse_table_state(t, mdt)
-        for _ in range(steps):
-            st.count.add_(1)
-            kernel(t, st.mu, st.nu, rows_, grads_, st.count, **kw_)
+        for i in range(steps):
+            pred = None if preds is None else preds[i]
+            st.count.add_(1 if pred is None else pred)
+            kernel(t, st.mu, st.nu, rows_, grads_, st.count, pred=pred,
+                   **kw_)
         return t, st
 
     (tk, sk), (tp, sp) = [run(kernel, before, rows, row_grads, 2, kw)
@@ -1985,6 +2126,28 @@ def phase_optimizer_kernels(card, data):
                           _over(sk.nu, sp.nu, 1e-6, 1e-6))}
     del tk, sk, tp, sp
     torch.cuda.empty_cache()
+    # the predicate forms, as for adamw: True is the kernel without one to
+    # the bit, False writes nothing
+    yes = torch.ones((), dtype=torch.bool, device=device)
+    no = torch.zeros((), dtype=torch.bool, device=device)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            (a[0], a[1].count, a[1].mu, a[1].nu),
+            (b[0], b[1].count, b[1].mu, b[1].nu)))
+
+    s_predicate = {"pred_true_bit_equal": same(
+        run(sparse_adamw_cuda, before, rows, row_grads, 2, kw),
+        run(sparse_adamw_cuda, before, rows, row_grads, 2, kw,
+            preds=[yes, yes]))}
+    torch.cuda.empty_cache()
+    s_predicate["pred_false_unchanged"] = same(
+        run(sparse_adamw_cuda, before, rows, row_grads, 1, kw),
+        run(sparse_adamw_cuda, before, rows, row_grads, 2, kw,
+            preds=[None, no]))
+    torch.cuda.empty_cache()
+    if not all(s_predicate.values()):
+        raise AssertionError(f"sparse_adamw predicate forms: {s_predicate}")
     (tk, sk), (tp, sp) = [run(kernel, before, zipf_rows, row_grads, 2, kw)
                           for kernel in (sparse_adamw_cuda,
                                          sparse_adamw_plain)]
@@ -2033,11 +2196,15 @@ def phase_optimizer_kernels(card, data):
     t = before.clone()
     st = init_sparse_table_state(t)
 
-    def sparse_kernel(rows_=rows):
-        sparse_adamw_cuda(t, st.mu, st.nu, rows_, row_grads, st.count, **kw)
+    def sparse_kernel(rows_=rows, pred=None):
+        sparse_adamw_cuda(t, st.mu, st.nu, rows_, row_grads, st.count,
+                          pred=pred, **kw)
 
     s_ms = time_ms(sparse_kernel, iters=100)
     s_device = {"kernel": graph_ms(sparse_kernel),
+                "kernel_pred_true": graph_ms(lambda: sparse_kernel(pred=yes)),
+                "kernel_pred_false": graph_ms(
+                    lambda: sparse_kernel(pred=no)),
                 "dedupe": graph_ms(lambda: unique_rows_with_sentinel(
                     ids, DBN_ROWS)),
                 "zipf_ranks_kernel": graph_ms(
@@ -2067,6 +2234,7 @@ def phase_optimizer_kernels(card, data):
          dedupe_ms=dedupe_ms, device_ms=s_device, bound_ms=s_bound_ms,
          bound_by=s_bound_by, max_abs_err=err, checks=checks,
          zipf_ranks={"live_rows": zipf_live, "bound_ms": zipf_bound_ms},
+         predicate=s_predicate,
          decay_sensitivity=decay_sensitivity["sparse_adamw"])
     _hold("sparse_adamw", s_over)
     # Held: untouched rows and the moments; the parameters are held at the
@@ -2084,7 +2252,8 @@ def phase_optimizer_kernels(card, data):
                     "sparse_adamw_update)",
         "max_abs_err": err, "ms": s_ms, "plain_ms": s_plain_ms,
         "bound_ms": s_bound_ms, "bound_by": s_bound_by,
-        "library_ms": s_library_ms, "device_ms": s_device, "held": True}
+        "library_ms": s_library_ms, "device_ms": s_device,
+        "predicate": s_predicate, "held": True}
     del before, touched, ids, rows, zipf_rows, row_grads
     gc.collect()
     torch.cuda.empty_cache()
@@ -2847,6 +3016,722 @@ def phase_recsys_cpu_vs_gpu():
     emit("cpu_vs_gpu_recsys", **out)
 
 
+# ---------------------------------------------------------------------------
+# The Trainer's run contract: replica sweeps, the non-finite guard,
+# checkpoints with bit-exact resume, preemption and restarts, and the EM/MLE
+# baselines of Figure 1
+# ---------------------------------------------------------------------------
+
+SWEEP_LRS = [1.5e-3, 3e-3, 6e-3, 1.2e-2]
+GAP_LIMIT = 1e-5   # a replica against its standalone run (JAX's promise)
+
+
+def _quiet(*_):
+    pass
+
+
+def _stacked_chunks(batches, n=4):
+    """Host batches stacked ``n`` at a time into device chunks."""
+    import numpy as np
+    import torch
+
+    return [{k: torch.from_numpy(np.stack([b[k] for b in batches[i:i + n]]))
+             .cuda() for k in batches[0]}
+            for i in range(0, len(batches), n)]
+
+
+def _train_batches(data, steps, poison=()):
+    """The first ``steps`` training batches of ``data`` (the train phases'
+    loader), with ``NonFiniteBatchInjector`` poisoning those in
+    ``poison``."""
+    from repro_torch.configs.clax_baidu import TRAIN_BATCH
+    from repro_torch.data import ClickLogLoader
+    from repro_torch.testing import NonFiniteBatchInjector
+
+    loader = ClickLogLoader({k: v[:steps * TRAIN_BATCH]
+                             for k, v in data.items()},
+                            batch_size=TRAIN_BATCH, seed=0)
+    return list(iter(NonFiniteBatchInjector(loader, at_steps=poison)))
+
+
+def _train_loader(data, steps):
+    from repro_torch.configs.clax_baidu import TRAIN_BATCH
+    from repro_torch.data import ClickLogLoader
+
+    return ClickLogLoader({k: v[:steps * TRAIN_BATCH]
+                           for k, v in data.items()},
+                          batch_size=TRAIN_BATCH, seed=0)
+
+
+def _gap(pairs):
+    """The largest abs gap over (a, b) tensor pairs, and how many elements
+    differ."""
+    gaps = [_tensor_gap(a, b) for a, b in pairs]
+    return {"max_abs": max(g[0] for g in gaps),
+            "elements_differing": sum(g[1] for g in gaps)}
+
+
+def _replica_vs_standalone(engine, state, losses, r, model, single, outs):
+    """Replica r of a sweep against a standalone engine's run: losses,
+    parameters, both moments and the step count."""
+    import torch
+
+    from repro_torch.train.capture import tree_leaves
+
+    sweep = tree_leaves(state)
+    alone = tree_leaves(single)
+    n = len(outs) * outs[0].shape[0]
+    return {"losses": _gap([(losses[:n, r], torch.cat(outs))]),
+            "params": _gap([(leaf[r], p.detach()) for leaf, p in zip(
+                engine.replica_params, model.parameters())]),
+            "moments": _gap([(a[r], b) for a, b in zip(sweep, alone)
+                             if b.dim() > 0]),
+            "count": [int(a[r]) for a, b in zip(sweep, alone)
+                      if b.dim() == 0 and b.dtype == torch.int32]}
+
+
+def _standalone(model, optimizer, chunks):
+    from repro_torch.train import TrainEngine
+
+    engine = TrainEngine(model, optimizer, chunk_batches=4)
+    state = engine.init_opt_state()
+    outs = []
+    for chunk in chunks:
+        state, out = engine.step(state, chunk)
+        outs.append(out)
+    return state, outs
+
+
+def _hold_gaps(what, gaps):
+    worst = max(g[k]["max_abs"] for g in gaps.values()
+                for k in ("losses", "params", "moments"))
+    if not worst <= GAP_LIMIT:
+        raise AssertionError(f"{what}: a replica is {worst} from its "
+                             f"standalone run: {gaps}")
+    return worst
+
+
+def phase_train_sweep_dbn(data, card, steps=16):
+    """The paper-width DBN as an R = 4 learning-rate sweep (adamw with an
+    injected lr, wd 1e-4; lrs 1.5e-3 .. 1.2e-2) through the engine, 16 steps
+    in chunks of 4: the first two chunks counted (examination_nll 4 a
+    step, adamw 4 x 5), replica 2 frozen from the third chunk (its
+    parameters, moments and count unchanged to the bit, no new capture),
+    the fourth under sync debug "error"; every replica against a
+    standalone engine at its lr (replica 2 over the 8 steps before its
+    freeze). Then the Trainer: the sweep's warm epoch against four
+    sequential runs' (replica-steps per second, bench_sweep's measure),
+    and the sweep's peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs.clax_baidu import TRAIN_BATCH, make_model
+    from repro_torch.train import TrainEngine, Trainer
+
+    t_phase = time.perf_counter()
+    R, frozen = 4, 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunks = _stacked_chunks(_train_batches(data, steps))
+    engine = TrainEngine(make_model("dbn", device="cuda"),
+                         optim.adamw(0.99, weight_decay=1e-4,
+                                     inject_lr=True),
+                         chunk_batches=4, replicas=R)
+    engine.init_replica_params(list(range(R)))
+    state = engine.set_replica_lrs(engine.init_opt_state(), SWEEP_LRS)
+    n_tensors = len(engine.params)
+    per_step = {"examination_nll": R, "adamw": R * n_tensors}
+    outs = []
+
+    def two_chunks():
+        for chunk in chunks[:2]:
+            outs.append(engine.step(state, chunk)[1])
+        return outs
+
+    _, counted = measured_run(
+        "train_sweep_dbn", two_chunks,
+        {k: n * 8 for k, n in per_step.items()},
+        {k: n * 4 for k, n in per_step.items()})
+    from repro_torch.train.capture import tree_leaves
+    before = [t[frozen].clone() for t in engine.replica_params
+              + tree_leaves(state)]
+    captures = engine.graphs.captures
+    mask = np.ones(R, bool)
+    mask[frozen] = False
+    outs.append(engine.step(state, chunks[2], active=mask)[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs.append(engine.step(state, chunks[3], active=mask)[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    frozen_equal = all(torch.equal(b, t[frozen]) for b, t in zip(
+        before, engine.replica_params + tree_leaves(state)))
+    if not frozen_equal:
+        raise AssertionError("train_sweep_dbn: the frozen replica moved")
+    if engine.graphs.captures != captures:
+        raise AssertionError("train_sweep_dbn: freezing a replica captured "
+                             "anew")
+    del before
+    losses = torch.cat(outs)
+    gaps = {}
+    for r, lr in enumerate(SWEEP_LRS):
+        n_chunks = 2 if r == frozen else len(chunks)
+        model = make_model("dbn", device="cuda")
+        single, single_outs = _standalone(
+            model, optim.adamw(lr, weight_decay=1e-4), chunks[:n_chunks])
+        gaps[r] = _replica_vs_standalone(engine, state, losses, r, model,
+                                         single, single_outs)
+        del model, single, single_outs
+        torch.cuda.empty_cache()
+    worst = _hold_gaps("train_sweep_dbn", gaps)
+    counts = [int(c) for c in state[0].count]
+    if counts != [steps, steps, 8, steps]:
+        raise AssertionError(f"train_sweep_dbn: step counts {counts}")
+    engine_losses = losses.tolist()
+    del engine, state, outs, losses, chunks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the Trainer: the sweep's warm epoch against four sequential runs'
+    loader = _train_loader(data, steps)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    sweep = Trainer(optim.adamw(0.99, weight_decay=1e-4, inject_lr=True),
+                    epochs=2, chunk_batches=4, replicas=R,
+                    replica_lrs=SWEEP_LRS, device="cuda", log_fn=_quiet)
+    history = sweep.train(make_model("dbn", device="cuda"), loader)
+    peak = torch.cuda.max_memory_allocated() - start
+    peak_reserved = torch.cuda.max_memory_reserved()
+    if not all(math.isfinite(x) for x in history[-1]["train_loss"]):
+        raise AssertionError(f"train_sweep_dbn: {history[-1]}")
+    del sweep
+    gc.collect()
+    torch.cuda.empty_cache()
+    sequential = []
+    for lr in SWEEP_LRS:
+        t = Trainer(optim.adamw(lr, weight_decay=1e-4), epochs=2,
+                    chunk_batches=4, device="cuda", log_fn=_quiet)
+        sequential.append(t.train(make_model("dbn", device="cuda"),
+                                  loader))
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+    warm = {"sweep_s": history[1]["seconds"],
+            "sequential_s": sum(h[1]["seconds"] for h in sequential)}
+    cold = {"sweep_s": history[0]["seconds"],
+            "sequential_s": sum(h[0]["seconds"] for h in sequential)}
+    rates = {k: {"replica_steps_per_s": {
+                     "sweep": R * steps / v["sweep_s"],
+                     "sequential": R * steps / v["sequential_s"]},
+                 "speedup": v["sequential_s"] / v["sweep_s"], **v}
+             for k, v in (("warm_epoch", warm), ("cold_epoch", cold))}
+    emit("train_sweep_dbn", card=card, replicas=R, lrs=SWEEP_LRS,
+         steps=steps, batch=TRAIN_BATCH, launches=counted["launches"],
+         wrapper_launches=counted["wrapper_launches"],
+         launches_per_step=per_step, replica_vs_standalone=gaps,
+         max_gap=worst, bits_equal=worst == 0.0, frozen_replica=frozen,
+         frozen_bits_equal=frozen_equal, captures=captures,
+         no_host_sync_in_chunk=True, step_counts=counts,
+         engine_losses_last_step=engine_losses[-1],
+         trainer_train_loss=history[-1]["train_loss"], **rates,
+         max_memory_allocated=peak, max_memory_reserved=peak_reserved,
+         seconds=time.perf_counter() - t_phase)
+    return counted["launches"]
+
+
+def phase_train_sweep_two_tower(data, card, steps=8):
+    """The Listing-4 two-tower PBM as an R = 4 seed sweep (seeds 0-3,
+    adamw(1e-2)), 8 steps through the engine, counted (dcn_cross 2 x 4 a
+    step, adamw 4 x 11): each replica against the model built with its
+    seed, run alone; the four replicas' losses differ."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs.clax_baidu import make_two_tower
+    from repro_torch.train import TrainEngine
+
+    t_phase = time.perf_counter()
+    R = 4
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunks = _stacked_chunks(_train_batches(data, steps))
+    engine = TrainEngine(make_two_tower("pbm", device="cuda"),
+                         optim.adamw(1e-2), chunk_batches=4, replicas=R)
+    engine.init_replica_params(list(range(R)))
+    state = engine.init_opt_state()
+    per_step = {"dcn_cross": 2 * R, "adamw": R * len(engine.params)}
+
+    def run():
+        return [engine.step(state, chunk)[1] for chunk in chunks]
+
+    outs, counted = measured_run(
+        "train_sweep_two_tower", run,
+        {k: n * steps for k, n in per_step.items()},
+        {k: n * 4 for k, n in per_step.items()})
+    losses = torch.cat(outs)
+    first = losses[0].tolist()
+    if len(set(first)) != R:
+        raise AssertionError(f"train_sweep_two_tower: replica losses "
+                             f"{first} do not all differ")
+    gaps = {}
+    for r in range(R):
+        model = make_two_tower("pbm", device="cuda", seed=r)
+        single, single_outs = _standalone(model, optim.adamw(1e-2), chunks)
+        gaps[r] = _replica_vs_standalone(engine, state, losses, r, model,
+                                         single, single_outs)
+    worst = _hold_gaps("train_sweep_two_tower", gaps)
+    emit("train_sweep_two_tower", card=card, replicas=R, seeds=list(range(R)),
+         steps=steps, launches=counted["launches"],
+         wrapper_launches=counted["wrapper_launches"],
+         launches_per_step=per_step, first_step_losses=first,
+         last_step_losses=losses[-1].tolist(), replica_vs_standalone=gaps,
+         max_gap=worst, bits_equal=worst == 0.0,
+         seconds=time.perf_counter() - t_phase)
+    del engine, state, chunks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted["launches"]
+
+
+def phase_guard_dbn(data, card, steps=16, poisoned=5):
+    """The paper-width DBN with the non-finite guard over 16 batches, the
+    sixth poisoned with NaN clicks by NonFiniteBatchInjector, through the
+    engine (counted): its loss NaN and only its step skipped; parameters,
+    moments and count equal to the bit those of an unguarded run over the
+    same batches without it. Then the Trainer on the same poisoned loader
+    (one skipped step, the engine run's parameters to the bit), and the
+    finite check's device ms a step at the DBN's gradients."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs.clax_baidu import make_model
+    from repro_torch.testing import NonFiniteBatchInjector
+    from repro_torch.train import TrainEngine, Trainer
+    from repro_torch.train.capture import tree_leaves
+    from repro_torch.train.engine import all_finite
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = _train_batches(data, steps, poison=[poisoned])
+
+    def adamw():
+        return optim.adamw(3e-3, weight_decay=1e-4)
+
+    model = make_model("dbn", device="cuda")
+    engine = TrainEngine(model, adamw(), chunk_batches=4,
+                         nonfinite_guard=True)
+    state = engine.init_opt_state()
+    chunks = _stacked_chunks(batches)
+    per_step = {"examination_nll": 1, "adamw": len(engine.params)}
+    outs, counted = measured_run(
+        "guard_dbn", lambda: [engine.step(state, c)[1] for c in chunks],
+        {k: n * steps for k, n in per_step.items()},
+        {k: n * 4 for k, n in per_step.items()})
+    losses = torch.cat([o["loss"] for o in outs])
+    skipped = torch.cat([o["skipped"] for o in outs]).tolist()
+    if skipped != [i == poisoned for i in range(steps)]:
+        raise AssertionError(f"guard_dbn: skipped {skipped}")
+    if not (math.isnan(losses[poisoned].item()) and bool(torch.isfinite(
+            torch.cat([losses[:poisoned], losses[poisoned + 1:]])).all())):
+        raise AssertionError(f"guard_dbn: losses {losses.tolist()}")
+    del chunks
+    clean = make_model("dbn", device="cuda")
+    ref_state, _ = _standalone(clean, adamw(), _stacked_chunks(
+        batches[:poisoned] + batches[poisoned + 1:]))
+    versus_clean = {
+        "params": _gap(list(zip(model.parameters(), clean.parameters()))),
+        "state": _gap(list(zip(tree_leaves(state), tree_leaves(ref_state))))}
+    if any(g["elements_differing"] for g in versus_clean.values()):
+        raise AssertionError(f"guard_dbn: the guarded run differs from the "
+                             f"run without the poisoned batch: {versus_clean}")
+    del clean, ref_state, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(adamw(), epochs=1, chunk_batches=4,
+                      nonfinite_guard=True, device="cuda", log_fn=_quiet)
+    via = make_model("dbn", device="cuda")
+    history = trainer.train(via, NonFiniteBatchInjector(
+        _train_loader(data, steps), at_steps=[poisoned]))
+    if history[0]["skipped_steps"] != 1 or not math.isfinite(
+            history[0]["train_loss"]):
+        raise AssertionError(f"guard_dbn: the Trainer's record {history}")
+    trainer_gap = _gap(list(zip(via.parameters(), model.parameters())))
+    if trainer_gap["elements_differing"]:
+        raise AssertionError(f"guard_dbn: Trainer vs engine {trainer_gap}")
+    del trainer, via
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the finite check alone, at the DBN's gradients (two 214,748,672-row
+    # tables and three small tensors)
+    batch = {k: v[0] for k, v in _stacked_chunks(batches[:1], 1)[0].items()}
+    model.compute_loss(batch).backward()
+    grads = [p.grad for p in model.parameters()]
+    loss = torch.zeros((), device="cuda")
+    finite_ms = graph_ms(lambda: all_finite(loss, grads), calls=5,
+                         replays=4)
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    emit("guard_dbn", card=card, steps=steps, poisoned_step=poisoned,
+         launches=counted["launches"],
+         wrapper_launches=counted["wrapper_launches"],
+         poisoned_loss=str(losses[poisoned].item()), skipped=skipped,
+         versus_run_without_it=versus_clean, bits_equal=True,
+         trainer_skipped_steps=history[0]["skipped_steps"],
+         trainer_train_loss=history[0]["train_loss"],
+         trainer_vs_engine=trainer_gap,
+         finite_check_device_ms_per_step=finite_ms,
+         finite_check_bytes=grad_bytes,
+         finite_check_bound_ms=grad_bytes / PEAK_BYTES_PER_S * 1e3,
+         seconds=time.perf_counter() - t_phase)
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted["launches"]
+
+
+class _TimedCheckpoints:
+    """Times every save and restore of a Trainer's CheckpointManager, with
+    the bytes each save wrote."""
+
+    def __init__(self, manager):
+        self.manager = manager
+        self.saves, self.restores = [], []
+        save, restore = manager.save, manager.restore
+
+        def timed_save(step, tree, aux=None):
+            t0 = time.perf_counter()
+            out = save(step, tree, aux=aux)
+            self.saves.append({
+                "step": step, "seconds": time.perf_counter() - t0,
+                "bytes": sum(os.path.getsize(os.path.join(out, f))
+                             for f in os.listdir(out))})
+            return out
+
+        def timed_restore(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = restore(*args, **kwargs)
+            self.restores.append({"step": out[2],
+                                  "seconds": time.perf_counter() - t0})
+            return out
+
+        manager.save, manager.restore = timed_save, timed_restore
+
+
+def _sigkill_drill():
+    """``python -m repro_torch.launch.train`` at its default size (UBM,
+    200,000 sessions, batch 2,048, 78 steps an epoch), 3 epochs, on the
+    card: with ``--ckpt-dir``, ``--fault-kill-at-step 100`` (SIGKILL in
+    epoch 2, after epoch 1's checkpoint) and ``--max-restarts 1`` it must
+    exit 0 after one relaunch, with the uninterrupted run's epoch records
+    and test metrics."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--epochs",
+            "3"]
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+
+    def records(argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, env=env, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"drill {argv[3:]} exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        epochs = [re.sub(r"'seconds': [^,]*, ", "", line) for line in lines
+                  if line.startswith("[trainer] {")]
+        tests = [line for line in lines if line.startswith("[train] test")]
+        return proc.stdout, epochs, tests, time.perf_counter() - t0
+
+    try:
+        out, epochs, tests, drill_s = records(base + [
+            "--ckpt-dir", ckpt, "--fault-kill-at-step", "100",
+            "--max-restarts", "1"])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    _, want_epochs, want_tests, clean_s = records(base)
+    relaunched = ("relaunching" in out
+                  and "completed after 1 restart" in out
+                  and "resumed at epoch=1" in out)
+    same = epochs[-len(want_epochs) + 1:] == want_epochs[1:] \
+        and tests == want_tests and len(tests) == 1
+    if not (relaunched and same):
+        raise AssertionError(f"drill: relaunched {relaunched}, records "
+                             f"{epochs} / {tests} against {want_epochs} / "
+                             f"{want_tests}")
+    return {"exit": 0, "relaunched": relaunched, "test": tests[0],
+            "equal_to_uninterrupted": same, "drill_seconds": drill_s,
+            "uninterrupted_seconds": clean_s}
+
+
+def phase_resume_dbn(data, card, steps=16):
+    """The paper-width DBN, one epoch of 16 steps, with checkpoints every 8
+    steps (keep 1) in a temporary directory: a SIGTERM KillSwitch at batch
+    9 under handle_preemption ends the run with a checkpoint; a fresh
+    Trainer resumes from it and must end on an uninterrupted run's
+    parameters, moments and history to the bit. Both runs counted, their
+    launches held to the steps each ran. Save and restore seconds and
+    bytes. Then the launcher's SIGKILL drill."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs.clax_baidu import make_model
+    from repro_torch.testing import KillSwitch
+    from repro_torch.train import Trainer
+    from repro_torch.train.capture import tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def trainer(ckpt=None):
+        return Trainer(optim.adamw(3e-3, weight_decay=1e-4), epochs=1,
+                       chunk_batches=4, checkpoint_dir=ckpt,
+                       checkpoint_every_steps=8 if ckpt else None,
+                       keep_checkpoints=1, handle_preemption=True,
+                       device="cuda", log_fn=_quiet)
+
+    def strip(history):
+        return [{k: v for k, v in r.items() if k != "seconds"}
+                for r in history]
+
+    full_model = make_model("dbn", device="cuda")
+    full = trainer()
+    h_full = full.train(full_model, _train_loader(data, steps))
+    n_tensors = len(list(full_model.parameters()))
+
+    def launches(n_steps):
+        return {"examination_nll": n_steps, "adamw": n_tensors * n_steps}
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free_gb = shutil.disk_usage(ckpt).free / 1e9
+    try:
+        killed = trainer(ckpt)
+        timed_k = _TimedCheckpoints(killed.ckpt)
+        loader = KillSwitch(_train_loader(data, steps), after_batches=9,
+                            sig=signal.SIGTERM)
+        before = signal.getsignal(signal.SIGTERM)
+        h_killed, killed_counts = measured_run(
+            "resume_dbn_preempted",
+            lambda: killed.train(make_model("dbn", device="cuda"), loader),
+            lambda _: launches(killed._final_state.global_step),
+            lambda _: launches(4))
+        stopped_at = killed._final_state.global_step
+        if not (loader.fired and h_killed == [] and 0 < stopped_at < steps
+                and signal.getsignal(signal.SIGTERM) is before):
+            raise AssertionError(f"resume_dbn: the preemption did not stop "
+                                 f"the run mid-epoch (step {stopped_at})")
+        del killed
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed = trainer(ckpt)
+        timed_r = _TimedCheckpoints(resumed.ckpt)
+        model = make_model("dbn", device="cuda")
+        h_resumed, resumed_counts = measured_run(
+            "resume_dbn_resumed",
+            lambda: resumed.train(model, _train_loader(data, steps),
+                                  resume=True),
+            launches(steps - stopped_at), launches(min(4, steps - stopped_at)))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    versus = {
+        "params": _gap(list(zip(model.parameters(),
+                                full_model.parameters()))),
+        "state": _gap(list(zip(tree_leaves(resumed._final_state.opt_state),
+                               tree_leaves(full._final_state.opt_state))))}
+    history_equal = strip(h_resumed) == strip(h_full)
+    if not history_equal or any(g["elements_differing"]
+                                for g in versus.values()):
+        raise AssertionError(f"resume_dbn: the resumed run differs from "
+                             f"the uninterrupted one: {versus}, history "
+                             f"{h_resumed} against {h_full}")
+    del resumed, full, model, full_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    drill = _sigkill_drill()
+    saves = timed_k.saves + timed_r.saves
+    emit("resume_dbn", card=card, steps=steps, preempted_at_step=stopped_at,
+         launches={"preempted": killed_counts["launches"],
+                   "resumed": resumed_counts["launches"]},
+         wrapper_launches={"preempted": killed_counts["wrapper_launches"],
+                           "resumed": resumed_counts["wrapper_launches"]},
+         versus_uninterrupted=versus, history_equal=history_equal,
+         bits_equal=True, saves=saves,
+         restores=timed_k.restores + timed_r.restores,
+         save_gb=[x["bytes"] / 1e9 for x in saves],
+         save_gb_per_s=[x["bytes"] / 1e9 / x["seconds"] for x in saves],
+         disk_free_gb=free_gb, history=strip(h_full), sigkill_drill=drill,
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_em(data, card, steps=16, grad_epochs=4):
+    """Figure 1 on the card over the smoke's DBN log: GCTR, RCTR, DCTR
+    (Beta prior at the GCTR rate, weight 1) and SDBN by MLE counting, PBM
+    and UBM by 30 EM iterations from 1/9, on the 16 training batches
+    (1,048,576 sessions), each timed on the card with nothing else
+    running, then held against the CPU port's fit of the same log, taken
+    on threads afterwards (MLE at 1e-6, EM at 1e-3: index_add_ sums in
+    another order on the card), with the card's spread between two runs of
+    each fit;
+    each fit injected into its model and evaluated on the
+    held-out batch (perplexity, conditional perplexity) on the card and,
+    from the CPU's fit, on the CPU (the two equal, NaN where the reference
+    gives NaN: a fitted probability of 1 has an infinite logit), beside a
+    PBM and a UBM of the same width trained by gradient (Figure 1's
+    AdamW(0.05), batch 4,096, 4 epochs: adamw only, each run a
+    :func:`measured_run`)."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs.clax_baidu import TRAIN_BATCH
+    from repro_torch.convert import load_jax_params
+    from repro_torch.core import MODEL_REGISTRY
+    from repro_torch.core import em
+    from repro_torch.data import ClickLogLoader, SyntheticConfig
+    from repro_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    n = len(data["clicks"])
+    n_docs = SyntheticConfig(n_sessions=n, n_queries=max(n // 100, 1),
+                             docs_per_query=20, positions=K_MAIN,
+                             behavior="dbn", seed=0).n_query_doc_pairs
+    train = {k: v[:steps * TRAIN_BATCH] for k, v in data.items()}
+    held = ClickLogLoader({k: v[steps * TRAIN_BATCH:]
+                           for k, v in data.items()},
+                          batch_size=TRAIN_BATCH, shuffle=False,
+                          drop_last=False)
+    card_batch = {k: torch.from_numpy(v).cuda() for k, v in train.items()}
+    fits = {
+        "gctr": lambda b: (em.fit_gctr(b),),
+        "rctr": lambda b: (em.fit_rctr(b, K_MAIN),),
+        "dctr": lambda b: (em.fit_dctr(b, n_docs,
+                                       prior=float(em.fit_gctr(b)),
+                                       prior_weight=1.0),),
+        "sdbn": lambda b: em.fit_sdbn_mle(b, n_docs),
+        "pbm": lambda b: em.fit_pbm_em(b, K_MAIN, n_docs, n_iters=30,
+                                       init=1 / 9),
+        "ubm": lambda b: em.fit_ubm_em(b, K_MAIN, n_docs, n_iters=30,
+                                       init=1 / 9)}
+    inject = {"gctr": em.gctr_params_from_mle,
+              "rctr": em.rctr_params_from_mle,
+              "dctr": em.dctr_params_from_mle,
+              "sdbn": em.sdbn_params_from_mle,
+              "pbm": em.pbm_params_from_em, "ubm": em.ubm_params_from_em}
+    # The MLE fits sum 0/1 values below 2^24: exact in any order. EM sums
+    # float32 posteriors, up to 1,048,576 a position, in another order on
+    # the card (atomics, another order each run) than on the CPU (in
+    # order): the first four chip runs of this phase measured up to 1.1e-4
+    # between the two, and up to 1.1e-4 between two runs on the card.
+    tolerance = {"gctr": 1e-6, "rctr": 1e-6, "dctr": 1e-6, "sdbn": 1e-6,
+                 "pbm": 1e-3, "ubm": 1e-3}
+    evaluators = {device: Trainer(optim.adamw(0.05), chunk_batches=1,
+                                  device=device, log_fn=_quiet)
+                  for device in ("cuda", "cpu")}
+    evaluator = evaluators["cuda"]
+    rows = {}
+
+    def timed_cpu_fit(fit):
+        t0 = time.perf_counter()
+        return fit(train), time.perf_counter() - t0
+
+    card_fits = {}
+    reset_counts()
+    for kind, fit in fits.items():
+        first = fit(card_batch)  # warm: the first call pays the set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fit(card_batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # the card's own spread between two runs (atomics' order)
+        spread = max(float((a - b).abs().max()) for a, b in zip(first, got))
+        card_fits[kind] = got, seconds, spread
+        del first
+    check_counts("em_fits", {})
+    del card_batch
+    # the CPU port's fits, on threads of their own once the card's are
+    # timed (torch's CPU ops release the interpreter lock)
+    with ThreadPoolExecutor(max_workers=len(fits)) as cpu_pool:
+        cpu_fits = {kind: cpu_pool.submit(timed_cpu_fit, fit)
+                    for kind, fit in fits.items()}
+    for kind in fits:
+        got, seconds, spread = card_fits.pop(kind)
+        want, cpu_seconds = cpu_fits[kind].result()
+        gap = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        if not gap <= tolerance[kind]:
+            raise AssertionError(f"em: {kind} on the card is {gap} from the "
+                                 f"CPU port's fit (tolerance "
+                                 f"{tolerance[kind]})")
+        metrics = {}
+        for device, fitted in (("cuda", got), ("cpu", want)):
+            model = MODEL_REGISTRY[kind](query_doc_pairs=n_docs,
+                                         positions=K_MAIN, device=device)
+            load_jax_params(model, inject[kind](*fitted))
+            metrics[device] = evaluators[device].evaluate(model, held)
+        # the card's evaluation of its fit against the CPU port's of its
+        # own: equal NaN-ness (an SDBN fit with a probability of 1 has an
+        # infinite logit in JAX too), finite values within 1e-4
+        for k, v in metrics["cuda"].items():
+            w = metrics["cpu"][k]
+            if math.isnan(v) != math.isnan(w) or (
+                    math.isfinite(w) and not abs(v - w) <= 1e-4 * abs(w)):
+                raise AssertionError(f"em: {kind}'s {k} {v} on the card, "
+                                     f"{w} on the CPU")
+        rows[kind] = {"method": "mle" if tolerance[kind] < 1e-5 else "em",
+                      "seconds": seconds, "cpu_seconds": cpu_seconds,
+                      "vs_cpu_max_abs": gap, "card_spread": spread,
+                      "tolerance": tolerance[kind],
+                      "test_ppl": metrics["cuda"]["ppl"],
+                      "test_cond_ppl": metrics["cuda"]["cond_ppl"],
+                      "cpu_test_ppl": metrics["cpu"]["ppl"]}
+        # JSON has no NaN: a non-finite metric is printed as its name
+        rows[kind].update({k: v if math.isfinite(v) else str(v)
+                           for k, v in rows[kind].items()
+                           if isinstance(v, float)})
+    for kind in ("pbm", "ubm"):
+        model = MODEL_REGISTRY[kind](query_doc_pairs=n_docs,
+                                     positions=K_MAIN, init_prob=1 / 9,
+                                     device="cuda")
+        trainer = Trainer(optim.adamw(0.05, weight_decay=0.0),
+                          epochs=grad_epochs, patience=grad_epochs,
+                          chunk_batches=8, device="cuda", log_fn=_quiet)
+        loader = ClickLogLoader(train, batch_size=4096, seed=0)
+        n_steps = grad_epochs * loader.batches_per_epoch
+        n_tensors = len(list(model.parameters()))
+        history, counted = measured_run(
+            f"em_grad_{kind}", lambda: trainer.train(model, loader),
+            {"adamw": n_tensors * n_steps}, {"adamw": n_tensors * 8})
+        metrics = evaluator.evaluate(model, held)
+        rows[f"{kind}_grad"] = {
+            "method": "grad", "epochs": grad_epochs, "steps": n_steps,
+            "seconds": sum(r["seconds"] for r in history),
+            "launches": counted["launches"],
+            "wrapper_launches": counted["wrapper_launches"],
+            "test_ppl": metrics["ppl"], "test_cond_ppl": metrics["cond_ppl"]}
+        del model, trainer
+    # every fit the CPU port evaluates finite, and every gradient run,
+    # has a finite perplexity above 1
+    if not all(isinstance(r["test_ppl"], float) and r["test_ppl"] > 1.0
+               for r in rows.values()
+               if not isinstance(r.get("cpu_test_ppl", 0.0), str)):
+        raise AssertionError(f"em: {rows}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("em", card=card, sessions=steps * TRAIN_BATCH,
+         held_out_sessions=n - steps * TRAIN_BATCH, n_docs=n_docs,
+         fits=rows, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -2872,14 +3757,20 @@ def main() -> int:
     dctr = phase_train("dctr", data, 8, smi)
     phase_train("ubm", data, 8, smi, extra=ubm_marginal_check)
     phase_cpu_vs_gpu(data)
-    del data
     tower_data, truth = _two_tower_log(9 * B_MAIN)  # 8 batches + 1 held out
     two_tower = phase_train_two_tower("pbm", tower_data, truth, 8, smi)
     phase_train_two_tower("dctr", tower_data, truth, 8, smi)
-    del tower_data
     deepfm = phase_recsys("deepfm", smi)
     autoint = phase_recsys("autoint", smi)
     phase_recsys_cpu_vs_gpu()
+    # The Trainer's run contract, after the paths of earlier slices.
+    phase_train_sweep_two_tower(tower_data, smi)
+    del tower_data
+    phase_train_sweep_dbn(data, smi)
+    phase_guard_dbn(data, smi)
+    phase_resume_dbn(data, smi)
+    phase_em(data, smi)
+    del data
     # Each kernel's launches in the training run of its path.
     for name, counts in (("examination_nll", dbn), ("session_nll", dctr),
                          ("embedding_bag", deepfm),

@@ -41,17 +41,17 @@ def make_model(kind: str = "ubm", device="cuda"):
 
 
 def make_two_tower(kind: str = "pbm", features: int = TOWER_FEATURES,
-                   device="cuda"):
+                   device="cuda", seed: int = 0):
     """Listing 4: the two-tower PBM (``kind="pbm"``: a rank table for
     examination, DeepCrossV2 with 2 cross and 2 deep layers, stacked, over
     ``features`` query-document features for attraction) or the naive DCTR
-    with the same tower (``kind="dctr"``)."""
+    with the same tower (``kind="dctr"``); ``seed`` seeds the tower."""
     tower = DeepCrossParameterConfig(features=features, cross_layers=2,
                                      deep_layers=2)
     if kind == "pbm":
         return PositionBasedModel(positions=POSITIONS, attraction=tower,
-                                  device=device)
+                                  device=device, seed=seed)
     if kind == "dctr":
         return DocumentCTR(positions=POSITIONS, attraction=tower,
-                           device=device)
+                           device=device, seed=seed)
     raise ValueError(f"no two-tower {kind!r} in the port (pbm, dctr)")

@@ -11,11 +11,12 @@ recsys model's (``("embedding", "table")``, ``("mlp", "layer_0",
 "kernel")``, ``("attn_0", "wq")``, a 0-d ``("bias",)``) map with no
 prefix.
 The tree arrives as nested dicts of numpy arrays
-(``jax.device_get(params)``), so this module needs no JAX.
+(``jax.device_get(params)``), so this module needs no JAX, or of tensors
+(the EM fits of ``repro_torch.core.em``, on any device).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -32,13 +33,16 @@ def _flatten(tree, prefix=()) -> Dict[tuple, Any]:
     return {prefix: tree}
 
 
+def param_path(name: str) -> Tuple[str, ...]:
+    """A ``named_parameters()`` name as its path in the JAX ``init`` tree
+    (``parts.attraction.table`` -> ``("attraction", "table")``)."""
+    if name.startswith(_PREFIX):
+        name = name[len(_PREFIX):]
+    return tuple(name.split("."))
+
+
 def _named(model) -> Dict[tuple, torch.nn.Parameter]:
-    out = {}
-    for name, p in model.named_parameters():
-        if name.startswith(_PREFIX):
-            name = name[len(_PREFIX):]
-        out[tuple(name.split("."))] = p
-    return out
+    return {param_path(name): p for name, p in model.named_parameters()}
 
 
 @torch.no_grad()
@@ -53,11 +57,14 @@ def load_jax_params(model, tree) -> None:
         raise KeyError(f"parameter paths differ: missing from the tree "
                        f"{missing}, not in the model {extra}")
     for path, p in params.items():
-        value = np.asarray(leaves[path])
+        value = leaves[path]
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.array(value, dtype=np.float32))
         if tuple(value.shape) != tuple(p.shape):
-            raise ValueError(f"{'/'.join(path)}: tree shape {value.shape} != "
-                             f"model shape {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+            raise ValueError(f"{'/'.join(path)}: tree shape "
+                             f"{tuple(value.shape)} != model shape "
+                             f"{tuple(p.shape)}")
+        p.copy_(value.float())
 
 
 def export_params(model) -> Dict[str, Any]:

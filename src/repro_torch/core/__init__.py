@@ -4,7 +4,8 @@ from repro_torch.core.base import (ClickModel, clicks_before,
                                    last_click_positions, masked_mean,
                                    validate_batch)
 from repro_torch.core.metrics import (ConditionalPerplexity, LogLikelihood,
-                                      MultiMetric, Perplexity, dcg_metric,
+                                      MultiMetric, Perplexity, RaxMetric,
+                                      average_precision_metric, dcg_metric,
                                       mrr_metric, ndcg_metric)
 from repro_torch.core.models import (MODEL_REGISTRY, CascadeModel,
                                      ClickChainModel, DependentClickModel,
@@ -28,7 +29,8 @@ from repro_torch.core.parameterization import (Combination, Compression,
 __all__ = [
     "ClickModel", "clicks_before", "last_click_positions", "masked_mean",
     "validate_batch", "ConditionalPerplexity", "LogLikelihood",
-    "MultiMetric", "Perplexity", "dcg_metric", "mrr_metric", "ndcg_metric",
+    "MultiMetric", "Perplexity", "RaxMetric", "average_precision_metric",
+    "dcg_metric", "mrr_metric", "ndcg_metric",
     "MODEL_REGISTRY", "CascadeModel", "ClickChainModel",
     "DependentClickModel", "DocumentCTR", "DynamicBayesianNetwork",
     "GlobalCTR", "MixtureModel", "PositionBasedModel", "RankCTR",

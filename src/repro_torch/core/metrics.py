@@ -1,6 +1,6 @@
-"""Click-prediction and ranking metrics (paper §4.4), port of the streaming
-click metrics and the ranking functions (DCG, nDCG, MRR) of
-``repro.core.metrics``.
+"""Click-prediction and ranking metrics (paper §4.4), port of
+``repro.core.metrics``: the streaming click metrics, the ranking functions
+(DCG, nDCG, MRR, AP) and the Listing-7 ``RaxMetric`` adapter.
 
 Streaming accumulators: ``state = metric.init_state(K, device)``,
 ``state = metric.update(state, **outputs)``, ``metric.compute(state)``.
@@ -174,3 +174,47 @@ def mrr_metric(scores, labels, where=None, top_n=None):
     if top_n is not None:
         rr = torch.where(ranks <= top_n, rr, 0.0)
     return torch.mean(torch.amax(rr, dim=-1))
+
+
+def average_precision_metric(scores, labels, where=None, top_n=None):
+    """AP = mean over relevant items of precision@rank. Ties keep item
+    order, as ``jnp.argsort`` (stable) does."""
+    if where is None:
+        where = torch.ones_like(scores, dtype=torch.bool)
+    relevant = ((labels > 0) & where).float()
+    K = scores.shape[-1]
+    # rel_sorted[b, r] = is the item ranked (r+1) relevant?
+    order = torch.argsort(torch.where(where, -scores, math.inf), dim=-1,
+                          stable=True)
+    rel_sorted = torch.gather(relevant, -1, order)
+    ranks = torch.arange(1, K + 1, dtype=torch.float32, device=scores.device)
+    contrib = torch.cumsum(rel_sorted, dim=-1) / ranks * rel_sorted
+    if top_n is not None:
+        contrib = torch.where(ranks <= top_n, contrib, 0.0)
+    n_rel = torch.clamp_min(torch.sum(relevant, dim=-1), 1.0)
+    return torch.mean(torch.sum(contrib, dim=-1) / n_rel)
+
+
+class RaxMetric:
+    """Adapter matching the paper's Listing 7 RaxMetric(fn, top_n=...)."""
+
+    requires = ("scores", "labels", "where")
+
+    def __init__(self, fn, top_n=None):
+        self.fn = fn
+        self.top_n = top_n
+
+    def init_state(self, positions: int, device=None):
+        del positions
+        return {"sum": torch.zeros((), device=device),
+                "count": torch.zeros((), device=device)}
+
+    def update(self, state, scores=None, labels=None, where=None, **_):
+        value = self.fn(scores, labels, where=where, top_n=self.top_n)
+        return {"sum": state["sum"] + value, "count": state["count"] + 1.0}
+
+    def compute(self, state):
+        return state["sum"] / torch.clamp_min(state["count"], 1.0)
+
+    def compute_per_rank(self, state):
+        return self.compute(state)

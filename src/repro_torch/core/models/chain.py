@@ -98,7 +98,7 @@ class DependentClickModel(_ChainModel):
 
     def __init__(self, query_doc_pairs: int = None, positions: int = 10,
                  attraction=None, continuation=None, init_prob: float = 0.5,
-                 device="cuda", **_):
+                 device="cuda", seed: int = 0, **_):
         super().__init__()
         self.positions = positions
         if attraction is None:
@@ -108,8 +108,8 @@ class DependentClickModel(_ChainModel):
             continuation = PositionParameter(positions, init_logit=0.0,
                                              device=device)
         self.parts = torch.nn.ModuleDict({
-            "attraction": build_parameter(attraction, device),
-            "continuation": build_parameter(continuation, device),
+            "attraction": build_parameter(attraction, device, seed),
+            "continuation": build_parameter(continuation, device, seed),
         })
 
     def _continuation_parts(self, batch):
@@ -180,13 +180,14 @@ class ClickChainModel(_ChainModel):
 
     def __init__(self, query_doc_pairs: int = None, positions: int = 10,
                  attraction=None, init_prob: float = 0.5,
-                 tau_init=(0.7, 0.4, 0.2), device="cuda", **_):
+                 tau_init=(0.7, 0.4, 0.2), device="cuda", seed: int = 0,
+                 **_):
         super().__init__()
         self.positions = positions
         if attraction is None:
             attraction = EmbeddingParameterConfig(parameters=query_doc_pairs,
                                                   init_logit=_logit(init_prob))
-        parts = {"attraction": build_parameter(attraction, device)}
+        parts = {"attraction": build_parameter(attraction, device, seed)}
         for i, p in enumerate(tau_init, start=1):
             parts[f"tau_{i}"] = ScalarParameter(
                 ScalarParameterConfig(init_prob=p), device)
@@ -272,7 +273,8 @@ class DynamicBayesianNetwork(_ChainModel):
 
     def __init__(self, query_doc_pairs: int = None, positions: int = 10,
                  attraction=None, satisfaction=None, init_prob: float = 0.5,
-                 lambda_init: float = 0.9, device="cuda", **_):
+                 lambda_init: float = 0.9, device="cuda", seed: int = 0,
+                 **_):
         super().__init__()
         self.positions = positions
         logit = _logit(init_prob)
@@ -282,8 +284,9 @@ class DynamicBayesianNetwork(_ChainModel):
         if satisfaction is None:
             satisfaction = EmbeddingParameterConfig(parameters=query_doc_pairs,
                                                     init_logit=logit)
-        parts = {"attraction": build_parameter(attraction, device),
-                 "satisfaction": build_parameter(satisfaction, device)}
+        parts = {"attraction": build_parameter(attraction, device, seed),
+                 "satisfaction": build_parameter(satisfaction, device,
+                                                 seed)}
         if not self.fixed_continuation:
             parts["continuation"] = ScalarParameter(
                 ScalarParameterConfig(init_prob=lambda_init), device)

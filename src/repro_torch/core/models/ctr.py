@@ -83,14 +83,15 @@ class DocumentCTR(_PartsModel):
     """log P(C=1|d,k) = log gamma_d (paper Eq. 21)."""
 
     def __init__(self, query_doc_pairs: int = None, positions: int = 10,
-                 attraction=None, init_prob: float = 0.5, device="cuda", **_):
+                 attraction=None, init_prob: float = 0.5,
+                 device="cuda", seed: int = 0, **_):
         super().__init__()
         self.positions = positions
         if attraction is None:
             attraction = EmbeddingParameterConfig(parameters=query_doc_pairs,
                                                   init_logit=_logit(init_prob))
         self.parts = torch.nn.ModuleDict(
-            {"attraction": build_parameter(attraction, device)})
+            {"attraction": build_parameter(attraction, device, seed)})
 
     def predict_clicks(self, batch):
         return log_sigmoid(self.parts["attraction"](batch))

@@ -20,7 +20,7 @@ class PositionBasedModel(_PartsModel):
 
     def __init__(self, query_doc_pairs: int = None, positions: int = 10,
                  attraction=None, examination=None, init_prob: float = 0.5,
-                 device="cuda", **_):
+                 device="cuda", seed: int = 0, **_):
         super().__init__()
         self.positions = positions
         if attraction is None:
@@ -30,8 +30,8 @@ class PositionBasedModel(_PartsModel):
             examination = PositionParameter(positions, init_logit=2.0,
                                             device=device)
         self.parts = torch.nn.ModuleDict({
-            "attraction": build_parameter(attraction, device),
-            "examination": build_parameter(examination, device),
+            "attraction": build_parameter(attraction, device, seed),
+            "examination": build_parameter(examination, device, seed),
         })
 
     def _log_probs(self, batch):

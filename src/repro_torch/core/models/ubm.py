@@ -23,7 +23,7 @@ from repro_torch.stable import log1mexp, log_sigmoid, logsumexp
 class UserBrowsingModel(_PartsModel):
     def __init__(self, query_doc_pairs: int = None, positions: int = 10,
                  attraction=None, examination=None, init_prob: float = 0.5,
-                 device="cuda", **_):
+                 device="cuda", seed: int = 0, **_):
         super().__init__()
         self.positions = positions
         if attraction is None:
@@ -33,7 +33,7 @@ class UserBrowsingModel(_PartsModel):
             examination = UBMExaminationParameter(positions, init_logit=2.0,
                                                   device=device)
         self.parts = torch.nn.ModuleDict({
-            "attraction": build_parameter(attraction, device),
+            "attraction": build_parameter(attraction, device, seed),
             "examination": examination,
         })
 

@@ -7,9 +7,10 @@ baseline correction), ``PositionParameter``, ``UBMExaminationParameter``,
 towers over feature vectors: the paper's two-tower form). Each is a module
 that maps a batch to per-item logits; parameter names and shapes are those
 of the JAX ``init`` tree. The tables start at the same constants; the
-towers draw their random weights from a ``torch.Generator`` seeded with 0,
-which gives other numbers than ``jax.random`` (parity tests carry JAX's
-weights over with ``repro_torch.convert``).
+towers draw their random weights from a ``torch.Generator`` seeded with
+the model's ``seed`` (0 by default), which gives other numbers than
+``jax.random`` (parity tests carry JAX's weights over with
+``repro_torch.convert``).
 """
 from __future__ import annotations
 
@@ -246,10 +247,10 @@ class FeatureParameter(Module):
     the tower's tree with no level for the tower, and the names read
     ``attraction/cross_0/kernel``, ``attraction/deep/layer_0/kernel`` and
     ``attraction/head/bias`` as there. The weights come from a generator
-    seeded with 0.
+    seeded with ``seed``.
     """
 
-    def __new__(cls, config=None, device=None):
+    def __new__(cls, config=None, device=None, seed: int = 0):
         if cls is FeatureParameter:
             towers = {LinearParameterConfig: _LinearTower,
                       MLPParameterConfig: _MLPTower,
@@ -266,28 +267,30 @@ class FeatureParameter(Module):
         return logits
 
 
-def _generator(device) -> torch.Generator:
-    return torch.Generator(device=torch.device(device or "cpu")).manual_seed(0)
+def _generator(device, seed: int = 0) -> torch.Generator:
+    return torch.Generator(device=torch.device(device or "cpu")).manual_seed(
+        seed)
 
 
 class _LinearTower(FeatureParameter, Dense):
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, seed: int = 0):
         Dense.__init__(self, config.features, config.out_features,
-                       _generator(device), device=device)
+                       _generator(device, seed), device=device)
         self.config = config
 
 
 class _MLPTower(FeatureParameter, MLP):
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, seed: int = 0):
         MLP.__init__(self, config.features, list(config.hidden),
-                     config.out_features, _generator(device), device=device)
+                     config.out_features, _generator(device, seed),
+                     device=device)
         self.config = config
 
 
 class _DeepCrossTower(FeatureParameter, DeepCrossV2):
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, seed: int = 0):
         DeepCrossV2.__init__(
-            self, config.features, _generator(device),
+            self, config.features, _generator(device, seed),
             cross_layers=config.cross_layers, deep_layers=config.deep_layers,
             out_features=config.out_features,
             combination=Combination(config.combination).value, device=device)
@@ -297,15 +300,21 @@ class _DeepCrossTower(FeatureParameter, DeepCrossV2):
 FEATURE_CONFIGS = (LinearParameterConfig, MLPParameterConfig,
                    DeepCrossParameterConfig)
 
+#: The parameterizations whose weights start at constants, whatever the seed.
+CONSTANT_START = (EmbeddingParameter, PositionParameter,
+                  UBMExaminationParameter, ScalarParameter)
 
-def build_parameter(config, device=None):
-    """Factory: config dataclass (or a ready module) -> parameter module."""
+
+def build_parameter(config, device=None, seed: int = 0):
+    """Factory: config dataclass (or a ready module) -> parameter module.
+    ``seed`` seeds a feature tower's weights (the tables and scalars start
+    at constants, as in JAX)."""
     if isinstance(config, EmbeddingParameterConfig):
         return EmbeddingParameter(config, device)
     if isinstance(config, ScalarParameterConfig):
         return ScalarParameter(config, device)
     if isinstance(config, FEATURE_CONFIGS):
-        return FeatureParameter(config, device)
+        return FeatureParameter(config, device, seed)
     if isinstance(config, torch.nn.Module):
         return config
     raise ValueError(f"cannot build parameter from {config!r}")

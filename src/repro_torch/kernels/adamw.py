@@ -53,7 +53,7 @@ def _library() -> ctypes.CDLL:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.adamw_step.argtypes = ([ptr] * 4 + [i64, i32, i32] + [f32] * 7
-                               + [ptr, ptr, i32, i32, ptr])
+                               + [ptr, ptr, ptr, i32, i32, ptr])
     lib.adamw_step.restype = i32
     lib.adamw_error_string.argtypes = [i32]
     lib.adamw_error_string.restype = ctypes.c_char_p
@@ -72,20 +72,25 @@ def _aligned(t: torch.Tensor, nbytes: int) -> bool:
 def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                v: torch.Tensor, count: torch.Tensor, *, b1: float, b2: float,
                eps: float, weight_decay: float, lr: float,
-               lr_tensor: Optional[torch.Tensor] = None) -> None:
+               lr_tensor: Optional[torch.Tensor] = None,
+               pred: Optional[torch.Tensor] = None) -> None:
     """One AdamW step of ``p`` in place, with its moments ``m`` and ``v``.
 
     ``p`` and ``g`` are float32, ``m`` and ``v`` float32 or bfloat16, all of
     one shape, contiguous and on one CUDA device. ``count`` is the int32 0-d
     step count on that device, already advanced for this step; the kernel
     reads it there, and reads the learning rate from ``lr_tensor`` (a
-    float32 0-d tensor) when one is given, else takes ``lr``. Raises on
-    anything else, and if the launch is refused."""
+    float32 0-d tensor) when one is given, else takes ``lr``. ``pred``, a
+    bool 0-d tensor on that device, is the step's predicate (the
+    non-finite guard's, a sweep's active replica): where it is False the
+    launch writes nothing, and the caller advances ``count`` by it. Raises
+    on anything else, and if the launch is refused."""
     device = p.device
     if device.type != "cuda":
         raise ValueError(f"adamw_cuda needs CUDA tensors, got {device}")
     for name, t in (("g", g), ("m", m), ("v", v), ("count", count)) + (
-            (("lr", lr_tensor),) if lr_tensor is not None else ()):
+            (("lr", lr_tensor),) if lr_tensor is not None else ()) + (
+            (("pred", pred),) if pred is not None else ()):
         if t.device != device:
             raise ValueError(f"adamw_cuda: {name} on {t.device}, p on "
                              f"{device}")
@@ -104,6 +109,8 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if lr_tensor is not None and (lr_tensor.dtype != torch.float32
                                   or lr_tensor.dim() != 0):
         raise TypeError("adamw_cuda takes a float32 0-d injected lr")
+    if pred is not None and (pred.dtype != torch.bool or pred.dim() != 0):
+        raise TypeError("adamw_cuda takes a bool 0-d predicate")
     if not all(t.is_contiguous() for t in (p, g, m, v)):
         raise ValueError("adamw_cuda takes contiguous tensors")
     n = p.numel()
@@ -123,6 +130,7 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
             _MOMENT_DTYPES[m.dtype], int(plan.vector), b1, b2, 1.0 - b1,
             1.0 - b2, eps, weight_decay, lr, count.data_ptr(),
             None if lr_tensor is None else lr_tensor.data_ptr(),
+            None if pred is None else pred.data_ptr(),
             plan.blocks, plan.threads, stream)
     if err != 0:
         raise RuntimeError("adamw kernel launch failed: "

@@ -17,7 +17,12 @@
 // this form's own. The step count, already advanced for this step, is read
 // from device memory, and so is the learning rate when it is injected
 // (lr_ptr != null); nothing of the step lives on the host, so a captured
-// step replays correctly.
+// step replays correctly. So is the step's predicate, when there is one
+// (pred != null): the non-finite guard's "this step is finite" and a
+// replica sweep's "this replica still trains", one byte on the device. A
+// predicate of 0 makes the launch write nothing, as JAX's
+// where(ok, new, old) keeps p, m and v; the caller advances the count by
+// the predicate.
 //
 // What bounds it: bytes. Per element it reads p, g, m and v and writes p, m
 // and v, 28 bytes with float32 moments (20 with bfloat16), for about 15
@@ -130,7 +135,9 @@ __global__ void __launch_bounds__(256)
 adamw_kernel(float* __restrict__ p, const float* __restrict__ g,
              M* __restrict__ m, M* __restrict__ v, long long n, int vector,
              Hyper h, const int* __restrict__ count,
-             const float* __restrict__ lr_ptr) {
+             const float* __restrict__ lr_ptr,
+             const unsigned char* __restrict__ pred) {
+  if (pred != nullptr && *pred == 0) return;  // a skipped or frozen step
   const Step s = adam::step_constants(h, count);
   const float neg_lr = -(lr_ptr != nullptr ? *lr_ptr : h.lr);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -173,16 +180,18 @@ extern "C" {
 // returns cudaGetLastError() (0 on success). p and g are float32; m and v
 // are float32 (moment_dtype 0) or bfloat16 (1). count points to the int32
 // step count, already advanced for this step; lr_ptr to a float32 learning
-// rate, or is null to use lr. one_minus_b1 and one_minus_b2 are 1 - b
-// taken in double and rounded once, as the plain chain's scalars are (not
-// 1.f - b1, which differs in the last bit). vector != 0 promises 16-byte aligned p and g
-// and 16-byte (float32) or 8-byte (bfloat16) aligned m and v. Does not
-// synchronise.
+// rate, or is null to use lr; pred to the step's one-byte predicate (a
+// bool), or is null: when it holds 0 nothing is written. one_minus_b1 and
+// one_minus_b2 are 1 - b taken in double and rounded once, as the plain
+// chain's scalars are (not 1.f - b1, which differs in the last bit).
+// vector != 0 promises 16-byte aligned p and g and 16-byte (float32) or
+// 8-byte (bfloat16) aligned m and v. Does not synchronise.
 int adamw_step(void* p, const void* g, void* m, void* v, long long n,
                int moment_dtype, int vector, float b1, float b2,
                float one_minus_b1, float one_minus_b2, float eps,
                float weight_decay, float lr, const void* count,
-               const void* lr_ptr, int blocks, int threads, void* stream) {
+               const void* lr_ptr, const void* pred, int blocks, int threads,
+               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   Hyper h;
   h.b1 = b1;
@@ -194,15 +203,16 @@ int adamw_step(void* p, const void* g, void* m, void* v, long long n,
   h.one_minus_b2 = one_minus_b2;
   const int* c = static_cast<const int*>(count);
   const float* l = static_cast<const float*>(lr_ptr);
+  const unsigned char* k = static_cast<const unsigned char*>(pred);
   if (moment_dtype == 0)
     adamw_kernel<float><<<blocks, threads, 0, s>>>(
         static_cast<float*>(p), static_cast<const float*>(g),
-        static_cast<float*>(m), static_cast<float*>(v), n, vector, h, c, l);
+        static_cast<float*>(m), static_cast<float*>(v), n, vector, h, c, l, k);
   else if (moment_dtype == 1)
     adamw_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
         static_cast<float*>(p), static_cast<const float*>(g),
         static_cast<__nv_bfloat16*>(m), static_cast<__nv_bfloat16*>(v), n,
-        vector, h, c, l);
+        vector, h, c, l, k);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

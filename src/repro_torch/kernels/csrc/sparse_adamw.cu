@@ -16,6 +16,10 @@
 // in the sparse form's own order (repro/optim/sparse.py:117-130), with the
 // arithmetic of adam_math.cuh (shared with adamw.cu) and c1 = 1 - b1^count,
 // c2 = 1 - b2^count from the device-resident step count, already advanced.
+// With a predicate (pred != null: the non-finite guard's "this step is
+// finite" and a sweep's "this replica still trains", one byte on the
+// device) that holds 0, the launch writes nothing; the caller advances
+// the count by the predicate.
 // A slot whose id is the sentinel (or any id outside [0, n_rows)) is
 // skipped: it reads and writes nothing past its id, so padding can never
 // alias a real row. The ids are distinct, so no two threads write one row
@@ -67,7 +71,9 @@ sparse_adamw_kernel(float* __restrict__ p, M* __restrict__ m,
                     M* __restrict__ v, const long long* __restrict__ ids,
                     const float* __restrict__ grads, long long slots, int d,
                     long long n_rows, Hyper h,
-                    const int* __restrict__ count) {
+                    const int* __restrict__ count,
+                    const unsigned char* __restrict__ pred) {
+  if (pred != nullptr && *pred == 0) return;  // a skipped or frozen step
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= slots * d) return;
@@ -97,15 +103,16 @@ extern "C" {
 // on `stream` and returns cudaGetLastError() (0 on success). ids are slots
 // int64 row ids, distinct apart from the sentinel; grads (slots, d) float32;
 // m and v float32 (moment_dtype 0) or bfloat16 (1); count points to the
-// int32 step count, already advanced. one_minus_b1 and one_minus_b2 are
-// 1 - b rounded once from double, as the plain version's scalars. Does not
-// synchronise.
+// int32 step count, already advanced; pred to the step's one-byte
+// predicate, or null: when it holds 0 nothing is written. one_minus_b1 and
+// one_minus_b2 are 1 - b rounded once from double, as the plain version's
+// scalars. Does not synchronise.
 int sparse_adamw_step(void* p, void* m, void* v, const void* ids,
                       const void* grads, long long slots, int d,
                       long long n_rows, int moment_dtype, float b1, float b2,
                       float one_minus_b1, float one_minus_b2, float eps,
                       float weight_decay, float lr, const void* count,
-                      void* stream) {
+                      const void* pred, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   Hyper h;
   h.b1 = b1;
@@ -120,14 +127,15 @@ int sparse_adamw_step(void* p, void* m, void* v, const void* ids,
   const long long* i = static_cast<const long long*>(ids);
   const float* g = static_cast<const float*>(grads);
   const int* c = static_cast<const int*>(count);
+  const unsigned char* k = static_cast<const unsigned char*>(pred);
   if (moment_dtype == 0)
     sparse_adamw_kernel<float><<<blocks, 256, 0, s>>>(
         static_cast<float*>(p), static_cast<float*>(m),
-        static_cast<float*>(v), i, g, slots, d, n_rows, h, c);
+        static_cast<float*>(v), i, g, slots, d, n_rows, h, c, k);
   else if (moment_dtype == 1)
     sparse_adamw_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
         static_cast<float*>(p), static_cast<__nv_bfloat16*>(m),
-        static_cast<__nv_bfloat16*>(v), i, g, slots, d, n_rows, h, c);
+        static_cast<__nv_bfloat16*>(v), i, g, slots, d, n_rows, h, c, k);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -14,7 +14,9 @@ gradient rows and the int32 0-d step count, already advanced:
   runs it, and the chip smoke holds the kernel against it.
 
 Both keep the sparse form's own order (``p - lr * u``, the update from the
-unrounded moments). ``sparse_adamw_cuda.launches`` counts kernel launches.
+unrounded moments), and both take an optional predicate, a bool 0-d tensor
+on the device: where it is False nothing is written.
+``sparse_adamw_cuda.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -37,14 +39,14 @@ def _library() -> ctypes.CDLL:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.sparse_adamw_step.argtypes = ([ptr] * 5 + [i64, i32, i64, i32]
-                                      + [f32] * 7 + [ptr, ptr])
+                                      + [f32] * 7 + [ptr, ptr, ptr])
     lib.sparse_adamw_step.restype = i32
     lib.sparse_adamw_error_string.argtypes = [i32]
     lib.sparse_adamw_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(table, mu, nu, ids, grads, count):
+def _check(table, mu, nu, ids, grads, count, pred=None):
     if table.dim() != 2 or mu.shape != table.shape or nu.shape != table.shape:
         raise ValueError(f"sparse_adamw: table {tuple(table.shape)} and "
                          f"moments {tuple(mu.shape)}, {tuple(nu.shape)} must "
@@ -63,6 +65,8 @@ def _check(table, mu, nu, ids, grads, count):
         raise TypeError(f"sparse_adamw takes int64 ids, got {ids.dtype}")
     if count.dtype != torch.int32 or count.dim() != 0:
         raise TypeError("sparse_adamw takes an int32 0-d step count")
+    if pred is not None and (pred.dtype != torch.bool or pred.dim() != 0):
+        raise TypeError("sparse_adamw takes a bool 0-d predicate")
 
 
 def _hyper(b1, b2):
@@ -74,10 +78,13 @@ def _hyper(b1, b2):
 
 @torch.no_grad()
 def sparse_adamw_plain(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
-                       b2=0.999, eps=1e-8, weight_decay=0.0) -> None:
+                       b2=0.999, eps=1e-8, weight_decay=0.0,
+                       pred=None) -> None:
     """The plain form: gather the live slots' rows (a boolean mask drops the
-    sentinel), update, scatter back in place."""
-    _check(table, mu, nu, ids, grads, count)
+    sentinel), update, scatter back in place; with a predicate, each
+    scattered row is ``where(pred, new, old)``, as JAX keeps a skipped
+    step's state."""
+    _check(table, mu, nu, ids, grads, count, pred)
     k = np.float32(int(count))
     b1f, b2f, omb1, omb2 = _hyper(b1, b2)
     c1 = float(np.float32(1) - b1f ** k)
@@ -90,21 +97,23 @@ def sparse_adamw_plain(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
     u = (m / c1) / (torch.sqrt(v / c2) + eps)
     if weight_decay:
         u = u + p * weight_decay
-    table[rows] = p - u * lr
-    mu[rows] = m.to(mu.dtype)
-    nu[rows] = v.to(nu.dtype)
+    new = (p - u * lr, m.to(mu.dtype), v.to(nu.dtype))
+    for t, x in zip((table, mu, nu), new):
+        t[rows] = x if pred is None else torch.where(pred, x, t[rows])
 
 
 def sparse_adamw_cuda(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
-                      b2=0.999, eps=1e-8, weight_decay=0.0) -> None:
+                      b2=0.999, eps=1e-8, weight_decay=0.0,
+                      pred=None) -> None:
     """Launch the CUDA kernel on the current stream. All tensors on one CUDA
-    device and contiguous; the ids distinct apart from the sentinel. Raises
+    device and contiguous; the ids distinct apart from the sentinel. Where
+    ``pred`` (a bool 0-d tensor) is False the launch writes nothing. Raises
     on anything else, and if the launch is refused."""
     device = table.device
     if device.type != "cuda":
         raise ValueError(f"sparse_adamw_cuda needs CUDA tensors, got {device}")
-    _check(table, mu, nu, ids, grads, count)
-    for t in (mu, nu, ids, grads, count):
+    _check(table, mu, nu, ids, grads, count, pred)
+    for t in (mu, nu, ids, grads, count) + (() if pred is None else (pred,)):
         if t.device != device:
             raise ValueError("sparse_adamw inputs lie on different devices")
     if not all(t.is_contiguous() for t in (table, mu, nu, ids, grads)):
@@ -121,7 +130,8 @@ def sparse_adamw_cuda(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
             table.data_ptr(), mu.data_ptr(), nu.data_ptr(), ids.data_ptr(),
             grads.data_ptr(), slots, d, table.shape[0],
             _MOMENT_DTYPES[mu.dtype], b1, b2, 1.0 - b1, 1.0 - b2, eps,
-            weight_decay, lr, count.data_ptr(), stream)
+            weight_decay, lr, count.data_ptr(),
+            None if pred is None else pred.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("sparse_adamw kernel launch failed: "
                            + lib.sparse_adamw_error_string(err).decode())

@@ -31,15 +31,18 @@ from typing import (Any, Callable, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
 Tensors = List[torch.Tensor]
 
 
 class GradientTransformation(NamedTuple):
     init: Callable[[Tensors], Any]
     update: Callable[[Tensors, Any, Optional[Tensors]], Tuple[Tensors, Any]]
-    # fused(grads, state, params) -> state: one pass on the card that
-    # updates params and state in place; None where there is none.
-    fused: Optional[Callable[[Tensors, Any, Tensors], Any]] = None
+    # fused(grads, state, params, pred) -> state: one pass on the card that
+    # updates params and state in place (nothing where the bool 0-d device
+    # tensor pred is False); None where there is none.
+    fused: Optional[Callable[..., Any]] = None
 
 
 def _device(params: Sequence[torch.Tensor]) -> torch.device:
@@ -59,26 +62,46 @@ def apply_updates(params: Tensors, updates: Tensors) -> None:
                                      for p, u in zip(params, updates)])
 
 
+def _cloned(tree):
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else t, tree)
+
+
 @torch.no_grad()
 def step(transform: GradientTransformation, grads: Tensors, state: Any,
-         params: Tensors) -> Any:
+         params: Tensors, pred: Optional[torch.Tensor] = None) -> Any:
     """One optimizer step of ``params`` in place; returns the new state.
 
     CPU parameters take ``transform.update`` and :func:`apply_updates`. CUDA
     parameters take ``transform.fused``; a transformation without one (sgd,
     adagrad, a schedule, a clip, an accumulation) raises, since the chain
-    would run some sixteen passes where the kernel runs one."""
+    would run some sixteen passes where the kernel runs one.
+
+    ``pred``, a bool 0-d tensor on the parameters' device, is the step's
+    predicate (JAX's ``_guarded_one_step`` / the sweep's active mask): where
+    it is False the parameters and the state, step count included, keep
+    their values. The CPU takes JAX's ``where(pred, new, old)`` per leaf;
+    the fused pass reads the predicate on the device and writes nothing."""
     params, grads = list(params), list(grads)
     if {p.device.type for p in params} <= {"cpu"}:
+        if pred is None:
+            updates, state = transform.update(grads, state, params)
+            apply_updates(params, updates)
+            return state
+        old_params, old_state = _cloned(params), _cloned(state)
         updates, state = transform.update(grads, state, params)
         apply_updates(params, updates)
-        return state
+        for p, old in zip(params, old_params):
+            p.copy_(torch.where(pred, p, old))
+        return tree_map(lambda new, old: torch.where(pred, new, old)
+                        if isinstance(new, torch.Tensor) else new,
+                        state, old_state)
     if transform.fused is None:
         raise ValueError(
             "optim.step: this transformation has no fused pass for "
             f"{_device(params)} (adam and adamw with a constant or injected "
             "lr have one); call update and apply_updates to run the chain")
-    return transform.fused(grads, state, params)
+    return transform.fused(grads, state, params, pred)
 
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
@@ -208,19 +231,20 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
 
 def _fused_adam(b1, b2, eps, weight_decay, learning_rate, inject):
     """The fused pass of adam (``weight_decay=0``) and adamw: advance the
-    step count on the device, then one ``adamw`` kernel launch per tensor,
-    which reads the count (and an injected lr) there."""
+    step count on the device (by the predicate, when there is one), then
+    one ``adamw`` kernel launch per tensor, which reads the count (and an
+    injected lr, and the predicate) there."""
     from repro_torch.kernels.adamw import adamw_cuda
 
-    def fused(grads, state, params):
+    def fused(grads, state, params, pred=None):
         adam_state = state[0]
         lr_tensor = state[-1].lr if inject else None
-        adam_state.count.add_(1)
+        adam_state.count.add_(1 if pred is None else pred)
         for p, g, m, v in zip(params, grads, adam_state.mu, adam_state.nu):
             adamw_cuda(p.detach(), g, m, v, adam_state.count, b1=b1, b2=b2,
                        eps=eps, weight_decay=weight_decay,
                        lr=0.0 if inject else learning_rate,
-                       lr_tensor=lr_tensor)
+                       lr_tensor=lr_tensor, pred=pred)
         return state
 
     return fused

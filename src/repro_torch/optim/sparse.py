@@ -103,15 +103,19 @@ def sparse_row_grads(row_grads: torch.Tensor, ids: torch.Tensor, n_rows: int,
 def sparse_adamw_update(table: torch.Tensor, state: SparseTableState,
                         unique_ids: torch.Tensor, grads: torch.Tensor, *,
                         lr: float, b1: float = 0.9, b2: float = 0.999,
-                        eps: float = 1e-8, weight_decay: float = 0.0
+                        eps: float = 1e-8, weight_decay: float = 0.0,
+                        pred: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, SparseTableState]:
     """Update only the touched rows of (table, mu, nu), in place; advances
     ``state.count`` in place. Sentinel slots change nothing. Returns the
     same table and state. CPU tensors take the plain form, CUDA tensors the
-    ``sparse_adamw`` kernel; other devices raise."""
+    ``sparse_adamw`` kernel; other devices raise. With ``pred`` (a bool 0-d
+    tensor on the device: the non-finite guard's, a sweep's active replica)
+    the count advances by it, and where it is False nothing is written."""
     table = table.detach()
-    state.count.add_(1)
-    kwargs = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    state.count.add_(1 if pred is None else pred)
+    kwargs = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                  pred=pred)
     args = (table, state.mu, state.nu, unique_ids, grads.float(), state.count)
     if table.device.type == "cpu":
         sparse_adamw_plain(*args, **kwargs)

@@ -42,33 +42,83 @@ frees its graphs and their pool at once.
 
 A replay runs no Python, so no kernel wrapper counts its launches; the
 wrappers count none while a stream is being captured either (a capture
-launches nothing). The launches of a replayed run are read from the
-device, with the profiler (``chip_smoke.py``).
+launches nothing). The launches of replays are read from the graphs
+themselves: each graph keeps its ``cudaGraph_t``, and while
+:data:`replayed_kernels` is a ``Counter`` every replay adds to it the
+graph's kernel nodes by function name (:func:`graph_kernels`, read once per
+graph with the CUDA driver API). That count is exact: it is the graph the
+replay launches, and no trace buffer can drop it.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import time
-from typing import Any, Callable, Dict, List, NamedTuple
+from collections import Counter
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+
+from repro_torch.tree import tree_leaves
 
 Tensors = Dict[str, torch.Tensor]
 
 
-def tree_leaves(node) -> List[torch.Tensor]:
-    """The tensors of a state tree (tuples, named tuples, lists, and dicts
-    in sorted key order), in a fixed order; other leaves are skipped."""
-    if isinstance(node, torch.Tensor):
-        return [node]
-    if isinstance(node, dict):
-        return [t for k in sorted(node) for t in tree_leaves(node[k])]
-    if isinstance(node, (tuple, list)):
-        return [t for x in node for t in tree_leaves(x)]
-    return []
-
-
 _SIDE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+#: While a ``Counter``, the kernel launches of every replay, by kernel
+#: (function) name; ``None`` counts nothing.
+replayed_kernels: Optional[Counter] = None
+
+# CUgraphNodeType values (cuda.h)
+_KERNEL_NODE, _CHILD_GRAPH_NODE, _CONDITIONAL_NODE = 0, 4, 13
+
+
+def _driver_call(lib, name, *args) -> None:
+    err = getattr(lib, name)(*args)
+    if err:
+        raise RuntimeError(f"{name} failed with CUresult {err}")
+
+
+def graph_kernels(raw_graph: int) -> Counter:
+    """The kernel nodes of a ``cudaGraph_t`` (child graphs included), by
+    function name, read with the CUDA driver API (``cuFuncGetName`` and
+    ``cuKernelGetName`` need a driver of CUDA 12.3 or later). A conditional
+    node raises: how often its body runs is not in the graph."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    out: Counter = Counter()
+    graph = ctypes.c_void_p(raw_graph)
+    n = ctypes.c_size_t(0)
+    _driver_call(lib, "cuGraphGetNodes", graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    _driver_call(lib, "cuGraphGetNodes", graph, nodes, ctypes.byref(n))
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        kind = ctypes.c_int(-1)
+        _driver_call(lib, "cuGraphNodeGetType", node, ctypes.byref(kind))
+        if kind.value == _CHILD_GRAPH_NODE:
+            child = ctypes.c_void_p()
+            _driver_call(lib, "cuGraphChildGraphNodeGetGraph", node,
+                         ctypes.byref(child))
+            out.update(graph_kernels(child.value))
+        elif kind.value == _CONDITIONAL_NODE:
+            raise RuntimeError("graph_kernels: a conditional node's "
+                               "launches are not in the graph")
+        elif kind.value == _KERNEL_NODE:
+            # CUDA_KERNEL_NODE_PARAMS_v2: CUfunction func at byte 0, CUkernel
+            # kern at byte 56 (the buffer is larger than the struct)
+            params = (ctypes.c_uint64 * 16)()
+            _driver_call(lib, "cuGraphKernelNodeGetParams_v2", node, params)
+            func, kern = params[0], params[7]
+            name = ctypes.c_char_p()
+            if func:
+                _driver_call(lib, "cuFuncGetName", ctypes.byref(name),
+                             ctypes.c_void_p(func))
+            else:
+                _driver_call(lib, "cuKernelGetName", ctypes.byref(name),
+                             ctypes.c_void_p(kern))
+            out[name.value.decode()] += 1
+    return out
 
 
 def _side_stream() -> torch.cuda.Stream:
@@ -100,7 +150,7 @@ class CudaGraphs:
     def capture(self, fn: Callable[[], None]) -> torch.cuda.CUDAGraph:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # for kernels()
         collecting = gc.isenabled()
         gc.disable()  # torch.cuda.graph collects once, before it begins
         try:
@@ -111,7 +161,12 @@ class CudaGraphs:
         finally:
             if collecting:
                 gc.enable()
+        graph.instantiate()
         return graph
+
+    @staticmethod
+    def kernels(graph: torch.cuda.CUDAGraph) -> Counter:
+        return graph_kernels(graph.raw_cuda_graph())
 
 
 class _Entry(NamedTuple):
@@ -123,10 +178,12 @@ class _Entry(NamedTuple):
 class ChunkGraphs:
     """Graphs of one body, keyed by signature (see the module docstring).
 
-    ``backend`` supplies ``warm_up(fn)`` and ``capture(fn) -> graph`` (with
-    ``graph.replay()``): :class:`CudaGraphs` unless a test passes a
-    stand-in. ``captures``, ``replays`` and ``capture_seconds`` (host
-    seconds spent capturing, warm-up excluded) count this object's work.
+    ``backend`` supplies ``warm_up(fn)``, ``capture(fn) -> graph`` (with
+    ``graph.replay()``) and ``kernels(graph)`` (its kernel launches by name,
+    asked once per graph while :data:`replayed_kernels` counts):
+    :class:`CudaGraphs` unless a test passes a stand-in. ``captures``,
+    ``replays`` and ``capture_seconds`` (host seconds spent capturing,
+    warm-up excluded) count this object's work.
     """
 
     def __init__(self, body: Callable[[Tensors, Any], Tensors],
@@ -134,6 +191,7 @@ class ChunkGraphs:
         self.body = body
         self.backend = CudaGraphs() if backend is None else backend
         self._entries: Dict[tuple, _Entry] = {}
+        self._kernels: Dict[tuple, Counter] = {}
         self._bound: tuple = ()
         self.captures = 0
         self.replays = 0
@@ -144,6 +202,7 @@ class ChunkGraphs:
                       for t in tree_leaves(bound))
         if where != self._bound:
             self._entries.clear()
+            self._kernels.clear()
             self._bound = where
         key = tuple((k, tuple(v.shape), v.dtype)
                     for k, v in sorted(inputs.items()))
@@ -155,6 +214,10 @@ class ChunkGraphs:
                 entry.inputs[k].copy_(v)
         entry.graph.replay()
         self.replays += 1
+        if replayed_kernels is not None:
+            if key not in self._kernels:
+                self._kernels[key] = self.backend.kernels(entry.graph)
+            replayed_kernels.update(self._kernels[key])
         return entry.outputs
 
     def _first(self, key, inputs: Tensors, bound) -> Tensors:

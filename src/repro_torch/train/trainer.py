@@ -1,5 +1,6 @@
-"""Trainer: the paper's Listing-1 entry point, port of the single-device
-path of ``repro.train.trainer``.
+"""Trainer: the paper's Listing-1 entry point, port of
+``repro.train.trainer`` (the mesh, telemetry and the profiler window wait
+for later slices).
 
     trainer = Trainer(optimizer=adamw(0.003), epochs=50)
     history = trainer.train(model, train_loader, val_loader)
@@ -7,32 +8,64 @@ path of ``repro.train.trainer``.
 
 Training runs through :class:`TrainEngine` in chunks of ``chunk_batches``
 steps (on the card, one CUDA-graph replay per chunk), fed by the
-overlapped :class:`DevicePrefetcher`; each chunk's ``(n,)`` loss tensor is
-read one chunk behind, so the host waits on the device once per chunk and
-never on the chunk it just queued. With ``sparse_tables=True`` the
-embedding tables take sparse lazy AdamW (see :class:`TrainEngine`). Each
-epoch is validated with the paper's click metrics (LL, perplexity,
-conditional perplexity), in chunks of ``chunk_batches`` batches too: on
-the card a captured loss-free body with the metric state as its carry,
-cached for the last few models evaluated. Training stops after
-``patience`` epochs without a val-loss improvement (paper §6).
-Checkpoints, preemption, the watchdog, replica sweeps and profiling wait
-for later slices.
+overlapped :class:`DevicePrefetcher`; each chunk's losses are read one
+chunk behind, so the host waits on the device once per chunk and never on
+the chunk it just queued. With ``sparse_tables=True`` the embedding tables
+take sparse lazy AdamW (see :class:`TrainEngine`). Each epoch is validated
+with the paper's click metrics (LL, perplexity, conditional perplexity), in
+chunks of ``chunk_batches`` batches too: on the card a captured loss-free
+body with the metric state as its carry, cached for the last few models
+evaluated. Training stops after ``patience`` epochs without a val-loss
+improvement (paper §6).
+
+The run contract of a long run:
+
+* **Checkpoints** (``checkpoint_dir``): atomic saves every
+  ``checkpoint_every_steps`` steps (at chunk granularity), at every
+  epoch's end and on preemption, ``keep_checkpoints`` kept. A checkpoint
+  holds the parameters, the optimizer state, the loader's resume point
+  after the last chunk consumed, the early-stop state, the epoch's running
+  loss accumulators and the history, so ``train(..., resume=True)`` is
+  bit-exact, mid-epoch too. Restoring writes into the live tensors, so no
+  graph replays against freed state.
+* **Preemption** (``handle_preemption``): SIGTERM/SIGINT end the run after
+  the chunk in flight, with a final checkpoint.
+* **Non-finite guard** (``nonfinite_guard``): a step with a non-finite loss
+  or gradient is skipped on the device; the epoch mean leaves it out and
+  the record counts it (``skipped_steps``).
+* **Watchdog** (``step_budget_seconds``): chunks slower than the budget
+  per step are counted (``watchdog_violations``) and logged.
+* **Sweeps** (``replicas=R``): R independent runs in one engine, replica i
+  seeded ``replica_seeds[i]`` (default ``seed + i``) and trained at
+  ``replica_lrs[i]`` (an ``inject_lr=True`` optimizer). Validation gives
+  each metric as an R-list, early stopping is tracked per replica (a
+  finished replica freezes in place through the engine's active mask while
+  the others train on), records carry per-replica lists, and checkpoints
+  hold the R-stacked trees (``select_replica`` extracts any run).
+
+A single run trains the model's own parameters (the model was built with
+its own seed); ``TrainState.params`` is their JAX-shaped tree.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.metrics import (ConditionalPerplexity, LogLikelihood,
                                       MultiMetric, Perplexity)
 from repro_torch.data.loader import DevicePrefetcher
 from repro_torch.train.capture import ChunkGraphs
-from repro_torch.train.engine import TrainEngine
+from repro_torch.train.checkpoints import CheckpointManager
+from repro_torch.convert import param_path
+from repro_torch.train.engine import TrainEngine, call_with
+from repro_torch.train.fault_tolerance import PreemptionHandler, StepWatchdog
+from repro_torch.tree import flatten_with_paths, nest, tree_copy_, unnest
 
 #: Models whose evaluation graphs a Trainer keeps (least recently used
 #: first out), as the JAX Trainer bounds its cache of compiled eval steps.
@@ -41,77 +74,171 @@ from repro_torch.train.engine import TrainEngine
 EVAL_CACHE = 4
 
 
-def _stage(losses: torch.Tensor):
-    """Start moving a chunk's ``(n,)`` losses to the host, right after the
-    chunk is queued. On CUDA the copy goes to pinned memory without
-    blocking, and an event marks the end of this chunk's work: reading a
-    CUDA tensor directly (``.tolist()``) would wait for everything queued
-    on the stream, the next chunk included."""
-    if losses.device.type != "cuda":
-        return losses, None
-    host = torch.empty(losses.shape, dtype=losses.dtype, pin_memory=True)
-    host.copy_(losses, non_blocking=True)
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt_state: Any
+    epoch: int = 0
+    global_step: int = 0
+
+
+def _stage(payload):
+    """Start moving a chunk's losses (a tensor, or the guard's ``{"loss",
+    "skipped"}``) to the host, right after the chunk is queued. On CUDA the
+    copies go to pinned memory without blocking, and an event marks the
+    end of this chunk's work: reading a CUDA tensor directly (``.tolist()``)
+    would wait for everything queued on the stream, the next chunk
+    included."""
+    tensors = payload if isinstance(payload, dict) else {"loss": payload}
+    if next(iter(tensors.values())).device.type != "cuda":
+        return tensors, None
+    host = {}
+    for k, t in tensors.items():
+        host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host[k].copy_(t, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
     return host, done
 
 
-def _read(staged) -> List[float]:
-    """The staged losses as floats; waits for their chunk only."""
+def _read(staged) -> Dict[str, np.ndarray]:
+    """The staged payload as numpy arrays; waits for its chunk only."""
     host, done = staged
     if done is not None:
         done.synchronize()
-    return host.tolist()
+    return {k: t.numpy() for k, t in host.items()}
+
+
+class _EpochAccum:
+    """One epoch's drained chunk payloads (the accumulators of JAX's
+    ``TelemetryDrain``): the loss sum over the steps that updated, the
+    steps, the skipped steps. One run's sum is a Python float added loss
+    by loss; a sweep's a float64 ``(R,)`` array."""
+
+    def __init__(self, replicas: Optional[int] = None):
+        self.R = replicas
+        self.n_batches = 0
+        if replicas is None:
+            self.train_loss: Any = 0.0
+            self.skipped_steps: Any = 0
+        else:
+            self.train_loss = np.zeros(replicas, np.float64)
+            self.skipped_steps = np.zeros(replicas, np.int64)
+
+    def load(self, accum: Dict[str, Any]) -> None:
+        """Restore mid-epoch accumulators from checkpoint aux."""
+        self.n_batches = int(accum["n_batches"])
+        if self.R is None:
+            self.train_loss = float(accum["train_loss"])
+            self.skipped_steps = int(accum.get("skipped", 0))
+        else:
+            self.train_loss = np.asarray(accum["train_loss"], np.float64)
+            self.skipped_steps = np.asarray(
+                accum.get("skipped", [0] * self.R), np.int64)
+
+    def aux(self) -> Dict[str, Any]:
+        """JSON-able accumulators: Python floats round-trip json exactly,
+        so a resumed epoch's loss sum is the uninterrupted run's."""
+        if self.R is None:
+            return {"train_loss": self.train_loss,
+                    "n_batches": int(self.n_batches),
+                    "skipped": int(self.skipped_steps)}
+        return {"train_loss": np.asarray(self.train_loss,
+                                         np.float64).tolist(),
+                "n_batches": int(self.n_batches),
+                "skipped": np.asarray(self.skipped_steps).tolist()}
+
+    def drain(self, staged) -> None:
+        data = _read(staged)
+        losses, skipped = data["loss"], data.get("skipped")
+        if self.R is None:
+            for i, loss in enumerate(losses.tolist()):
+                if skipped is not None and skipped[i]:
+                    self.skipped_steps += 1
+                else:
+                    self.train_loss += loss
+        else:
+            arr = np.asarray(losses, np.float64)
+            if skipped is None:
+                self.train_loss += arr.sum(axis=0)
+            else:
+                self.train_loss += np.where(skipped, 0.0, arr).sum(axis=0)
+                self.skipped_steps += skipped.sum(axis=0)
+        self.n_batches += losses.shape[0]
+
+    def mean_loss(self):
+        """Epoch mean over the steps that updated."""
+        if self.R is None:
+            return self.train_loss / max(self.n_batches - self.skipped_steps,
+                                         1)
+        return self.train_loss / np.maximum(
+            self.n_batches - self.skipped_steps, 1)
 
 
 _STATE = "metric_state/"
 
 
 def _flat(state) -> Dict[str, torch.Tensor]:
-    """A MultiMetric state (name -> {"sum", "count"}) as one flat dict."""
-    return {f"{_STATE}{name}/{k}": v for name, part in state.items()
-            for k, v in part.items()}
+    """A MultiMetric state (name -> {"sum", "count"}), or a list of them
+    (one per run), as one flat dict keyed by path."""
+    return {_STATE + path: v for path, v in flatten_with_paths(state)}
 
 
-def _nest(flat) -> Dict[str, Dict[str, torch.Tensor]]:
-    state: Dict[str, Dict[str, torch.Tensor]] = {}
-    for key, v in flat.items():
-        if key.startswith(_STATE):
-            name, k = key[len(_STATE):].rsplit("/", 1)
-            state.setdefault(name, {})[k] = v
-    return state
+def _nest(flat):
+    """The inverse of :func:`_flat` (the keys of ``flat`` that hold no
+    metric state are left out)."""
+    items = [(k[len(_STATE):].split("/"), v) for k, v in flat.items()
+             if k.startswith(_STATE)]
+    tree = nest([path for path, _ in items], [v for _, v in items])
+    if all(k.isdigit() for k in tree):  # one state per run
+        return [tree[str(j)] for j in range(len(tree))]
+    return tree
 
 
 class _EvalStep:
     """One model's chunked evaluation: :meth:`loop` folds a stacked ``(n,
     B, K)`` chunk into the metric state batch by batch (the CPU's route);
     :meth:`replayed` is that loop captured per chunk signature, bound to
-    the model's parameters, with the metric state as its carry (the card's
-    route; JAX ``Trainer._make_eval_chunk_step``). It keeps no reference to
-    the model (each call is given it), and its graphs none to it."""
+    the parameters it reads, with the metric state as its carry (the card's
+    route; JAX ``Trainer._make_eval_chunk_step``). ``runs`` is None (one
+    state, the model's own parameters) or a list of parameter lists, one
+    per run, aligned with ``model.named_parameters()`` (a list of states,
+    one per run: the sweep's replicas, or an explicit tree). It keeps no
+    reference to the model (each call is given it), and its graphs none to
+    it."""
 
     def __init__(self, metrics: MultiMetric):
         self.metrics = metrics
         self.graphs = ChunkGraphs(self._body)
 
-    def loop(self, model, state, chunk):
+    def loop(self, model, state, chunk, runs=None):
+        single = runs is None
+        states = [state] if single else list(state)
+        names = None if single else [n for n, _ in model.named_parameters()]
         for i in range(next(iter(chunk.values())).shape[0]):
             batch = {k: v[i] for k, v in chunk.items()}
-            state = self.metrics.update(
-                state, log_probs=model.predict_clicks(batch),
-                conditional_log_probs=model.predict_conditional_clicks(batch),
-                clicks=batch["clicks"], where=batch["mask"])
-        return state
+            for j, tensors in enumerate([None] if single else runs):
+                states[j] = self.metrics.update(
+                    states[j],
+                    log_probs=call_with(model, names, tensors,
+                                        "predict_clicks", batch),
+                    conditional_log_probs=call_with(
+                        model, names, tensors, "predict_conditional_clicks",
+                        batch),
+                    clicks=batch["clicks"], where=batch["mask"])
+        return states[0] if single else states
 
     @staticmethod
     def _body(inputs, bound):
-        step, model, _ = bound
+        step, model, runs, _ = bound
         chunk = {k: v for k, v in inputs.items() if not k.startswith(_STATE)}
-        return _flat(step.loop(model, _nest(inputs), chunk))
+        return _flat(step.loop(model, _nest(inputs), chunk, runs))
 
-    def replayed(self, model, state, chunk):
+    def replayed(self, model, state, chunk, runs=None):
+        tensors = (list(model.parameters()) if runs is None
+                   else [t for run in runs for t in run])
         return _nest(self.graphs({**chunk, **_flat(state)},
-                                 (self, model, list(model.parameters()))))
+                                 (self, model, runs, tensors)))
 
 
 def default_metrics() -> MultiMetric:
@@ -124,20 +251,48 @@ def default_metrics() -> MultiMetric:
 
 class Trainer:
     def __init__(self, optimizer, epochs: int = 100, patience: int = 1,
+                 seed: int = 0, checkpoint_dir: Optional[str] = None,
+                 checkpoint_every_steps: Optional[int] = None,
+                 keep_checkpoints: int = 3,
+                 metrics_factory: Callable[[], MultiMetric] = default_metrics,
+                 log_fn: Callable[[str], None] = print,
+                 handle_preemption: bool = False,
                  chunk_batches: int = 1, device="cuda",
                  sparse_tables: bool = False,
                  sparse_table_kwargs: Optional[Dict[str, Any]] = None,
-                 metrics_factory: Callable[[], MultiMetric] = default_metrics,
-                 log_fn: Callable[[str], None] = print):
+                 replicas: Optional[int] = None,
+                 replica_lrs: Optional[List[float]] = None,
+                 replica_seeds: Optional[List[int]] = None,
+                 nonfinite_guard: bool = False,
+                 step_budget_seconds: Optional[float] = None):
         self.optimizer = optimizer
-        self.sparse_tables = sparse_tables
-        self.sparse_table_kwargs = sparse_table_kwargs
         self.epochs = epochs
         self.patience = patience
-        self.chunk_batches = chunk_batches
-        self.device = torch.device(device)
+        self.seed = seed
         self.metrics_factory = metrics_factory
         self.log_fn = log_fn
+        self.checkpoint_every_steps = checkpoint_every_steps
+        self.ckpt = (CheckpointManager(checkpoint_dir, keep=keep_checkpoints,
+                                       log_fn=log_fn)
+                     if checkpoint_dir else None)
+        self.handle_preemption = handle_preemption
+        self.nonfinite_guard = nonfinite_guard
+        self.step_budget_seconds = step_budget_seconds
+        self.chunk_batches = chunk_batches
+        self.device = torch.device(device)
+        self.sparse_tables = sparse_tables
+        self.sparse_table_kwargs = sparse_table_kwargs
+        if replicas is None and (replica_lrs is not None
+                                 or replica_seeds is not None):
+            raise ValueError("replica_lrs/replica_seeds require replicas=R")
+        for name, knob in (("replica_lrs", replica_lrs),
+                           ("replica_seeds", replica_seeds)):
+            if knob is not None and len(knob) != replicas:
+                raise ValueError(f"{name} has {len(knob)} entries for "
+                                 f"replicas={replicas}")
+        self.replicas = replicas
+        self.replica_lrs = replica_lrs
+        self.replica_seeds = replica_seeds
         # id(model) -> (weak reference to the model, its _EvalStep)
         self._eval_cache: "collections.OrderedDict[int, tuple]" = \
             collections.OrderedDict()
@@ -148,55 +303,246 @@ class Trainer:
             raise ValueError(f"model parameters on {sorted(where)}, trainer "
                              f"runs on {self.device}")
 
-    def train(self, model, train_loader, val_loader=None
-              ) -> List[Dict[str, float]]:
-        self._check_device(model)
-        engine = TrainEngine(model, self.optimizer,
-                             chunk_batches=self.chunk_batches,
-                             sparse_tables=self.sparse_tables,
-                             sparse_table_kwargs=self.sparse_table_kwargs)
+    def _make_engine(self, model) -> TrainEngine:
+        return TrainEngine(model, self.optimizer,
+                           chunk_batches=self.chunk_batches,
+                           sparse_tables=self.sparse_tables,
+                           sparse_table_kwargs=self.sparse_table_kwargs,
+                           replicas=self.replicas,
+                           nonfinite_guard=self.nonfinite_guard)
+
+    def _init_state(self, engine) -> TrainState:
+        """The run's live state: the model's parameters, or a sweep's
+        stacked ones (seeded, their learning rates set), with the optimizer
+        state."""
+        R = self.replicas
+        if R is None:
+            return TrainState(params=nest(engine.paths, engine.params),
+                              opt_state=engine.init_opt_state())
+        seeds = (self.replica_seeds if self.replica_seeds is not None
+                 else [self.seed + i for i in range(R)])
+        params = engine.init_replica_params(seeds)
         opt_state = engine.init_opt_state()
-        history: List[Dict[str, float]] = []
-        best_val, bad_epochs = float("inf"), 0
-        for epoch in range(1, self.epochs + 1):
-            t0 = time.perf_counter()
-            loss_sum, n_batches = 0.0, 0
-            pending = None  # the previous chunk's staged losses
-            for chunk, _, _ in DevicePrefetcher(
-                    train_loader, device=self.device,
-                    chunk_batches=engine.chunk_batches):
-                opt_state, losses = engine.step(opt_state, chunk)
-                staged = _stage(losses)
+        if self.replica_lrs is not None:
+            opt_state = engine.set_replica_lrs(opt_state, self.replica_lrs)
+        return TrainState(params=params, opt_state=opt_state)
+
+    # -- public API ----------------------------------------------------------------
+    def train(self, model, train_loader, val_loader=None,
+              state: Optional[TrainState] = None,
+              resume: bool = False) -> List[Dict[str, Any]]:
+        """Train, validate and checkpoint; returns the history (the whole
+        run's, a resumed one's included). ``state`` starts from another
+        run's parameters and optimizer state (copied into this run's
+        tensors); ``resume=True`` restores the newest valid checkpoint of
+        ``checkpoint_dir``, if there is one."""
+        self._check_device(model)
+        engine = self._make_engine(model)
+        R = self.replicas
+        live = self._init_state(engine)
+        if state is not None:
+            tree_copy_(live.params, state.params)
+            tree_copy_(live.opt_state, state.opt_state)
+            live.epoch, live.global_step = state.epoch, state.global_step
+        state = live
+        resumed_early_stop = None
+        resume_accum = None
+        history: List[Dict[str, Any]] = []
+        if resume and self.ckpt and self.ckpt.latest_step() is not None:
+            arrays, aux, _ = self.ckpt.restore()
+            _load_arrays({"params": state.params,
+                          "opt_state": state.opt_state}, arrays)
+            state.epoch = int(aux["epoch"])
+            state.global_step = int(aux["global_step"])
+            resumed_early_stop = aux.get("early_stop")
+            # Mid-epoch crash recovery: the checkpoint carries the epoch's
+            # running loss accumulators and the completed-epoch history, so
+            # the resumed run's returned history is identical to an
+            # uninterrupted run's — not just from-here-on.
+            resume_accum = aux.get("epoch_accum")
+            history = [dict(r) for r in aux.get("history") or []]
+            if aux.get("loader") is not None and hasattr(train_loader,
+                                                         "load_state_dict"):
+                train_loader.load_state_dict(aux["loader"])
+            self.log_fn(f"[trainer] resumed at epoch={state.epoch} "
+                        f"step={state.global_step}")
+
+        preempt = PreemptionHandler() if self.handle_preemption else None
+        watchdog = (StepWatchdog(
+            self.step_budget_seconds,
+            on_violation=lambda step, sec: self.log_fn(
+                f"[trainer] watchdog: step ~{step} averaged {sec:.3f}s/step, "
+                f"over budget {self.step_budget_seconds}s"))
+            if self.step_budget_seconds else None)
+        if R is None:
+            best_val, bad_epochs = float("inf"), 0
+        else:
+            # Per-replica early stopping: a replica that exhausts its
+            # patience goes inactive — the engine's device-resident mask
+            # freezes its parameters and optimizer state in place while the
+            # others keep training, and no graph is captured anew.
+            best_val = np.full(R, np.inf)
+            bad_epochs = np.zeros(R, dtype=int)
+            active = np.ones(R, dtype=bool)
+        if resumed_early_stop is not None:
+            # A resumed sweep must not reactivate stopped replicas, nor a
+            # resumed run forget its patience counter.
+            if R is None:
+                best_val = float(resumed_early_stop["best_val"])
+                bad_epochs = int(resumed_early_stop["bad_epochs"])
+            else:
+                best_val = np.asarray(resumed_early_stop["best_val"],
+                                      np.float64)
+                bad_epochs = np.asarray(resumed_early_stop["bad_epochs"], int)
+                active = np.asarray(resumed_early_stop["active"], bool)
+
+        def snapshot_early_stop():
+            # JSON-able early-stop state for the checkpoint's aux. Counters
+            # only move at epoch boundaries, so a mid-epoch checkpoint
+            # carries the state the epoch started with.
+            if R is None:
+                self._early_stop_aux = {"best_val": best_val,
+                                        "bad_epochs": bad_epochs}
+            else:
+                self._early_stop_aux = {"best_val": best_val.tolist(),
+                                        "bad_epochs": bad_epochs.tolist(),
+                                        "active": active.tolist()}
+
+        snapshot_early_stop()
+        # Signal handlers must not outlive the loop they guard: restored on
+        # every exit path (completion, early stop, preemption, exception).
+        try:
+            while state.epoch < self.epochs:
+                t0 = time.perf_counter()
+                acc = _EpochAccum(R)
+                wd_epoch_start = watchdog.violations if watchdog else 0
+                if resume_accum is not None:
+                    # First epoch after a mid-epoch resume: start from the
+                    # checkpointed accumulators so the epoch's loss covers
+                    # every batch, not just the post-crash ones.
+                    acc.load(resume_accum)
+                    resume_accum = None
+                epoch_active = None if R is None else active.copy()
+                pending = None  # the previous chunk's staged losses
+                stop = False
+                chunk_t0 = time.perf_counter()
+                # loader_state is the resume point after the chunk's last
+                # batch (the staging thread itself has run ahead).
+                for chunk, loader_state, n in DevicePrefetcher(
+                        train_loader, device=self.device,
+                        chunk_batches=engine.chunk_batches):
+                    state.opt_state, losses = engine.step(
+                        state.opt_state, chunk, active=epoch_active)
+                    staged = _stage(losses)
+                    if pending is not None:
+                        # Reading the previous chunk's losses waits only for
+                        # it; the chunk just queued keeps the device busy.
+                        acc.drain(pending)
+                    pending = staged
+                    prev_step = state.global_step
+                    state.global_step += n
+                    if watchdog is not None:
+                        now = time.perf_counter()
+                        watchdog.check((now - chunk_t0) / max(n, 1),
+                                       state.global_step)
+                        chunk_t0 = now
+                    every = self.checkpoint_every_steps
+                    save_now = bool(self.ckpt and every and prev_step // every
+                                    < state.global_step // every)
+                    preempted = preempt is not None and preempt.should_stop
+                    if save_now or (preempted and self.ckpt):
+                        # A mid-epoch checkpoint's accumulators must cover
+                        # exactly the batches its loader cursor has passed:
+                        # drain the chunk in flight first (the one host
+                        # sync a checkpoint costs).
+                        acc.drain(pending)
+                        pending = None
+                        self._save(state, train_loader, loader_state,
+                                   epoch_accum=acc.aux(), history=history)
+                    if preempted:
+                        self.log_fn("[trainer] preempted; checkpoint written"
+                                    if self.ckpt else
+                                    "[trainer] preempted; no checkpoint_dir "
+                                    "configured — stopping without saving")
+                        stop = True
+                        break
                 if pending is not None:
-                    # Reading the previous chunk's losses waits only for it;
-                    # the chunk just queued keeps the device busy meanwhile.
-                    for loss in _read(pending):
-                        loss_sum += loss
-                        n_batches += 1
-                pending = staged
-            if pending is not None:
-                for loss in _read(pending):
-                    loss_sum += loss
-                    n_batches += 1
-            record = {"epoch": epoch,
-                      "train_loss": loss_sum / max(n_batches, 1),
-                      "seconds": time.perf_counter() - t0}
-            stop = False
-            if val_loader is not None:
-                val = self.evaluate(model, val_loader)
-                record.update({f"val_{k}": v for k, v in val.items()})
-                val_loss = -val["ll"]
-                if val_loss < best_val - 1e-6:
-                    best_val, bad_epochs = val_loss, 0
-                else:
-                    bad_epochs += 1
-                stop = bad_epochs >= self.patience
-            history.append(record)
-            self.log_fn(f"[trainer] {record}")
-            if stop:
-                self.log_fn(f"[trainer] early stop at epoch {epoch}")
-                break
-        return history
+                    acc.drain(pending)
+                if stop:
+                    self._final_state = state
+                    return history
+                state.epoch += 1
+                mean_loss = acc.mean_loss()
+                record: Dict[str, Any] = {
+                    "epoch": state.epoch,
+                    "train_loss": (mean_loss if R is None
+                                   else mean_loss.tolist()),
+                    "seconds": time.perf_counter() - t0}
+                if self.nonfinite_guard:
+                    record["skipped_steps"] = (
+                        int(acc.skipped_steps) if R is None
+                        else np.asarray(acc.skipped_steps).tolist())
+                if watchdog is not None:
+                    record["watchdog_violations"] = (watchdog.violations
+                                                     - wd_epoch_start)
+                if R is not None:
+                    record["active"] = epoch_active.tolist()
+                if val_loader is not None:
+                    val = self.evaluate(
+                        model, val_loader,
+                        params=None if R is None else state.params,
+                        replicas=R)
+                    record.update({f"val_{k}": v for k, v in val.items()})
+                    if R is None:
+                        val_loss = -val["ll"]
+                        if val_loss < best_val - 1e-6:
+                            best_val, bad_epochs = val_loss, 0
+                        else:
+                            bad_epochs += 1
+                    else:
+                        # The scalar rule, elementwise over the replicas
+                        # still training; finished ones keep their counters.
+                        val_loss = -np.asarray(val["ll"], np.float64)
+                        improved = val_loss < best_val - 1e-6
+                        best_val = np.where(improved & active, val_loss,
+                                            best_val)
+                        bad_epochs = np.where(improved & active, 0,
+                                              bad_epochs + active.astype(int))
+                history.append(record)
+                self.log_fn(f"[trainer] {record}")
+                # Resolve stopping before the end-of-epoch checkpoint, so the
+                # saved early-stop state is the one the next epoch trains
+                # under.
+                stop_now = False
+                if val_loader is not None:
+                    if R is None:
+                        stop_now = bad_epochs >= self.patience
+                    else:
+                        stopping = active & (bad_epochs >= self.patience)
+                        if stopping.any():
+                            active = active & ~stopping
+                            self.log_fn(
+                                f"[trainer] replicas "
+                                f"{np.flatnonzero(stopping).tolist()} "
+                                f"early-stop at epoch {state.epoch} "
+                                f"({int(active.sum())}/{R} still training)")
+                        stop_now = not active.any()
+                snapshot_early_stop()
+                if self.ckpt:
+                    # End of epoch: the loader's cursor is at the next
+                    # epoch's start, and a fresh epoch has no accumulators.
+                    self._save(state, train_loader, history=history)
+                if stop_now:
+                    self.log_fn(f"[trainer] early stop at epoch {state.epoch}"
+                                if R is None else
+                                f"[trainer] all replicas stopped at epoch "
+                                f"{state.epoch}")
+                    break
+            self._final_state = state
+            return history
+        finally:
+            if preempt is not None:
+                preempt.restore()
 
     def _eval_step(self, model) -> "_EvalStep":
         """The cached :class:`_EvalStep` of ``model``; the entry goes when
@@ -224,33 +570,103 @@ class Trainer:
         return step
 
     @torch.no_grad()
-    def evaluate(self, model, loader, per_rank: bool = False):
+    def evaluate(self, model, loader, per_rank: bool = False, *,
+                 params=None, replicas: Optional[int] = None):
         """Stream ``loader`` through the click metrics in chunks of
         ``chunk_batches`` batches, each chunk one graph replay on the card;
-        the metric state stays on the device and is read once at the end."""
+        the metric state stays on the device and is read once at the end.
+
+        ``params`` (a JAX-shaped tree of tensors) evaluates other
+        parameters than the model's own; with ``replicas=R`` it is a
+        sweep's R-stacked tree, and every metric comes back as an R-list.
+        """
         self._check_device(model)
         step = self._eval_step(model)
         update = step.replayed if self.device.type == "cuda" else step.loop
+        paths = [param_path(n) for n, _ in model.named_parameters()]
+        if replicas is not None:
+            stacked = unnest(paths, params)
+            runs = [[t[r] for t in stacked] for r in range(replicas)]
+        else:
+            runs = None if params is None else [unnest(paths, params)]
         metrics, state = step.metrics, None
         for chunk, _, _ in DevicePrefetcher(loader, device=self.device,
                                             chunk_batches=self.chunk_batches):
             if state is None:
-                state = metrics.init_state(chunk["positions"].shape[2],
-                                           self.device)
-            state = update(model, state, chunk)
+                positions = chunk["positions"].shape[2]
+                state = (metrics.init_state(positions, self.device)
+                         if runs is None else
+                         [metrics.init_state(positions, self.device)
+                          for _ in runs])
+            state = update(model, state, chunk, runs)
         if state is None:
             raise ValueError(
                 "evaluation loader produced no batches — dataset smaller than "
                 "batch_size with drop_last=True? Pass drop_last=False.")
-        finals = metrics.compute(state)
-        names = list(finals)
-        values = torch.stack([finals[k] for k in names]).tolist()
-        out = dict(zip(names, values))
+        states = [state] if runs is None else state
+        names = list(metrics.metrics)
+        tensors = [metrics.compute(st)[k] for st in states for k in names]
         if per_rank:
-            per = metrics.compute_per_rank(state)
-            out["per_rank"] = {k: v.tolist() for k, v in per.items()}
+            tensors += [metrics.compute_per_rank(st)[k] for st in states
+                        for k in names]
+        # one host transfer for every metric of every run
+        flat = torch.cat([t.reshape(-1) for t in tensors]).tolist()
+        values, at = [], 0
+        for t in tensors:
+            values.append(flat[at:at + t.numel()])
+            at += t.numel()
+        n = len(names)
+        out = {k: [values[j * n + i][0] for j in range(len(states))]
+               for i, k in enumerate(names)}
+        if per_rank:
+            ranks = values[len(states) * n:]
+            out["per_rank"] = {k: [ranks[j * n + i]
+                                   for j in range(len(states))]
+                               for i, k in enumerate(names)}
+        if replicas is None:  # one run: its values, not 1-lists
+            out = {k: (v[0] if k != "per_rank" else
+                       {m: r[0] for m, r in v.items()})
+                   for k, v in out.items()}
         return out
 
-    def test(self, model, test_loader, per_rank: bool = True):
-        """Evaluate the model's current parameters on the test split."""
-        return self.evaluate(model, test_loader, per_rank=per_rank)
+    def test(self, model, test_loader, params=None, per_rank: bool = True,
+             replicas="auto"):
+        """Evaluate on the test split. With no explicit ``params``, the
+        trainer's own final state is used (R-stacked on a sweep trainer, so
+        metrics come back as R-lists; the model's own parameters for a
+        single run). Explicit ``params`` are a single run — the
+        ``select_replica`` workflow — unless ``replicas=R`` says
+        otherwise."""
+        if replicas == "auto":
+            replicas = self.replicas if params is None else None
+        if params is None and replicas is not None:
+            params = self._final_state.params
+        return self.evaluate(model, test_loader, per_rank=per_rank,
+                             params=params, replicas=replicas)
+
+    # -- internals -------------------------------------------------------------------
+    def _save(self, state: TrainState, loader, loader_state=None,
+              epoch_accum=None, history=None):
+        if loader_state is None:
+            get_state = getattr(loader, "state_dict", lambda: None)
+            loader_state = get_state()
+        self.ckpt.save(state.global_step,
+                       {"params": state.params, "opt_state": state.opt_state},
+                       aux={"epoch": state.epoch,
+                            "global_step": state.global_step,
+                            "loader": loader_state,
+                            "early_stop": getattr(self, "_early_stop_aux",
+                                                  None),
+                            "epoch_accum": epoch_accum,
+                            "history": history or []})
+
+
+@torch.no_grad()
+def _load_arrays(live, arrays: Dict[str, np.ndarray]) -> None:
+    """Copy a checkpoint's flat ``{path: array}`` into the tensors of
+    ``live`` in place (the graphs keep their addresses). Raises on a leaf
+    the checkpoint lacks."""
+    for key, dst in flatten_with_paths(live):
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        dst.copy_(torch.from_numpy(np.asarray(arrays[key])))

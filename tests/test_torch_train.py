@@ -17,6 +17,7 @@ capture runs only on the card (``chip_smoke.py``).
 """
 import gc
 import weakref
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ from repro_torch.data import (ClickLogLoader, DevicePrefetcher,
 from repro_torch.convert import load_jax_params
 from repro_torch.launch import train as launch_train
 from repro_torch.train import TrainEngine, Trainer
+from repro_torch.train import capture
 from repro_torch.train.capture import ChunkGraphs, tree_leaves
 
 BATCH = 128
@@ -344,6 +346,52 @@ def test_graphs_are_keyed_by_signature_and_bound_tensors():
     graphs({"x": tail}, [torch.zeros(3)])  # another state: captured anew
     graphs({"x": full}, [torch.zeros(3)])  # and the old graphs are gone
     assert (graphs.captures, graphs.replays) == (4, 3)
+
+
+class _CountingGraphs(_StandInGraphs):
+    """A stand-in whose n-th graph holds the kernel nodes {"k": 1, "g<n>":
+    n} and that records which graphs were asked for their kernels."""
+
+    def __init__(self):
+        super().__init__()
+        self.made, self.asked = 0, []
+
+    def capture(self, fn):
+        graph = super().capture(fn)
+        self.made += 1
+        graph.n = self.made
+        return graph
+
+    def kernels(self, graph):
+        self.asked.append(graph.n)
+        return Counter({"k": 1, f"g{graph.n}": graph.n})
+
+
+def test_replays_count_their_graphs_kernel_nodes_while_counting(
+        monkeypatch):
+    """While ``capture.replayed_kernels`` is a Counter each replay adds its
+    graph's kernel nodes to it (asked of the backend once per graph); the
+    warm-up and capture add nothing, and with it None nothing is asked."""
+    backend = _CountingGraphs()
+    graphs = ChunkGraphs(lambda x, b: {"y": x["x"] * 2}, backend=backend)
+    x, tail = torch.ones(4), torch.ones(1)
+    graphs({"x": x})
+    graphs({"x": x})  # a replay, not counted
+    assert backend.asked == []
+    counts = Counter()
+    monkeypatch.setattr(capture, "replayed_kernels", counts)
+    graphs({"x": tail})  # warm-up and capture: nothing replayed
+    assert counts == Counter()
+    for _ in range(3):
+        graphs({"x": x})
+    graphs({"x": tail})
+    assert counts == Counter({"k": 4, "g1": 3, "g2": 2})
+    assert backend.asked == [1, 2]
+    z = torch.zeros(1)
+    graphs({"x": x}, [z])  # rebound: captured anew
+    graphs({"x": x}, [z])
+    assert counts == Counter({"k": 5, "g1": 3, "g2": 2, "g3": 3})
+    assert backend.asked == [1, 2, 3]
 
 
 def test_chunk_graphs_keep_nothing_of_what_they_were_bound_to():
