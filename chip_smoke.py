@@ -156,6 +156,38 @@ Phases, each printing JSON lines:
                   CPU port's fit, and evaluated on the held-out batch
                   beside gradient-trained PBM and UBM (launches counted as
                   above).
+14. The out-of-core data plane and its observability, after every earlier
+   path, in temporary directories removed at the end:
+   store          the 16 training batches written as a single-shard store
+                  (codec auto) train the paper-width DBN through the
+                  Trainer and a StreamingClickLogLoader: batches, per-step
+                  losses, parameters, moments and launches equal to the bit
+                  to the in-memory loader's run; 4,194,304 sessions
+                  ingested in 4 shards of 2^20 by 4 spawned workers,
+                  byte-identical to 1 worker (sessions/s of each, the
+                  seconds a spawned worker takes to import torch, bytes on
+                  disk and raw); one epoch of the DBN from that store (64
+                  steps, crc-verified, read ahead); a shard's read taken
+                  apart (each column's decode, verify and permuted gather,
+                  as stored and rewritten raw); the input path in turned
+                  rounds for the in-memory loader, the single-shard and the
+                  4-shard store, each with its warm step; a mid-epoch
+                  state_dict resume and, after corrupt_shard_file, the
+                  skip policy's stream, each against the fault-free
+                  stream, to the bit.
+   telemetry      the paper-width DBN, dense and with sparse tables, 16
+                  steps with telemetry=True under a Recorder with a
+                  JsonlSink: parameters, moments, losses and launches equal
+                  to the run without it, one capture and three replays, a
+                  replay and its staging under sync debug "error", every
+                  JSONL line valid, step 0's grad and parameter norms
+                  within 1e-5 relative of the CPU port's; the norms' device
+                  ms against their bound; the warm step with telemetry on
+                  and off in turned rounds; a ProfileWindow over steps 0-8
+                  (the first chunk's capture inside it): its trace parses
+                  and the capture holds; the launcher with --store-dir
+                  --ingest --metrics-out --trace-out --profile-steps 2:5 in
+                  a subprocess, exit 0, its files valid.
 
 Every phase that drives a path sets every kernel's launch count to 0 just
 before it and reads the counts just after; they must be exact (where
@@ -3732,6 +3764,617 @@ def phase_em(data, card, steps=16, grad_epochs=4):
          fits=rows, seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# the out-of-core data plane and its observability (slice 10)
+# ---------------------------------------------------------------------------
+
+STORE_SESSIONS = 4 * 1048576  # the multi-shard store: 4 shards of 2^20
+STORE_SHARD_ROWS = 1048576
+
+
+def _batch_digest(batch) -> str:
+    """One hash over a host batch's keys, shapes, dtypes and bytes."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        v = np.ascontiguousarray(batch[k])
+        h.update(f"{k}{v.shape}{v.dtype.str}".encode())
+        h.update(v.view(np.uint8).reshape(-1).data)
+    return h.hexdigest()
+
+
+def _digests(loader, stop=None):
+    """The digests of ``loader``'s batches (one epoch, or the first
+    ``stop``)."""
+    out = []
+    for batch in loader:
+        out.append(_batch_digest(batch))
+        if stop is not None and len(out) == stop:
+            break
+    return out
+
+
+def _store_files(directory):
+    """{relative path: bytes} of a store's shard files, and its manifest
+    with ``metadata.ingest_workers`` dropped."""
+    files = {}
+    for dirpath, _, names in os.walk(directory):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            rel = os.path.relpath(path, directory)
+            if name == "manifest.json":
+                continue
+            with open(path, "rb") as f:
+                files[rel] = f.read()
+    with open(os.path.join(directory, "manifest.json")) as f:
+        manifest = json.load(f)
+    manifest["metadata"].pop("ingest_workers", None)
+    return files, manifest
+
+
+def _spawn_import_seconds():
+    """Seconds a fresh interpreter takes to import ``repro_torch.data`` (the
+    module a spawned ingest worker unpickles its job from), torch
+    included, measured inside the child."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    code = ("import time; t = time.perf_counter(); import repro_torch.data; "
+            "print(time.perf_counter() - t)")
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=300)
+    return float(out.stdout.strip().splitlines()[-1])
+
+
+def _dbn_trainer(**kw):
+    from repro_torch import optim
+    from repro_torch.train import Trainer
+
+    return Trainer(optim.adamw(3e-3, weight_decay=1e-4), epochs=1,
+                   chunk_batches=4, device="cuda", log_fn=_quiet, **kw)
+
+
+def _keep_engines(trainer):
+    """Make ``trainer`` keep every engine it builds (``trainer.engines``),
+    to read their graphs' captures and replays."""
+    trainer.engines = []
+    make = trainer._make_engine
+
+    def keeping(model):
+        engine = make(model)
+        trainer.engines.append(engine)
+        return engine
+
+    trainer._make_engine = keeping
+    return trainer
+
+
+SPARSE_TABLES = dict(sparse_tables=True,
+                     sparse_table_kwargs=dict(lr=3e-3, weight_decay=1e-4))
+
+
+def _run_dbn(what, loader, steps, sink=None, **kw):
+    """A fresh paper-width DBN trained by a one-epoch Trainer (``kw``) over
+    ``loader`` (``steps`` steps, chunks of 4), counted as a
+    :func:`measured_run`, its events into ``sink`` (a MemorySink by
+    default). Returns (model, trainer, history, counts, sink)."""
+    from repro_torch import obs
+    from repro_torch.configs.clax_baidu import make_model
+    from repro_torch.train import TrainEngine
+
+    model = make_model("dbn", device="cuda")
+    sink = obs.MemorySink() if sink is None else sink
+    trainer = _keep_engines(_dbn_trainer(recorder=obs.Recorder([sink]),
+                                         **kw))
+    per_step = dict(examination_nll=1, **_optimizer_launches(TrainEngine(
+        model, trainer.optimizer, sparse_tables=trainer.sparse_tables,
+        sparse_table_kwargs=trainer.sparse_table_kwargs), 1))
+    eager = min(4, steps)
+    history, counts = measured_run(
+        what, lambda: trainer.train(model, loader),
+        {k: n * steps for k, n in per_step.items()},
+        {k: n * eager for k, n in per_step.items()})
+    return model, trainer, history, counts, sink
+
+
+def _versus(a_model, a_trainer, b_model, b_trainer):
+    from repro_torch.train.capture import tree_leaves
+
+    return {"params": _gap(list(zip(a_model.parameters(),
+                                    b_model.parameters()))),
+            "moments": _gap(list(zip(
+                tree_leaves(a_trainer._final_state.opt_state),
+                tree_leaves(b_trainer._final_state.opt_state))))}
+
+
+def _shard_read_ms(store, root):
+    """Where a streaming loader's read of one 2^20-row shard goes, host ms
+    on the read-ahead thread's work done here inline: each column's open
+    (the decode of its codec) and crc32 verify, and the permuted gather of
+    the whole-shard window, for shard 0 as stored (codec ``auto``) and
+    for the same rows rewritten with codec ``raw`` (memory-mapped
+    columns, no decode)."""
+    import numpy as np
+
+    from repro_torch.data import write_session_store
+
+    keys = ("clicks", "mask", "positions", "query_doc_ids")
+    perm = np.random.default_rng((0, 0, 1)).permutation(store.shard_rows(0))
+    raw = write_session_store(store.open_shard(0, columns=keys),
+                              os.path.join(root, "raw_shard"),
+                              shard_rows=store.shard_rows(0), codec="raw")
+    out = {}
+    for name, st in (("auto", store), ("raw", raw)):
+        cols, part = {}, {}
+        for k in keys:
+            t0 = time.perf_counter()
+            cols[k] = st.open_shard(0, columns=(k,))[k]
+            t1 = time.perf_counter()
+            st.verify(0, columns=(k,))
+            t2 = time.perf_counter()
+            np.asarray(cols[k][perm])
+            t3 = time.perf_counter()
+            part[k] = {"codec": st.shard_codec(0, k),
+                       "stored_bytes": st.shard_stored_nbytes(0, k),
+                       "open_ms": (t1 - t0) * 1e3,
+                       "verify_ms": (t2 - t1) * 1e3,
+                       "gather_ms": (t3 - t2) * 1e3}
+        out[name] = {"columns": part, "total_ms": sum(
+            sum(v for key, v in c.items() if key.endswith("_ms"))
+            for c in part.values())}
+    return out
+
+
+def phase_store(data, card, steps=16):
+    """The out-of-core data plane on the card's host, in a temporary
+    directory: the smoke's 16 training batches written as a single-shard
+    store train the paper-width DBN through the Trainer and a
+    StreamingClickLogLoader equal to the bit to the in-memory loader's run
+    (batches, losses, parameters, moments, launches); 4,194,304 sessions
+    ingested in 4 shards by 4 spawned workers, byte-identical to 1; one
+    epoch of the DBN from that store, read ahead and crc-verified; a
+    mid-epoch resume and a quarantined corrupt shard against the
+    fault-free stream, to the bit; ingest rate, bytes, and the streaming
+    input path in turned rounds beside the in-memory loader's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.clax_baidu import TRAIN_BATCH
+    from repro_torch.data import (ClickLogLoader, SessionStore,
+                                  StreamingClickLogLoader, SyntheticConfig,
+                                  ingest_synthetic, write_session_store)
+    from repro_torch.testing import corrupt_shard_file
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    out = {}
+    try:
+        # 1-3: the single-shard store against the in-memory loader
+        train = {k: v[:steps * TRAIN_BATCH] for k, v in data.items()}
+        t0 = time.perf_counter()
+        single = write_session_store(train, os.path.join(root, "single"),
+                                     shard_rows=len(train["clicks"]),
+                                     codec="auto")
+        out["single_shard_write_s"] = time.perf_counter() - t0
+
+        def memory_loader():
+            return ClickLogLoader(train, batch_size=TRAIN_BATCH, seed=0)
+
+        def single_loader():
+            return StreamingClickLogLoader(single, batch_size=TRAIN_BATCH,
+                                           seed=0)
+
+        batches_equal = _digests(memory_loader()) == _digests(
+            single_loader())
+        ref = _run_dbn("store_in_memory_dbn", memory_loader(), steps)
+        fed = _run_dbn("store_single_shard_dbn", single_loader(), steps)
+        versus = _versus(ref[0], ref[1], fed[0], fed[1])
+        losses = [run[4].series("train_step") for run in (ref, fed)]
+        losses_equal = losses[0] == losses[1] and len(losses[1]) == steps
+        if not (batches_equal and losses_equal and ref[3] == fed[3]
+                and not any(g["elements_differing"]
+                            for g in versus.values())):
+            raise AssertionError(
+                f"store: the single-shard store's run differs from the "
+                f"in-memory one: batches {batches_equal}, losses "
+                f"{losses_equal}, {versus}, launches {fed[3]} vs {ref[3]}")
+        out["single_shard"] = {
+            "batches_bits_equal": batches_equal,
+            "losses_bits_equal": losses_equal,
+            "versus_in_memory": versus, "launches": fed[3]["launches"],
+            "in_memory_launches": ref[3]["launches"],
+            "wrapper_launches": fed[3]["wrapper_launches"],
+            "stored_bytes": single.stored_nbytes(),
+            "raw_bytes": single.rows * sum(
+                c.row_nbytes for c in single.columns.values())}
+        emit("store_part", single_shard=out["single_shard"])
+        del ref, fed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4: parallel ingest, byte-identical to one worker
+        cfg = SyntheticConfig(n_sessions=STORE_SESSIONS,
+                              n_queries=STORE_SESSIONS // 100,
+                              docs_per_query=20, positions=K_MAIN,
+                              behavior="dbn", seed=0)
+        chunk = STORE_SESSIONS // 16
+        ingest = {}
+        for workers in (4, 1):
+            where = os.path.join(root, f"ingest_{workers}")
+            t0 = time.perf_counter()
+            ingest_synthetic(cfg, where, chunk_sessions=chunk,
+                             shard_rows=STORE_SHARD_ROWS, codec="auto",
+                             workers=workers)
+            seconds = time.perf_counter() - t0
+            ingest[workers] = {"seconds": seconds,
+                               "sessions_per_s": STORE_SESSIONS / seconds}
+        many, one = (_store_files(os.path.join(root, f"ingest_{w}"))
+                     for w in (4, 1))
+        identical = many == one
+        if not identical:
+            raise AssertionError("store: the 4-worker ingest differs from "
+                                 "the 1-worker one")
+        del many, one
+        shutil.rmtree(os.path.join(root, "ingest_1"))
+        path = os.path.join(root, "ingest_4")
+        store = SessionStore(path)
+        raw = store.rows * sum(c.row_nbytes for c in store.columns.values())
+        out["ingest"] = {
+            "sessions": STORE_SESSIONS, "shard_rows": STORE_SHARD_ROWS,
+            "chunk_sessions": chunk, "codec": "auto",
+            "workers_4": ingest[4], "workers_1": ingest[1],
+            "byte_identical_4_vs_1": identical,
+            "spawn_import_seconds": _spawn_import_seconds(),
+            "codecs": store.shards[0]["codecs"],
+            "stored_bytes": store.stored_nbytes(), "raw_bytes": raw,
+            "raw_over_stored": raw / store.stored_nbytes()}
+        emit("store_part", ingest=out["ingest"])
+
+        # 5: one epoch of the DBN from the multi-shard store
+        def multi_loader(**kw):
+            return StreamingClickLogLoader(path, batch_size=TRAIN_BATCH,
+                                           seed=0, verify_checksums=True,
+                                           **kw)
+
+        epoch_steps = multi_loader().batches_per_epoch
+        model, trainer, history, counts, sink = _run_dbn(
+            "store_multi_shard_dbn", multi_loader(), epoch_steps)
+        losses = sink.series("train_step")
+        if not (len(losses) == epoch_steps
+                and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"store: the multi-shard epoch gave "
+                                 f"{len(losses)} losses of {epoch_steps}")
+        out["multi_shard_epoch"] = {
+            "steps": epoch_steps, "seconds": history[-1]["seconds"],
+            "ms_per_step": history[-1]["seconds"] / epoch_steps * 1e3,
+            "train_loss": history[-1]["train_loss"],
+            "launches": counts["launches"],
+            "wrapper_launches": counts["wrapper_launches"]}
+        emit("store_part", multi_shard_epoch=out["multi_shard_epoch"])
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["shard_read_ms"] = _shard_read_ms(store, root)
+        emit("store_part", shard_read_ms=out["shard_read_ms"])
+
+        # the input path in turned rounds: the in-memory loader, the
+        # single-shard store over the same rows, the multi-shard store
+        # (crc-verified, read ahead), each with its warm step
+        def warm(loader_fn):
+            def run():
+                from repro_torch.configs.clax_baidu import make_model
+
+                model = make_model("dbn", device="cuda")
+                trainer = _dbn_trainer()
+                trainer.epochs = 2
+                return trainer.train(model, loader_fn())[1]["seconds"]
+            return run
+
+        rounds = {}
+        for name, loader_fn, n in (
+                ("in_memory", memory_loader, steps),
+                ("single_shard_store", single_loader, steps),
+                ("multi_shard_store", multi_loader, epoch_steps)):
+            warm_ms, input_path, warm_over = warm_and_input_rounds(
+                warm(loader_fn), loader_fn(), n)
+            rounds[name] = {"steps": n, "warm_step_ms": warm_ms,
+                            "input_ms_per_step": input_path,
+                            "warm_minus_overlapped_input_ms": warm_over}
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["rounds"] = rounds
+        emit("store_part", rounds=rounds)
+
+        # 6: a mid-epoch resume against the uninterrupted stream
+        whole = _digests(multi_loader())
+        head_loader = multi_loader()
+        cut = epoch_steps * 3 // 8  # inside the second shard
+        head = _digests(head_loader, stop=cut)
+        tail_loader = multi_loader()
+        tail_loader.load_state_dict(head_loader.state_dict())
+        tail = _digests(tail_loader)
+        resume_equal = head + tail == whole
+        if not resume_equal:
+            raise AssertionError("store: the resumed stream differs from "
+                                 "the uninterrupted one")
+
+        # 7: a corrupt shard quarantined: the fault-free stream less its
+        # rows (the expected stream read before the corruption)
+        bad = 2
+        expected_loader = multi_loader()
+        expected_loader.load_state_dict(
+            {"epoch": 0, "step": 0, "quarantined": [bad]})
+        expected = _digests(expected_loader)
+        corrupt_shard_file(path, shard=bad, column="clicks", seed=0)
+        skipped = []
+        for _ in range(2):
+            loader = multi_loader(corrupt_policy="skip", log_fn=_quiet)
+            skipped.append(_digests(loader))
+            if loader.quarantined != {bad}:
+                raise AssertionError(f"store: quarantined "
+                                     f"{loader.quarantined}, not {bad}")
+        quarantine_ok = skipped[0] == skipped[1] == expected and len(
+            expected) == epoch_steps - STORE_SHARD_ROWS // TRAIN_BATCH
+        if not quarantine_ok:
+            raise AssertionError("store: the quarantined stream is not the "
+                                 "fault-free one less the corrupt shard")
+        out["resume"] = {"cut_at_step": cut, "bits_equal": resume_equal}
+        out["quarantine"] = {"shard": bad, "batches": len(expected),
+                             "deterministic": skipped[0] == skipped[1],
+                             "equal_to_fault_free_less_shard": True}
+
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("store", card=card, steps=steps, batch=TRAIN_BATCH, **out,
+         bits_equal=True, seconds=time.perf_counter() - t_phase)
+
+
+def _telemetry_cpu_norms(kind, batch_np):
+    """grad_norm and param_norm of one telemetry step of a fresh CPU
+    paper-width model (the plain versions) on ``batch_np``."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs.clax_baidu import make_model
+    from repro_torch.train import TrainEngine
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    model = make_model("dbn", device="cpu")
+    sparse = SPARSE_TABLES if kind == "sparse" else {}
+    engine = TrainEngine(model, optim.adamw(3e-3, weight_decay=1e-4),
+                         telemetry=True, **sparse)
+    state = engine.init_opt_state()
+    chunk = {k: torch.from_numpy(v)[None] for k, v in batch_np.items()}
+    _, out = engine.step(state, chunk)
+    return float(out["grad_norm"][0]), float(out["param_norm"][0])
+
+
+def phase_telemetry(data, card, steps=16):
+    """On-device telemetry and the profiler window on the paper-width DBN:
+    dense and with sparse tables, 16 steps with ``telemetry=True`` under a
+    Recorder with a JsonlSink, equal to the bit to the run without it,
+    still one capture and one replay per later chunk, a chunk's replay and
+    staging under sync debug "error", every JSONL line valid, the first
+    step's norms against the CPU port's; the norms' device ms against
+    their bound and the warm step with telemetry on and off; a
+    ProfileWindow over the first capture; the launcher end to end on a
+    store with every observability flag."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs, optim
+    from repro_torch.configs.clax_baidu import TRAIN_BATCH, make_model
+    from repro_torch.obs.telemetry import stage
+    from repro_torch.train import TrainEngine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    out = {}
+    try:
+        first = {k: v[:TRAIN_BATCH] for k, v in next(iter(
+            _train_loader(data, steps))).items()}
+        for kind in ("dense", "sparse"):
+            sparse = SPARSE_TABLES if kind == "sparse" else {}
+            plain = _run_dbn(f"telemetry_off_{kind}",
+                             _train_loader(data, steps), steps, **sparse)
+            jsonl = os.path.join(root, f"telemetry_{kind}.jsonl")
+            model, trainer, _, counts, sink = _run_dbn(
+                f"telemetry_on_{kind}", _train_loader(data, steps), steps,
+                sink=obs.JsonlSink(jsonl), telemetry=True, **sparse)
+            sink.close()
+            graphs = trainer.engines[0].graphs
+            one_replay = (graphs.captures == 1
+                          and graphs.replays == steps // 4 - 1)
+            versus = _versus(plain[0], plain[1], model, trainer)
+            if any(g["elements_differing"] for g in versus.values()):
+                raise AssertionError(f"telemetry_{kind}: parameters differ "
+                                     f"from the run without it: {versus}")
+            if not one_replay or counts["launches"] != plain[3]["launches"]:
+                raise AssertionError(
+                    f"telemetry_{kind}: {graphs.captures} captures and "
+                    f"{graphs.replays} replays for {steps // 4} chunks, "
+                    f"launches {counts['launches']}")
+            events = obs.read_jsonl(jsonl, validate=True)
+            metrics = [e for e in events if e["kind"] == "metric"]
+            if [e["step"] for e in metrics] != list(range(steps)) or any(
+                    not {"grad_norm", "param_norm"} <= set(e["data"])
+                    for e in metrics):
+                raise AssertionError(f"telemetry_{kind}: metric events "
+                                     f"{[e['step'] for e in metrics]}")
+            if [e["value"] for e in metrics] != plain[4].series(
+                    "train_step"):
+                raise AssertionError(f"telemetry_{kind}: losses differ "
+                                     "from the run without telemetry")
+            del plain
+            gc.collect()
+            # no host sync in a chunk: a replay and its staging
+            chunk = _chunk_of(_device_batch(data, 0, TRAIN_BATCH), 4)
+            probe = TrainEngine(model, optim.adamw(3e-3, weight_decay=1e-4),
+                                chunk_batches=4, telemetry=True, **sparse)
+            state = probe.init_opt_state()
+            probe.step(state, chunk)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, payload = probe.step(state, chunk)
+                staged = stage(payload)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            staged[1].synchronize()
+            # the norms' device time at this width, and their bound
+            grads = [torch.randn_like(p) for p in probe.params]
+
+            def norms():
+                with torch.no_grad():
+                    return (optim.global_norm(grads),
+                            optim.global_norm(probe.params))
+
+            norm_ms = graph_ms(norms)
+            n_bytes = 2 * sum(p.numel() * p.element_size()
+                              for p in probe.params)
+            n_ops = 2 * 2 * sum(p.numel() for p in probe.params)
+            t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = n_ops / PEAK_FP32_PER_S * 1e3
+            del grads, probe, state, payload, staged, chunk
+            gc.collect()
+            torch.cuda.empty_cache()
+            gpu_first = metrics[0]["data"]
+            cpu = _telemetry_cpu_norms(kind, first)
+            rel = {k: abs(gpu_first[k] - c) / abs(c)
+                   for k, c in zip(("grad_norm", "param_norm"), cpu)}
+            if max(rel.values()) > 1e-5:
+                raise AssertionError(f"telemetry_{kind}: norms against the "
+                                     f"CPU port's: {rel}")
+            out[kind] = {
+                "params_bits_equal_to_off": True, "versus_off": versus,
+                "captures": graphs.captures, "replays": graphs.replays,
+                "one_replay_per_chunk": one_replay,
+                "launches": counts["launches"],
+                "no_host_sync_in_chunk": True,
+                "jsonl_lines": len(events), "jsonl_valid": True,
+                "event_kinds": sorted({e["kind"] for e in events}),
+                "first_step": gpu_first,
+                "cpu_first_step": dict(zip(("grad_norm", "param_norm"),
+                                           cpu)),
+                "norms_rel_err_vs_cpu": rel,
+                "norms_device_ms": norm_ms,
+                "norms_bound_ms": max(t_bytes, t_ops),
+                "norms_bound_by": ("bytes" if t_bytes >= t_ops
+                                   else "operations")}
+            del model, trainer, graphs
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # the warm step with telemetry on and off, in turned rounds
+        def warm(telemetry):
+            model = make_model("dbn", device="cuda")
+            trainer = _dbn_trainer(telemetry=telemetry,
+                                   recorder=obs.Recorder([obs.MemorySink()]))
+            trainer.epochs = 2
+            seconds = trainer.train(model, _train_loader(data, steps))[1][
+                "seconds"]
+            return seconds / steps * 1e3
+
+        warm_ms = {"on": [], "off": []}
+        for r in range(3):
+            for telemetry in ((True, False) if r % 2 == 0
+                              else (False, True)):
+                warm_ms["on" if telemetry else "off"].append(warm(telemetry))
+                gc.collect()
+                torch.cuda.empty_cache()
+        out["warm_step_ms"] = {k: {**_spread(v), "runs": v}
+                               for k, v in warm_ms.items()}
+
+        # a profiler window over the first chunk's capture
+        prof_dir = os.path.join(root, "profile")
+        model = make_model("dbn", device="cuda")
+        trainer = _keep_engines(_dbn_trainer(profile_steps="0:8",
+                                             profile_dir=prof_dir))
+        n = len(list(model.parameters()))
+        _, prof_counts = measured_run(
+            "telemetry_profile_window",
+            lambda: trainer.train(model, _train_loader(data, steps)),
+            {"examination_nll": steps, "adamw": n * steps},
+            {"examination_nll": 4, "adamw": n * 4})
+        graphs = trainer.engines[0].graphs
+        traces = os.listdir(prof_dir)
+        with open(os.path.join(prof_dir, traces[0])) as f:
+            trace = json.load(f)
+        device_events = sum(1 for e in trace.get("traceEvents", [])
+                            if e.get("cat") == "kernel")
+        if not (len(traces) == 1 and graphs.captures == 1
+                and graphs.replays == steps // 4 - 1):
+            raise AssertionError(f"telemetry: profile window wrote {traces}"
+                                 f", {graphs.captures} captures")
+        out["profile_window"] = {
+            "steps": "0:8", "trace_files": traces,
+            "trace_events": len(trace.get("traceEvents", [])),
+            "trace_device_kernels": device_events,
+            "capture_succeeded": True, "captures": graphs.captures,
+            "replays": graphs.replays, "launches": prof_counts["launches"]}
+        del model, trainer, graphs, trace
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["launcher"] = _launcher_observability(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("telemetry", card=card, steps=steps, batch=TRAIN_BATCH, **out,
+         seconds=time.perf_counter() - t_phase)
+
+
+def _launcher_observability(root):
+    """``python -m repro_torch.launch.train --store-dir <tmp> --ingest
+    --metrics-out --trace-out --profile-steps 2:5`` on the card (UBM,
+    200,000 sessions, one epoch): exit 0, every JSONL line valid, the
+    Chrome trace and the profiler's trace parse."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    metrics = os.path.join(root, "launcher.jsonl")
+    trace = os.path.join(root, "launcher_trace.json")
+    prof = os.path.join(root, "launcher_profile")
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--store-dir",
+            os.path.join(root, "launcher_store"), "--ingest", "--epochs", "1",
+            "--ingest-workers", "2", "--verify-store", "--metrics-out",
+            metrics, "--trace-out", trace, "--profile-steps", "2:5",
+            "--profile-dir", prof]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, env=env, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launcher exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    from repro_torch import obs
+
+    events = obs.read_jsonl(metrics, validate=True)
+    with open(trace) as f:
+        spans = json.load(f)["traceEvents"]
+    profiles = os.listdir(prof)
+    with open(os.path.join(prof, profiles[0])) as f:
+        json.load(f)
+    names = Counter(f"{e['kind']}/{e['name']}" for e in events)
+    for want in ("metric/train_step", "span/shard_read", "span/epoch",
+                 "span/eval", "epoch/epoch_record", "process/process",
+                 "event/profile_start", "event/profile_stop"):
+        if not names.get(want):
+            raise AssertionError(f"launcher: no {want} event in {names}")
+    tests = [line for line in proc.stdout.splitlines()
+             if line.startswith("[train] test")]
+    return {"exit": 0, "seconds": seconds, "jsonl_lines": len(events),
+            "jsonl_valid": True, "events": dict(names),
+            "trace_spans": len(spans), "profile_traces": profiles,
+            "test": tests[-1] if tests else None}
+
+
+
 def main() -> int:
     import torch
 
@@ -3770,6 +4413,10 @@ def main() -> int:
     phase_guard_dbn(data, smi)
     phase_resume_dbn(data, smi)
     phase_em(data, smi)
+    # The out-of-core data plane and its observability, after every
+    # earlier path.
+    phase_store(data, smi)
+    phase_telemetry(data, smi)
     del data
     # Each kernel's launches in the training run of its path.
     for name, counts in (("examination_nll", dbn), ("session_nll", dctr),

@@ -1,6 +1,6 @@
 """Synthetic click-log simulator, copied from ``repro.data.synthetic``
-(the whole-log path; the chunked streaming generators wait for the store
-slice).
+(the whole-log path and the chunked generators that feed the session
+store).
 
 Generates WSCD/Baidu-ULTR-shaped interaction logs by sampling clicks from a
 ground-truth click model (PBM / DBN / UBM / cascade / mixture): Zipf-long-tailed
@@ -152,6 +152,91 @@ def generate_click_log(cfg: SyntheticConfig) -> Dict[str, np.ndarray]:
         "n_query_doc_pairs": cfg.n_query_doc_pairs,
     }
     return data, meta
+
+
+def make_features(gamma_s: np.ndarray, n_features: int, noise: float,
+                  rng: np.random.Generator) -> np.ndarray:
+    """Feature vectors carrying attractiveness signal + distractor dims."""
+    S, K = gamma_s.shape
+    logit = np.log(np.maximum(gamma_s, 1e-6)) - np.log(np.maximum(1 - gamma_s, 1e-6))
+    feats = rng.normal(scale=1.0, size=(S, K, n_features)).astype(np.float32)
+    # first few dims carry signal with varying SNR
+    n_signal = max(n_features // 4, 1)
+    for i in range(n_signal):
+        feats[:, :, i] = logit * (1.0 / (i + 1)) + rng.normal(
+            scale=noise, size=(S, K)).astype(np.float32)
+    return feats
+
+
+def chunk_sizes(cfg: SyntheticConfig, chunk_sessions: int):
+    """Row count of every chunk ``iter_click_log_chunks`` would yield —
+    pure arithmetic, no synthesis. The parallel ingest planner maps shard
+    boundaries to chunk ranges with this."""
+    if chunk_sessions < 1:
+        raise ValueError(f"chunk_sessions must be >= 1, got {chunk_sessions}")
+    return [min(chunk_sessions, cfg.n_sessions - lo)
+            for lo in range(0, cfg.n_sessions, chunk_sessions)]
+
+
+# Ground-truth tables are O(n_queries * docs_per_query) and identical for
+# every chunk of a config; a parallel-ingest worker synthesizing many chunks
+# of the same log must not re-draw them per chunk. Keyed by the config
+# (hashable via its dataclass fields), one entry per process is plenty.
+_GROUND_TRUTH_CACHE: Dict = {}
+
+
+def synthesize_chunk(cfg: SyntheticConfig, chunk_index: int,
+                     chunk_sessions: int) -> Dict[str, np.ndarray]:
+    """Synthesize chunk ``chunk_index`` of the deterministic chunk stream —
+    bit-identical to the ``chunk_index``-th yield of
+    :func:`iter_click_log_chunks` for the same ``(cfg, chunk_sessions)``,
+    but addressable at random: workers generate exactly the chunks whose
+    rows land in their shard range and nothing else."""
+    sizes = chunk_sizes(cfg, chunk_sessions)
+    if not 0 <= chunk_index < len(sizes):
+        raise IndexError(f"chunk {chunk_index} out of range: "
+                         f"{len(sizes)} chunks of {chunk_sessions}")
+    key = dataclasses.astuple(cfg)
+    if _GROUND_TRUTH_CACHE.get("key") != key:
+        gamma, theta, sigma = _ground_truth(cfg, np.random.default_rng(cfg.seed))
+        _GROUND_TRUTH_CACHE.update(key=key, tables=(gamma, theta, sigma),
+                                   q_probs=_query_probs(cfg))
+    gamma, theta, sigma = _GROUND_TRUTH_CACHE["tables"]
+    rng = np.random.default_rng((cfg.seed, chunk_index))
+    return _generate_sessions(cfg, sizes[chunk_index], gamma, theta, sigma,
+                              _GROUND_TRUTH_CACHE["q_probs"], rng)
+
+
+def iter_click_log_chunks(cfg: SyntheticConfig, chunk_sessions: int):
+    """Generator-mode synthesis: yield the log in bounded-memory chunks.
+
+    Ground-truth parameters (attractiveness/satisfaction tables, position
+    bias) are drawn once from ``cfg.seed`` — bit-identical to the tables
+    behind :func:`generate_click_log` — and held while sessions stream out
+    in chunks of ``chunk_sessions`` rows (last chunk partial). Each chunk
+    uses an independent generator seeded ``(cfg.seed, chunk_index)``, so the
+    stream is deterministic in ``(cfg, chunk_sessions)`` and chunks can in
+    principle be produced in parallel. Peak memory is O(chunk_sessions)
+    rows regardless of ``cfg.n_sessions``; feeding the chunks into a
+    :class:`repro_torch.data.store.SessionStoreWriter` synthesizes a 100M+ session
+    log without ever materializing it.
+
+    Note: the concatenated chunk stream is statistically identical to — but
+    not a bit-exact replay of — the monolithic ``generate_click_log`` draw
+    for the same seed (the session-level rng consumption order differs).
+    """
+    if chunk_sessions < 1:
+        raise ValueError(f"chunk_sessions must be >= 1, got {chunk_sessions}")
+    gamma, theta, sigma = _ground_truth(cfg, np.random.default_rng(cfg.seed))
+    q_probs = _query_probs(cfg)
+    emitted = 0
+    chunk_index = 0
+    while emitted < cfg.n_sessions:
+        n = min(chunk_sessions, cfg.n_sessions - emitted)
+        rng = np.random.default_rng((cfg.seed, chunk_index))
+        yield _generate_sessions(cfg, n, gamma, theta, sigma, q_probs, rng)
+        emitted += n
+        chunk_index += 1
 
 
 def make_features(gamma_s: np.ndarray, n_features: int, noise: float,

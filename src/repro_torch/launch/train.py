@@ -1,15 +1,34 @@
-"""Training launcher for the port's click models (in-memory path).
+"""Training launcher for the port's click models (port of
+``repro.launch.train``).
+
+In-memory path (the log must fit in host RAM):
 
     PYTHONPATH=src python -m repro_torch.launch.train --model ubm \\
         [--sessions 200000] [--epochs 20] [--batch 2048] \\
         [--compression hash --ratio 10] [--chunk-batches 8] \\
         [--sparse-tables] [--ckpt-dir ckpts/ubm] [--device cuda]
 
-Synthesizes a DBN-behaviour click log, splits it 80/10/10, trains any of
-the ten click models (UBM by default, as in ``repro.launch.train``) with
+Out-of-core path: ingest once into a sharded on-disk session store, then
+stream batches from it (peak data memory is O(chunk + shard), so the log
+can be far larger than RAM):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --model ubm \\
+        --store-dir /data/clicklog --ingest --sessions 100000000 \\
+        [--chunk-sessions 1000000] [--shard-rows 1000000] \\
+        [--ingest-workers 8] [--store-codec auto]
+
+``--ingest-workers N`` fans chunk synthesis and shard writing over N
+spawned worker processes (byte-identical output to one); ``--store-codec
+auto`` compresses each column per shard (bitpack/zlib/raw, chosen from the
+bytes). A directory that already holds ingested ``train/val/test`` stores
+is reused when ``--ingest`` is omitted; the model is sized from the
+``SyntheticConfig`` recorded in the store's manifest.
+
+Synthesizes (or reads) a DBN-behaviour click log split 80/10/10, trains any
+of the ten click models (UBM by default, as in ``repro.launch.train``) with
 AdamW (with ``--sparse-tables``, sparse lazy AdamW for the embedding
 tables) and prints the test metrics. Runs on the GPU unless ``--device
-cpu``. Port of the in-memory path of ``repro.launch.train``.
+cpu``.
 
 Sweeps: ``--replicas R`` trains R seed/lr variants in one engine, with
 ``--replica-seeds`` / ``--replica-lrs`` setting each replica's knobs.
@@ -20,8 +39,17 @@ write a final checkpoint and stop. ``--max-restarts N`` supervises
 training in a child process and relaunches it after crashes,
 ``--nonfinite-guard`` skips non-finite optimizer steps on the device,
 ``--step-budget-seconds`` counts slow steps, and ``--fault-kill-at-step``
-arms a chaos-test kill switch. The store, data-parallel and telemetry
-flags wait for later slices.
+arms a chaos-test kill switch; on the store path ``--verify-store``
+crc-checks shards as they are read, ``--corrupt-shards raise|skip``
+decides what a corrupt one does, and ``--io-retries`` retries transient
+read errors.
+
+Observability: ``--metrics-out`` writes telemetry events as JSONL (and
+turns on the engine's per-step grad and parameter norms), ``--trace-out``
+exports the host spans as a Chrome trace at the end, ``--obs-every`` thins
+per-step events, and ``--profile-steps A:B`` opens a ``torch.profiler``
+window into ``--profile-dir``. ``--data-parallel``, ``--kernel-impl`` and
+``--emit-roofline`` wait for later slices.
 """
 from __future__ import annotations
 
@@ -30,12 +58,74 @@ import os
 import signal
 import sys
 
-from repro_torch import optim
+from repro_torch import obs, optim
 from repro_torch.core import (MODEL_REGISTRY, Compression,
                               EmbeddingParameterConfig)
-from repro_torch.data import (ClickLogLoader, SyntheticConfig,
-                              generate_click_log, split_sessions)
+from repro_torch.data import (ClickLogLoader, SessionStore,
+                              StreamingClickLogLoader, SyntheticConfig,
+                              generate_click_log, ingest_synthetic,
+                              split_sessions)
 from repro_torch.train import Trainer
+
+
+def _synthetic_config(args) -> SyntheticConfig:
+    return SyntheticConfig(n_sessions=args.sessions,
+                           n_queries=max(args.sessions // 100, 1),
+                           docs_per_query=20, positions=10, behavior="dbn",
+                           seed=args.seed)
+
+
+def make_loaders(args):
+    """Returns (train_loader, val_loader, test_loader, data_cfg) where
+    data_cfg is the SyntheticConfig describing the data (for the store path,
+    rebuilt from the manifest's metadata, so models are sized against what
+    was actually ingested)."""
+    if args.store_dir:
+        if args.ingest:
+            cfg = _synthetic_config(args)
+            chunk = args.chunk_sessions or max(args.sessions // 20, 1)
+            print(f"[train] ingesting {cfg.n_sessions} sessions into "
+                  f"{args.store_dir} (chunk={chunk}, "
+                  f"shard_rows={args.shard_rows}, "
+                  f"codec={args.store_codec}, "
+                  f"workers={args.ingest_workers})", flush=True)
+            ingest_synthetic(cfg, args.store_dir, chunk_sessions=chunk,
+                             shard_rows=args.shard_rows,
+                             splits={"train": 0.8, "val": 0.1, "test": 0.1},
+                             codec=args.store_codec,
+                             workers=args.ingest_workers)
+        train_store = SessionStore(os.path.join(args.store_dir, "train"))
+        syn = train_store.metadata.get("synthetic_config")
+        if syn is None:
+            raise SystemExit(
+                f"{args.store_dir}/train has no synthetic_config metadata — "
+                "was it ingested with --ingest / ingest_synthetic?")
+        data_cfg = SyntheticConfig(**syn)
+        train = StreamingClickLogLoader(train_store, batch_size=args.batch,
+                                        seed=args.seed, host_id=args.host_id,
+                                        host_count=args.host_count,
+                                        window_rows=args.window_rows,
+                                        verify_checksums=args.verify_store,
+                                        corrupt_policy=args.corrupt_shards,
+                                        io_retries=args.io_retries)
+        val = StreamingClickLogLoader(os.path.join(args.store_dir, "val"),
+                                      batch_size=8192, shuffle=False,
+                                      drop_last=False)
+        test = StreamingClickLogLoader(os.path.join(args.store_dir, "test"),
+                                       batch_size=8192, shuffle=False,
+                                       drop_last=False)
+        return train, val, test, data_cfg
+
+    cfg = _synthetic_config(args)
+    data, _ = generate_click_log(cfg)
+    train, val, test = split_sessions(data, (0.8, 0.1, 0.1), seed=args.seed)
+    return (ClickLogLoader(train, batch_size=args.batch, seed=args.seed,
+                           host_id=args.host_id, host_count=args.host_count),
+            ClickLogLoader(val, batch_size=8192, shuffle=False,
+                           drop_last=False),
+            ClickLogLoader(test, batch_size=8192, shuffle=False,
+                           drop_last=False),
+            cfg)
 
 
 def main(argv=None):
@@ -49,6 +139,29 @@ def main(argv=None):
                     choices=[c.value for c in Compression])
     ap.add_argument("--ratio", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--host-id", type=int, default=0)
+    ap.add_argument("--host-count", type=int, default=1)
+    ap.add_argument("--store-dir", default=None,
+                    help="session-store directory; train via the streaming "
+                         "out-of-core loader instead of in-memory arrays")
+    ap.add_argument("--ingest", action="store_true",
+                    help="synthesize --sessions sessions chunk-by-chunk into "
+                         "--store-dir/{train,val,test} before training")
+    ap.add_argument("--chunk-sessions", type=int, default=None,
+                    help="ingest chunk size in sessions (default: sessions/20)")
+    ap.add_argument("--shard-rows", type=int, default=1_000_000,
+                    help="rows per store shard (unit of shuffle/host placement)")
+    ap.add_argument("--ingest-workers", type=int, default=1,
+                    help="worker processes for --ingest; each owns a "
+                         "disjoint shard block per split, byte-identical "
+                         "output to --ingest-workers 1")
+    ap.add_argument("--store-codec", default="auto", choices=["auto", "raw"],
+                    help="per-column store codec for --ingest: 'auto' picks "
+                         "bitpack/zlib/raw per column per shard; 'raw' pins "
+                         "the v1-byte-compatible memmap layout")
+    ap.add_argument("--window-rows", type=int, default=None,
+                    help="streaming read window within a shard (default: full "
+                         "shard)")
     ap.add_argument("--chunk-batches", type=int, default=8,
                     help="optimizer steps per engine chunk (losses are read "
                          "once per chunk)")
@@ -75,6 +188,17 @@ def main(argv=None):
                     help="supervise training in a child process and relaunch "
                          "it after crashes up to N times; resumes from "
                          "--ckpt-dir (required)")
+    ap.add_argument("--verify-store", action="store_true",
+                    help="crc32-verify every store shard's columns at read "
+                         "time (streaming path)")
+    ap.add_argument("--corrupt-shards", default="raise",
+                    choices=["raise", "skip"],
+                    help="what a corrupt train shard does under "
+                         "--verify-store: fail the run, or quarantine the "
+                         "shard and keep training deterministically")
+    ap.add_argument("--io-retries", type=int, default=2,
+                    help="transient shard-read failures retried with "
+                         "exponential backoff (streaming path)")
     ap.add_argument("--nonfinite-guard", action="store_true",
                     help="detect non-finite loss/grads on the device and "
                          "skip those optimizer steps (counted in history as "
@@ -91,8 +215,31 @@ def main(argv=None):
                     choices=["TERM", "KILL"],
                     help="signal --fault-kill-at-step sends (TERM exercises "
                          "graceful preemption, KILL an instant crash)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write structured telemetry events (JSONL, one per "
+                         "line) to this file; also turns on the engine's "
+                         "on-device per-step grad/param-norm series")
+    ap.add_argument("--trace-out", default=None,
+                    help="export host wall-time spans (epoch/eval/checkpoint/"
+                         "shard_read/...) as a Chrome-trace JSON for Perfetto "
+                         "at the end of the run")
+    ap.add_argument("--obs-every", type=int, default=1,
+                    help="emit every Nth per-step train metric event "
+                         "(loss/grad-norm/...); skips and epoch records are "
+                         "always emitted")
+    ap.add_argument("--profile-steps", default=None, metavar="A:B",
+                    help="open a torch.profiler trace window around the "
+                         "chunks covering global steps A..B")
+    ap.add_argument("--profile-dir", default="profile",
+                    help="directory the --profile-steps trace is written to")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
+    if args.ingest_workers < 1:
+        ap.error(f"--ingest-workers must be >= 1, got {args.ingest_workers}")
+    if (args.ingest_workers > 1 or args.store_codec != "auto") \
+            and not args.store_dir:
+        ap.error("--ingest-workers/--store-codec only apply to the store "
+                 "path — pass --store-dir (and --ingest)")
     if args.max_restarts:
         if not args.ckpt_dir:
             ap.error("--max-restarts requires --ckpt-dir (the restarted "
@@ -115,7 +262,10 @@ def main(argv=None):
         raise SystemExit(run_with_restarts(
             [sys.executable, "-m", "repro_torch.launch.train"] + child_args,
             args.max_restarts))
+    if args.ingest and not args.store_dir:
+        ap.error("--ingest requires --store-dir")
     if args.sparse_tables and args.compression == "quotient_remainder":
+        # fail before a potentially hours-long ingest, not inside train()
         ap.error("--sparse-tables does not support quotient_remainder "
                  "compression (two coupled tables, no single row-id stream)")
     if args.replicas is None and (args.replica_lrs or args.replica_seeds):
@@ -129,17 +279,16 @@ def main(argv=None):
                  "lazy-AdamW lr is a static hyperparameter shared by all "
                  "replicas); per-seed sweeps (--replica-seeds) are fine")
 
-    cfg = SyntheticConfig(n_sessions=args.sessions,
-                          n_queries=max(args.sessions // 100, 1),
-                          docs_per_query=20, positions=10, behavior="dbn",
-                          seed=args.seed)
-    data, _ = generate_click_log(cfg)
-    train, val, test = split_sessions(data, (0.8, 0.1, 0.1), seed=args.seed)
-    train_loader = ClickLogLoader(train, batch_size=args.batch, seed=args.seed)
-    val_loader = ClickLogLoader(val, batch_size=8192, shuffle=False,
-                                drop_last=False)
-    test_loader = ClickLogLoader(test, batch_size=8192, shuffle=False,
-                                 drop_last=False)
+    # Observability: configure the process-global recorder before the
+    # loaders exist, so the streaming data plane's spans and counters land
+    # in the same stream. Spans always go to the host ring buffer (for
+    # --trace-out); the JSONL sink is attached only under --metrics-out.
+    previous = recorder = obs.get_recorder()
+    if args.metrics_out:
+        recorder = obs.configure(sinks=[obs.JsonlSink(args.metrics_out)])
+        print(f"[train] telemetry -> {args.metrics_out}", flush=True)
+
+    train_loader, val_loader, test_loader, cfg = make_loaders(args)
     if args.fault_kill_at_step is not None:
         from repro_torch.testing import KillSwitch
 
@@ -180,10 +329,23 @@ def main(argv=None):
                       replica_seeds=args.replica_seeds,
                       nonfinite_guard=args.nonfinite_guard,
                       step_budget_seconds=args.step_budget_seconds,
-                      seed=args.seed)
-    trainer.train(model, train_loader, val_loader,
-                  resume=bool(args.ckpt_dir))
-    results = trainer.test(model, test_loader)
+                      seed=args.seed,
+                      telemetry=bool(args.metrics_out),
+                      obs_every=args.obs_every,
+                      profile_steps=args.profile_steps,
+                      profile_dir=args.profile_dir)
+    try:
+        trainer.train(model, train_loader, val_loader,
+                      resume=bool(args.ckpt_dir))
+        results = trainer.test(model, test_loader)
+    finally:
+        if args.trace_out:
+            n_spans = recorder.export_chrome_trace(args.trace_out)
+            print(f"[train] {n_spans} spans -> {args.trace_out} "
+                  "(open in Perfetto / chrome://tracing)", flush=True)
+        recorder.flush_counters()
+        recorder.close()
+        obs.set_recorder(previous)
     if args.replicas is None:
         print("[train] test:", {k: round(v, 4) for k, v in results.items()
                                 if k != "per_rank"}, flush=True)

@@ -1,34 +1,75 @@
 """Deterministic fault injection for chaos tests, port of the training
-half of ``repro.testing.faults`` (numpy only; that module imports the JAX
-package's store).
+and store half of ``repro.testing.faults`` (numpy only; that module imports
+the JAX package's store).
 
-Every injector is reproducible from explicit arguments (a step index, a
-byte count), so a chaos test that fails replays bit for bit:
+Every injector is reproducible from explicit arguments (a seed, a step
+index, a byte offset), so a chaos test that fails replays bit for bit:
 
-* **Disk corruption** — :func:`truncate_tail` chops bytes off any file
-  (e.g. a checkpoint's ``arrays.npz``, a crash mid-write that the COMMIT
-  ordering missed).
+* **Disk corruption** — :func:`corrupt_shard_file` flips bits inside one
+  column file of an on-disk
+  :class:`~repro_torch.data.store.SessionStore` shard;
+  :func:`truncate_tail` chops bytes off any file (e.g. a checkpoint's
+  ``arrays.npz``, a crash mid-write that the COMMIT ordering missed).
 * **Numerical faults** — :class:`NonFiniteBatchInjector` wraps a loader and
   poisons chosen batches with NaN/Inf, driving the engine's
   ``nonfinite_guard`` skip path.
+* **Flaky IO** — :class:`FlakyShardReads` wraps a store so the first N
+  ``open_shard`` calls fail with a transient ``OSError`` (optionally after a
+  delay), driving the streaming loader's retry-with-backoff path.
 * **Process death** — :class:`KillSwitch` wraps a loader and signals the
   *current process* (SIGTERM for a graceful preemption, SIGKILL for an
   instant crash) when batch N is produced, driving the resume path. The
   switch carries a caller-armed gate (``armed=False`` builds it disarmed).
 
-The injectors are loader proxies: any attribute they do not override
-forwards to the wrapped loader, so ``state_dict``, ``batch_size`` and the
-rest keep working and the proxies compose with ``DevicePrefetcher`` and
-``Trainer`` unchanged. The store's faults (``corrupt_shard_file``,
-``FlakyShardReads``) wait for the store, the serving faults for serving.
+The injectors are loader and store proxies: any attribute they do not
+override forwards to the wrapped object, so ``state_dict``, ``batch_size``
+and the rest keep working and the proxies compose with ``DevicePrefetcher``
+and ``Trainer`` unchanged. The serving faults wait for serving.
 """
 from __future__ import annotations
 
+import json
 import os
 import signal
-from typing import Iterable
+import time
+from typing import Dict, Iterable, Optional
 
 import numpy as np
+
+from repro_torch.data.store import MANIFEST_NAME
+
+
+def corrupt_shard_file(store_dir: str, shard: int = 0,
+                       column: Optional[str] = None, n_flips: int = 1,
+                       seed: int = 0,
+                       byte_offset: Optional[int] = None) -> Dict:
+    """Flip bits in one column file of a committed store shard.
+
+    The byte offsets are drawn from ``rng(seed)`` (or pinned via
+    ``byte_offset``) and each chosen byte is XORed with 0xFF, so a single
+    flip is guaranteed to change the column's crc32. Returns a description
+    dict (``path``, ``column``, ``offsets``) for test assertions and
+    replays.
+    """
+    with open(os.path.join(store_dir, MANIFEST_NAME)) as f:
+        manifest = json.load(f)
+    shard_meta = manifest["shards"][shard]
+    if column is None:
+        column = sorted(manifest["columns"])[0]
+    path = os.path.join(store_dir, shard_meta["name"], f"{column}.bin")
+    size = os.path.getsize(path)
+    if byte_offset is not None:
+        offsets = [int(byte_offset)]
+    else:
+        offsets = np.random.default_rng(seed).integers(
+            0, size, size=n_flips).tolist()
+    with open(path, "r+b") as f:
+        for off in offsets:
+            f.seek(off)
+            byte = f.read(1)
+            f.seek(off)
+            f.write(bytes([byte[0] ^ 0xFF]))
+    return {"path": path, "column": column, "offsets": offsets}
 
 
 def truncate_tail(path: str, n_bytes: int = 1) -> int:
@@ -91,6 +132,36 @@ class NonFiniteBatchInjector(_LoaderProxy):
                 self.injected += 1
             self.produced += 1
             yield batch
+
+
+class FlakyShardReads:
+    """Store proxy whose first ``fail_times`` ``open_shard`` calls fail.
+
+    Failures raise a transient ``OSError`` (optionally preceded by
+    ``delay_seconds`` of latency, simulating a slow remote filesystem);
+    subsequent calls pass through, so a reader with ``io_retries >=
+    fail_times`` recovers and one without surfaces the error.
+    """
+
+    def __init__(self, store, fail_times: int = 1, delay_seconds: float = 0.0):
+        self._store = store
+        self.fail_times = int(fail_times)
+        self.delay_seconds = float(delay_seconds)
+        self.calls = 0
+        self.failures = 0
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+    def open_shard(self, index, columns=None):
+        self.calls += 1
+        if self.delay_seconds:
+            time.sleep(self.delay_seconds)
+        if self.failures < self.fail_times:
+            self.failures += 1
+            raise OSError(f"injected transient IO failure "
+                          f"#{self.failures} (shard {index})")
+        return self._store.open_shard(index, columns=columns)
 
 
 class KillSwitch(_LoaderProxy):

@@ -7,7 +7,9 @@ dict of device tensors (one chunk's stacked batches; for evaluation also
 the metric state), ``bound`` is what the caller passed beside them (for
 training the parameters and the optimizer state, which the body updates
 in place), and the body returns a dict of tensors. The first call of each
-signature (every input's name, shape and dtype) does three things:
+signature (every input's name, shape and dtype, after the caller's
+``tag``: what else changes the body, such as the engine's telemetry) does
+three things:
 
 1. copies the inputs into static buffers of its own;
 2. runs the body eagerly over them, on a side stream (one per device)
@@ -197,15 +199,16 @@ class ChunkGraphs:
         self.replays = 0
         self.capture_seconds = 0.0
 
-    def __call__(self, inputs: Tensors, bound: Any = ()) -> Tensors:
+    def __call__(self, inputs: Tensors, bound: Any = (),
+                 tag: tuple = ()) -> Tensors:
         where = tuple((t.data_ptr(), tuple(t.shape), t.dtype)
                       for t in tree_leaves(bound))
         if where != self._bound:
             self._entries.clear()
             self._kernels.clear()
             self._bound = where
-        key = tuple((k, tuple(v.shape), v.dtype)
-                    for k, v in sorted(inputs.items()))
+        key = tag + tuple((k, tuple(v.shape), v.dtype)
+                          for k, v in sorted(inputs.items()))
         entry = self._entries.get(key)
         if entry is None:
             return self._first(key, inputs, bound)

@@ -1,8 +1,9 @@
 """Training engine: chunked steps with device-resident losses, sparse
-embedding tables, replica sweeps and the non-finite guard.
+embedding tables, replica sweeps, the non-finite guard and on-device
+telemetry.
 
 Port of ``repro.train.engine.TrainEngine`` (the mesh waits for the
-distributed slice, telemetry for the telemetry slice).
+distributed slice).
 ``DevicePrefetcher(chunk_batches=N)`` stacks N host batches into one
 ``(N, B, ...)`` device tensor per key; :meth:`TrainEngine.step` runs the N
 optimizer steps over it and returns the per-step losses as one ``(N,)``
@@ -61,6 +62,20 @@ predicate, so a poisoned step keeps the previous parameters and optimizer
 state, step count included, with no host sync and no new capture. The
 payload becomes ``{"loss", "skipped"}`` (``(n,)`` or ``(n, R)`` each). Guard
 off is the unguarded engine, bit for bit.
+
+**On-device telemetry.** ``telemetry=True`` computes per-step scalars
+inside the chunk (JAX ``_telemetry_out``): the global norm of the gradients
+(:func:`repro_torch.optim.global_norm`), the global norm of the parameters
+after the update (after the guard's and the active mask's predicate: a
+skipped step reports the parameters it kept), and the injected learning
+rate where the optimizer carries one. They are outputs of the chunk beside
+the losses, at fixed addresses in the captured graph, so they leave the
+card with the losses, one chunk behind (:mod:`repro_torch.obs.telemetry`):
+no host sync and no dispatch of their own, still one replay per chunk. The
+parameters are bit for bit those of ``telemetry=False``. The payload
+becomes a dict ``{"loss", "grad_norm", "param_norm"[, "lr"][,
+"skipped"]}`` of ``(n,)`` (or ``(n, R)``) tensors. Telemetry on and off
+are separate chunk signatures: they never share a graph.
 """
 from __future__ import annotations
 
@@ -167,7 +182,7 @@ class TrainEngine:
                  sparse_tables: bool = False,
                  sparse_table_kwargs: Optional[Dict[str, Any]] = None,
                  replicas: Optional[int] = None,
-                 nonfinite_guard: bool = False):
+                 nonfinite_guard: bool = False, telemetry: bool = False):
         if chunk_batches < 1:
             raise ValueError(f"chunk_batches must be >= 1, got {chunk_batches}")
         if replicas is not None and replicas < 1:
@@ -177,6 +192,7 @@ class TrainEngine:
         self.chunk_batches = int(chunk_batches)
         self.replicas = None if replicas is None else int(replicas)
         self.nonfinite_guard = bool(nonfinite_guard)
+        self.telemetry = bool(telemetry)
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.paths = [param_path(n) for n in self.names]
@@ -382,24 +398,39 @@ class TrainEngine:
         return self._update(opt_state, self.params, _grads(self.params),
                             self._sparse_rows(batch), None)
 
+    def _telemetry_out(self, out, grads, params, opt_state) -> None:
+        """Add the step's telemetry to ``out``: ``grad_norm`` of ``grads``
+        (which the update reads and leaves), ``param_norm`` of ``params``
+        as the update left them, and the injected ``lr`` (a copy) where the
+        state has one."""
+        with torch.no_grad():
+            out["grad_norm"] = optim_lib.global_norm(grads)
+            out["param_norm"] = optim_lib.global_norm(params)
+            lr = optim_lib.get_injected_lr(opt_state)
+            if lr is not None:
+                out["lr"] = lr.clone()
+
     def _one_step(self, opt_state, batch: Dict[str, torch.Tensor]):
-        """One optimizer step; returns the new state and the detached loss
-        (with the guard, the pair (loss, skipped))."""
+        """One optimizer step; returns the new state and the step's outputs:
+        ``{"loss"}``, with the guard ``"skipped"``, with telemetry its
+        series."""
         for p in self.params:
             p.grad = None
         loss = self.model.compute_loss(batch)
         loss.backward()
         grads = _grads(self.params)
         rows = self._sparse_rows(batch)
+        out = {"loss": loss.detach()}
         if not self.nonfinite_guard:
             opt_state = self._update(opt_state, self.params, grads, rows,
                                      None)
-            out = loss.detach()
         else:
-            ok = all_finite(loss.detach(), grads)
+            ok = all_finite(out["loss"], grads)
             new = self._update(opt_state, self.params, grads, rows, ok)
             tree_copy_(opt_state, new)
-            out = (loss.detach(), ~ok)
+            out["skipped"] = ~ok
+        if self.telemetry:
+            self._telemetry_out(out, grads, self.params, opt_state)
         for p in self.params:
             p.grad = None
         return opt_state, out
@@ -408,10 +439,10 @@ class TrainEngine:
         """One step of every replica: for each, its forward over its views,
         its backward, and its update under ``active[r]`` (and its own
         finiteness, with the guard), into its slice of the stacked state.
-        Returns the state and the ``(R,)`` losses (with the guard, the pair
-        (losses, skipped))."""
+        Returns the state and the step's outputs, each ``(R,)``: ``loss``,
+        with the guard ``skipped``, with telemetry its series."""
         rows = self._sparse_rows(batch)
-        losses, skipped = [], []
+        outs = []
         for r, views in enumerate(self._views):
             for v in views:
                 v.grad = None
@@ -419,27 +450,29 @@ class TrainEngine:
                              batch)
             loss.backward()
             grads = _grads(views)
+            out = {"loss": loss.detach()}
             pred = self.active[r]
             if self.nonfinite_guard:
-                ok = all_finite(loss.detach(), grads)
+                ok = all_finite(out["loss"], grads)
                 # a frozen replica attempted no update: not skipped
-                skipped.append(~ok & pred)
+                out["skipped"] = ~ok & pred
                 pred = pred & ok
             state_r = tree_map(lambda t, r=r: t[r], opt_state)
             tree_copy_(state_r, self._update(state_r, views, grads, rows,
                                               pred))
+            if self.telemetry:
+                self._telemetry_out(out, grads, views, state_r)
             for v in views:
                 v.grad = None
-            losses.append(loss.detach())
-        losses = torch.stack(losses)
-        if self.nonfinite_guard:
-            return opt_state, (losses, torch.stack(skipped))
-        return opt_state, losses
+            outs.append(out)
+        return opt_state, {k: torch.stack([o[k] for o in outs])
+                           for k in outs[0]}
 
     def _loop(self, opt_state, chunk: Dict[str, torch.Tensor]):
         """The chunk's steps one after the other: the CPU's route, and the
         body that a CUDA chunk captures. Returns the state and the ``(n,)``
-        (or ``(n, R)``) losses, or with the guard ``{"loss", "skipped"}``."""
+        (or ``(n, R)``) losses, or, with the guard or telemetry, the dict
+        of every per-step series (see :meth:`step`)."""
         n = next(iter(chunk.values())).shape[0]
         one_step = (self._one_step if self.replicas is None
                     else self._replica_one_step)
@@ -448,10 +481,10 @@ class TrainEngine:
             opt_state, out = one_step(opt_state,
                                       {k: v[i] for k, v in chunk.items()})
             outs.append(out)
-        if not self.nonfinite_guard:
-            return opt_state, torch.stack(outs)
-        return opt_state, {"loss": torch.stack([o[0] for o in outs]),
-                           "skipped": torch.stack([o[1] for o in outs])}
+        stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        # a bare loss payload stays the (n,) tensor (JAX's _step_out_ys)
+        return opt_state, (stacked["loss"] if set(stacked) == {"loss"}
+                           else stacked)
 
     @staticmethod
     def _chunk_body(chunk: Dict[str, torch.Tensor], bound):
@@ -474,8 +507,10 @@ class TrainEngine:
         """``n = chunk[k].shape[0]`` optimizer steps, one per stacked batch.
         Returns the new optimizer state and the ``(n,)`` loss tensor (``(n,
         R)`` with replicas; with the guard ``{"loss", "skipped"}``, same
-        shapes). A CUDA chunk is one graph replay (after its signature's
-        first chunk, which runs eagerly and is captured); the state object
+        shapes; with telemetry also ``grad_norm``, ``param_norm`` and, for
+        an injected-lr optimizer, ``lr``). A CUDA chunk is one graph replay
+        (after its signature's first chunk, which runs eagerly and is
+        captured); the state object
         passed in is updated in place and returned. ``active``, an ``(R,)``
         bool mask (default: as the last call left it, all on at first),
         freezes the replicas it turns off."""
@@ -498,7 +533,9 @@ class TrainEngine:
     def _replayed(self, opt_state, chunk: Dict[str, torch.Tensor]):
         tensors = (self.params if self.replicas is None
                    else self.replica_params + [self.active])
-        out = self.graphs(chunk, (self, tensors, opt_state))
+        # telemetry on and off are separate signatures: never one graph
+        out = self.graphs(chunk, (self, tensors, opt_state),
+                          tag=("telemetry", self.telemetry))
         # a copy: the graph's buffers are overwritten by the next replay
         if "losses" in out:
             return opt_state, out["losses"].clone()

@@ -10,8 +10,8 @@ port of ``repro.train.fault_tolerance``.
 2. **Stragglers** — :func:`drop_slowest_aggregate` averages the gradients
    of the replicas that met the step deadline; :class:`StepWatchdog` flags
    steps that blow a wall-clock budget (the Trainer's
-   ``step_budget_seconds``). Its violations are counted and logged; the
-   telemetry events of the JAX version wait for the telemetry slice.
+   ``step_budget_seconds``). Its violations are counted, logged and
+   emitted as ``watchdog_violation`` events on the recorder.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import signal
 import subprocess
 from typing import Callable, Optional, Sequence
 
+from repro_torch.obs import get_recorder
 from repro_torch.tree import tree_map
 
 
@@ -104,14 +105,18 @@ class StepWatchdog:
 
     The Trainer creates one when ``step_budget_seconds`` is set and calls
     ``check`` with each chunk's mean per-step time; violations are counted
-    into the epoch record (``watchdog_violations``) and reported through
-    ``on_violation``.
+    into the epoch record (``watchdog_violations``), reported through
+    ``on_violation``, and emitted as ``watchdog_violation`` telemetry
+    events (with the measured seconds and the budget) on ``recorder`` —
+    the global one by default — so a stuck step shows up in the metrics
+    stream, not just the log.
     """
 
     def __init__(self, budget_seconds: float,
-                 on_violation: Optional[Callable] = None):
+                 on_violation: Optional[Callable] = None, recorder=None):
         self.budget = budget_seconds
         self.on_violation = on_violation
+        self.recorder = recorder
         self.violations = 0
 
     def check(self, step_seconds: float, step: int) -> int:
@@ -119,4 +124,10 @@ class StepWatchdog:
             self.violations += 1
             if self.on_violation is not None:
                 self.on_violation(step, step_seconds)
+            rec = (self.recorder if self.recorder is not None
+                   else get_recorder())
+            rec.event("watchdog_violation", float(step_seconds),
+                      step=int(step),
+                      data={"budget_seconds": float(self.budget)})
+            rec.add("watchdog_violations")
         return self.violations

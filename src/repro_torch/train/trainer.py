@@ -1,6 +1,5 @@
 """Trainer: the paper's Listing-1 entry point, port of
-``repro.train.trainer`` (the mesh, telemetry and the profiler window wait
-for later slices).
+``repro.train.trainer`` (the mesh waits for the distributed slice).
 
     trainer = Trainer(optimizer=adamw(0.003), epochs=50)
     history = trainer.train(model, train_loader, val_loader)
@@ -43,6 +42,20 @@ The run contract of a long run:
   the others train on), records carry per-replica lists, and checkpoints
   hold the R-stacked trees (``select_replica`` extracts any run).
 
+Observability (:mod:`repro_torch.obs`): the epoch's losses go through one
+:class:`~repro_torch.obs.TelemetryDrain`, fed each chunk's staged payload
+one chunk behind, which also emits a ``metric`` event per step
+(``obs_every`` thins them) with the engine's on-device series when
+``telemetry=True`` (grad and parameter norms, the injected lr). The epoch,
+each validation and each checkpoint are spans; every epoch ends with an
+``epoch`` event, a counters snapshot and the process's memory (host RSS
+and the card's). ``profile_steps="A:B"`` opens a ``torch.profiler`` window
+into ``profile_dir`` around the chunks covering those global steps. Events
+go to ``recorder``, else to the process-global one. Leaving an epoch by any
+path (its end, preemption, an exception) closes the prefetcher's iteration,
+which stops and joins its staging thread and, through it, the loader's
+iteration (a streaming loader's read-ahead producer).
+
 A single run trains the model's own parameters (the model was built with
 its own seed); ``TrainState.params`` is their JAX-shaped tree.
 """
@@ -60,6 +73,9 @@ import torch
 from repro_torch.core.metrics import (ConditionalPerplexity, LogLikelihood,
                                       MultiMetric, Perplexity)
 from repro_torch.data.loader import DevicePrefetcher
+from repro_torch.obs import (ProfileWindow, TelemetryDrain, get_recorder,
+                             make_event, parse_profile_steps)
+from repro_torch.obs.telemetry import stage
 from repro_torch.train.capture import ChunkGraphs
 from repro_torch.train.checkpoints import CheckpointManager
 from repro_torch.convert import param_path
@@ -80,99 +96,6 @@ class TrainState:
     opt_state: Any
     epoch: int = 0
     global_step: int = 0
-
-
-def _stage(payload):
-    """Start moving a chunk's losses (a tensor, or the guard's ``{"loss",
-    "skipped"}``) to the host, right after the chunk is queued. On CUDA the
-    copies go to pinned memory without blocking, and an event marks the
-    end of this chunk's work: reading a CUDA tensor directly (``.tolist()``)
-    would wait for everything queued on the stream, the next chunk
-    included."""
-    tensors = payload if isinstance(payload, dict) else {"loss": payload}
-    if next(iter(tensors.values())).device.type != "cuda":
-        return tensors, None
-    host = {}
-    for k, t in tensors.items():
-        host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host[k].copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
-
-
-def _read(staged) -> Dict[str, np.ndarray]:
-    """The staged payload as numpy arrays; waits for its chunk only."""
-    host, done = staged
-    if done is not None:
-        done.synchronize()
-    return {k: t.numpy() for k, t in host.items()}
-
-
-class _EpochAccum:
-    """One epoch's drained chunk payloads (the accumulators of JAX's
-    ``TelemetryDrain``): the loss sum over the steps that updated, the
-    steps, the skipped steps. One run's sum is a Python float added loss
-    by loss; a sweep's a float64 ``(R,)`` array."""
-
-    def __init__(self, replicas: Optional[int] = None):
-        self.R = replicas
-        self.n_batches = 0
-        if replicas is None:
-            self.train_loss: Any = 0.0
-            self.skipped_steps: Any = 0
-        else:
-            self.train_loss = np.zeros(replicas, np.float64)
-            self.skipped_steps = np.zeros(replicas, np.int64)
-
-    def load(self, accum: Dict[str, Any]) -> None:
-        """Restore mid-epoch accumulators from checkpoint aux."""
-        self.n_batches = int(accum["n_batches"])
-        if self.R is None:
-            self.train_loss = float(accum["train_loss"])
-            self.skipped_steps = int(accum.get("skipped", 0))
-        else:
-            self.train_loss = np.asarray(accum["train_loss"], np.float64)
-            self.skipped_steps = np.asarray(
-                accum.get("skipped", [0] * self.R), np.int64)
-
-    def aux(self) -> Dict[str, Any]:
-        """JSON-able accumulators: Python floats round-trip json exactly,
-        so a resumed epoch's loss sum is the uninterrupted run's."""
-        if self.R is None:
-            return {"train_loss": self.train_loss,
-                    "n_batches": int(self.n_batches),
-                    "skipped": int(self.skipped_steps)}
-        return {"train_loss": np.asarray(self.train_loss,
-                                         np.float64).tolist(),
-                "n_batches": int(self.n_batches),
-                "skipped": np.asarray(self.skipped_steps).tolist()}
-
-    def drain(self, staged) -> None:
-        data = _read(staged)
-        losses, skipped = data["loss"], data.get("skipped")
-        if self.R is None:
-            for i, loss in enumerate(losses.tolist()):
-                if skipped is not None and skipped[i]:
-                    self.skipped_steps += 1
-                else:
-                    self.train_loss += loss
-        else:
-            arr = np.asarray(losses, np.float64)
-            if skipped is None:
-                self.train_loss += arr.sum(axis=0)
-            else:
-                self.train_loss += np.where(skipped, 0.0, arr).sum(axis=0)
-                self.skipped_steps += skipped.sum(axis=0)
-        self.n_batches += losses.shape[0]
-
-    def mean_loss(self):
-        """Epoch mean over the steps that updated."""
-        if self.R is None:
-            return self.train_loss / max(self.n_batches - self.skipped_steps,
-                                         1)
-        return self.train_loss / np.maximum(
-            self.n_batches - self.skipped_steps, 1)
 
 
 _STATE = "metric_state/"
@@ -264,7 +187,9 @@ class Trainer:
                  replica_lrs: Optional[List[float]] = None,
                  replica_seeds: Optional[List[int]] = None,
                  nonfinite_guard: bool = False,
-                 step_budget_seconds: Optional[float] = None):
+                 step_budget_seconds: Optional[float] = None,
+                 telemetry: bool = False, recorder=None, obs_every: int = 1,
+                 profile_steps=None, profile_dir: Optional[str] = None):
         self.optimizer = optimizer
         self.epochs = epochs
         self.patience = patience
@@ -278,6 +203,19 @@ class Trainer:
         self.handle_preemption = handle_preemption
         self.nonfinite_guard = nonfinite_guard
         self.step_budget_seconds = step_budget_seconds
+        # Observability (see repro_torch.obs): `telemetry` turns on the
+        # engine's on-device per-step series; `recorder` pins a Recorder
+        # (default: the process-global one, resolved at use so a later
+        # obs.configure() still takes effect); `obs_every` thins per-step
+        # metric events; `profile_steps` ("A:B") opens a torch.profiler
+        # window into `profile_dir` around those global steps.
+        self.telemetry = bool(telemetry)
+        self.recorder = recorder
+        self.obs_every = int(obs_every)
+        self.profile_steps = (parse_profile_steps(profile_steps)
+                              if isinstance(profile_steps, str)
+                              else profile_steps)
+        self.profile_dir = profile_dir
         self.chunk_batches = chunk_batches
         self.device = torch.device(device)
         self.sparse_tables = sparse_tables
@@ -297,6 +235,10 @@ class Trainer:
         self._eval_cache: "collections.OrderedDict[int, tuple]" = \
             collections.OrderedDict()
 
+    def _rec(self):
+        """The recorder events go to: the pinned one, else the global."""
+        return self.recorder if self.recorder is not None else get_recorder()
+
     def _check_device(self, model) -> None:
         where = {p.device.type for p in model.parameters()}
         if where != {self.device.type}:
@@ -309,7 +251,8 @@ class Trainer:
                            sparse_tables=self.sparse_tables,
                            sparse_table_kwargs=self.sparse_table_kwargs,
                            replicas=self.replicas,
-                           nonfinite_guard=self.nonfinite_guard)
+                           nonfinite_guard=self.nonfinite_guard,
+                           telemetry=self.telemetry)
 
     def _init_state(self, engine) -> TrainState:
         """The run's live state: the model's parameters, or a sweep's
@@ -372,8 +315,14 @@ class Trainer:
             self.step_budget_seconds,
             on_violation=lambda step, sec: self.log_fn(
                 f"[trainer] watchdog: step ~{step} averaged {sec:.3f}s/step, "
-                f"over budget {self.step_budget_seconds}s"))
+                f"over budget {self.step_budget_seconds}s"),
+            recorder=self.recorder)
             if self.step_budget_seconds else None)
+        rec = self._rec()
+        profile = (ProfileWindow(*self.profile_steps,
+                                 log_dir=self.profile_dir or "profile",
+                                 recorder=self.recorder)
+                   if self.profile_steps else None)
         if R is None:
             best_val, bad_epochs = float("inf"), 0
         else:
@@ -414,7 +363,10 @@ class Trainer:
         try:
             while state.epoch < self.epochs:
                 t0 = time.perf_counter()
-                acc = _EpochAccum(R)
+                # The epoch's one source of truth for the loss, skip and
+                # batch accumulators and the per-step metric events.
+                acc = TelemetryDrain(replicas=R, recorder=self.recorder,
+                                     every=self.obs_every, epoch=state.epoch)
                 wd_epoch_start = watchdog.violations if watchdog else 0
                 if resume_accum is not None:
                     # First epoch after a mid-epoch resume: start from the
@@ -423,51 +375,71 @@ class Trainer:
                     acc.load(resume_accum)
                     resume_accum = None
                 epoch_active = None if R is None else active.copy()
-                pending = None  # the previous chunk's staged losses
+                # (staged payload, first global step of its chunk)
+                pending = None
                 stop = False
                 chunk_t0 = time.perf_counter()
                 # loader_state is the resume point after the chunk's last
                 # batch (the staging thread itself has run ahead).
-                for chunk, loader_state, n in DevicePrefetcher(
-                        train_loader, device=self.device,
-                        chunk_batches=engine.chunk_batches):
-                    state.opt_state, losses = engine.step(
-                        state.opt_state, chunk, active=epoch_active)
-                    staged = _stage(losses)
-                    if pending is not None:
-                        # Reading the previous chunk's losses waits only for
-                        # it; the chunk just queued keeps the device busy.
-                        acc.drain(pending)
-                    pending = staged
-                    prev_step = state.global_step
-                    state.global_step += n
-                    if watchdog is not None:
-                        now = time.perf_counter()
-                        watchdog.check((now - chunk_t0) / max(n, 1),
-                                       state.global_step)
-                        chunk_t0 = now
-                    every = self.checkpoint_every_steps
-                    save_now = bool(self.ckpt and every and prev_step // every
-                                    < state.global_step // every)
-                    preempted = preempt is not None and preempt.should_stop
-                    if save_now or (preempted and self.ckpt):
-                        # A mid-epoch checkpoint's accumulators must cover
-                        # exactly the batches its loader cursor has passed:
-                        # drain the chunk in flight first (the one host
-                        # sync a checkpoint costs).
-                        acc.drain(pending)
-                        pending = None
-                        self._save(state, train_loader, loader_state,
-                                   epoch_accum=acc.aux(), history=history)
-                    if preempted:
-                        self.log_fn("[trainer] preempted; checkpoint written"
+                items = iter(DevicePrefetcher(
+                    train_loader, device=self.device,
+                    chunk_batches=engine.chunk_batches))
+                try:
+                    with rec.span("epoch", epoch=state.epoch):
+                        for chunk, loader_state, n in items:
+                            if profile is not None:
+                                profile.before_chunk(state.global_step)
+                            state.opt_state, losses = engine.step(
+                                state.opt_state, chunk, active=epoch_active)
+                            staged = stage(losses)
+                            if pending is not None:
+                                # Reading the previous chunk's payload waits
+                                # only for it; the chunk just queued keeps
+                                # the device busy.
+                                acc.drain(*pending)
+                            pending = (staged, state.global_step)
+                            prev_step = state.global_step
+                            state.global_step += n
+                            if profile is not None:
+                                profile.after_chunk(state.global_step)
+                            if watchdog is not None:
+                                now = time.perf_counter()
+                                watchdog.check((now - chunk_t0) / max(n, 1),
+                                               state.global_step)
+                                chunk_t0 = now
+                            every = self.checkpoint_every_steps
+                            save_now = bool(self.ckpt and every
+                                            and prev_step // every
+                                            < state.global_step // every)
+                            preempted = (preempt is not None
+                                         and preempt.should_stop)
+                            if save_now or (preempted and self.ckpt):
+                                # A mid-epoch checkpoint's accumulators must
+                                # cover exactly the batches its loader cursor
+                                # has passed: drain the chunk in flight first
+                                # (the one host sync a checkpoint costs).
+                                acc.drain(*pending)
+                                pending = None
+                                with rec.span("checkpoint",
+                                              step=state.global_step):
+                                    self._save(state, train_loader,
+                                               loader_state,
+                                               epoch_accum=acc.aux(),
+                                               history=history)
+                            if preempted:
+                                self.log_fn(
+                                    "[trainer] preempted; checkpoint written"
                                     if self.ckpt else
                                     "[trainer] preempted; no checkpoint_dir "
                                     "configured — stopping without saving")
-                        stop = True
-                        break
-                if pending is not None:
-                    acc.drain(pending)
+                                stop = True
+                                break
+                        if pending is not None:
+                            acc.drain(*pending)
+                finally:
+                    # stops and joins the staging thread, which closes the
+                    # loader's iteration (a streaming loader's producer)
+                    items.close()
                 if stop:
                     self._final_state = state
                     return history
@@ -488,10 +460,11 @@ class Trainer:
                 if R is not None:
                     record["active"] = epoch_active.tolist()
                 if val_loader is not None:
-                    val = self.evaluate(
-                        model, val_loader,
-                        params=None if R is None else state.params,
-                        replicas=R)
+                    with rec.span("eval", epoch=state.epoch):
+                        val = self.evaluate(
+                            model, val_loader,
+                            params=None if R is None else state.params,
+                            replicas=R)
                     record.update({f"val_{k}": v for k, v in val.items()})
                     if R is None:
                         val_loss = -val["ll"]
@@ -510,6 +483,16 @@ class Trainer:
                                               bad_epochs + active.astype(int))
                 history.append(record)
                 self.log_fn(f"[trainer] {record}")
+                if rec.enabled:
+                    # The epoch record as one event, with the counters and
+                    # the process's memory: the heartbeat a dashboard tails.
+                    rec.emit(make_event("epoch", "epoch_record", data=record,
+                                        epoch=state.epoch - 1,
+                                        step=state.global_step))
+                    rec.flush_counters(epoch=state.epoch - 1,
+                                       step=state.global_step)
+                    rec.process_stats(epoch=state.epoch - 1,
+                                      step=state.global_step)
                 # Resolve stopping before the end-of-epoch checkpoint, so the
                 # saved early-stop state is the one the next epoch trains
                 # under.
@@ -531,7 +514,8 @@ class Trainer:
                 if self.ckpt:
                     # End of epoch: the loader's cursor is at the next
                     # epoch's start, and a fresh epoch has no accumulators.
-                    self._save(state, train_loader, history=history)
+                    with rec.span("checkpoint", step=state.global_step):
+                        self._save(state, train_loader, history=history)
                 if stop_now:
                     self.log_fn(f"[trainer] early stop at epoch {state.epoch}"
                                 if R is None else
@@ -541,6 +525,10 @@ class Trainer:
             self._final_state = state
             return history
         finally:
+            if profile is not None:
+                # idempotent: a window still open past the last trained step
+                # (or an exception inside it) writes its trace here
+                profile.close(state.global_step)
             if preempt is not None:
                 preempt.restore()
 
