@@ -187,7 +187,34 @@ Phases, each printing JSON lines:
                   (the first chunk's capture inside it): its trace parses
                   and the capture holds; the launcher with --store-dir
                   --ingest --metrics-out --trace-out --profile-steps 2:5 in
-                  a subprocess, exit 0, its files valid.
+                  a subprocess, exit 0, its files valid. Then ROADMAP C.4:
+                  an R = 2 sweep with replica 1 frozen and telemetry on
+                  (dense with injected lrs; sparse, guarded), one step:
+                  the frozen replica equal to the bit, its norms those of
+                  the CPU port's step at its lr (1e-5), the active replica
+                  equal to the bit to telemetry off; and the R = 4 sweep's
+                  device ms per step and peak memory, telemetry off and on.
+15. The serving engine (slice 11), after every earlier path:
+   serve_engine   the paper-width DBN and UBM and the two-tower PBM (16
+                  features) in one ModelRegistry, weights drawn from seeds,
+                  buckets 1-512: one CUDA graph per (model, tier, bucket)
+                  at warmup (sizes, capture ms), then a wall-clock Poisson
+                  trace of 2,000 requests at 1,000 requests/s, 50 ms
+                  deadlines, through ServeEngine, counted (dcn_cross 2 per
+                  two-tower forward: eager warm-ups and replayed graph
+                  nodes), with no capture under traffic; each graph's
+                  dcn_cross nodes (2 in the tower's, 0 in the others);
+                  each tier at every bucket against its eager call
+                  (primary and the int8 graph equal to the bit, gather-
+                  first int8 equal to dequantize-then-gather, int8 within
+                  its scale/2 bound, prior constant); one dispatch host to
+                  host at buckets 1 and 512 per tier (host and device ms,
+                  the device's idle share, the replay alone), a launch
+                  under sync debug "error", the whole-table dequantize
+                  form as a yardstick; serve_bulk (262,144 x 10) for the
+                  DBN and UBM against its bound; the chaos drill on the
+                  card against the CPU port's (signature, counters,
+                  log_ctr); the launcher's SIGTERM drill in a subprocess.
 
 Every phase that drives a path sets every kernel's launch count to 0 just
 before it and reads the counts just after; they must be exact (where
@@ -203,6 +230,7 @@ imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -213,6 +241,8 @@ import sys
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1916,6 +1946,60 @@ def _adam_pred_forms(make_opt, params0, grads):
     return out
 
 
+def _adam_norm_forms(make_opt, params0, grads):
+    """The fused pass's norm mode (the telemetry's ``param_norm``) from the
+    same inputs, for ``apply`` and ``pred`` each True and False: it writes
+    what the predicate form writes under ``pred & apply``, to the bit, and
+    its sum of squares is the plain chain's over the parameters the step
+    would write under ``apply`` alone (the updated ones where it holds,
+    else as they stand), within 1e-5."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.train.capture import tree_leaves
+
+    device = params0[0].device
+
+    def fresh():
+        params = [p.clone() for p in params0]
+        opt = make_opt()
+        return params, opt, opt.init(params)
+
+    def sumsq(tensors):
+        return float(sum(torch.sum(t.double() ** 2) for t in tensors))
+
+    params, opt, state = fresh()
+    updates, _ = opt.update(grads, state, params)
+    optim.apply_updates(params, updates)
+    plain = {True: sumsq(params), False: sumsq(params0)}
+    del params, opt, state, updates
+    torch.cuda.empty_cache()
+    out = {}
+    for apply in (True, False):
+        for pred in (True, False):
+            a, p = (torch.full((), x, dtype=torch.bool, device=device)
+                    for x in (apply, pred))
+            params, opt, state = fresh()
+            state, got = optim.step(opt, grads, state, params, p, norm=True,
+                                    apply=a)
+            got = float(got)
+            leaves = params + tree_leaves(state)
+            del params, state
+            ref, ropt, rstate = fresh()
+            rstate = optim.step(ropt, grads, rstate, ref, p & a)
+            bits = all(torch.equal(x, y) for x, y in zip(
+                leaves, ref + tree_leaves(rstate), strict=True))
+            rel = abs(got - plain[apply]) / plain[apply]
+            out[f"apply_{apply}_pred_{pred}"] = {
+                "writes_bit_equal_pred_form": bits, "sumsq_rel_err": rel}
+            del leaves, ref, rstate
+            torch.cuda.empty_cache()
+            if not bits or rel > 1e-5:
+                raise AssertionError(f"adamw norm mode, apply {apply}, pred "
+                                     f"{pred}: {out}")
+    return out
+
+
 def _decay_sensitivity(run):
     """How many times past the hold's tolerance (rtol = atol = 1e-6) the
     plain form without weight decay lands from the plain form with it,
@@ -2031,6 +2115,7 @@ def phase_optimizer_kernels(card, data):
     torch.cuda.empty_cache()
     if not all(predicate.values()):
         raise AssertionError(f"adamw predicate forms: {predicate}")
+    norm_forms = _adam_norm_forms(adamw_3e3, params, grads)
 
     edges = {}
     small = {"n1": (1,), "n7": (7,), "n1000003": (1_000_003,),
@@ -2088,6 +2173,7 @@ def phase_optimizer_kernels(card, data):
          device_ms=device_ms, bound_ms=bound_ms, bound_by=bound_by,
          max_abs_err=main["params_abs_err"], main=main,
          vs_cpu_chain=vs_cpu_chain, edge_cases=edges, predicate=predicate,
+         norm_forms=norm_forms,
          decay_sensitivity=decay_sensitivity["adamw"])
     _hold("adamw", over)
     results["adamw"] = {
@@ -2180,6 +2266,40 @@ def phase_optimizer_kernels(card, data):
     torch.cuda.empty_cache()
     if not all(s_predicate.values()):
         raise AssertionError(f"sparse_adamw predicate forms: {s_predicate}")
+    # the norm mode (the telemetry's param_norm), apply and pred each True
+    # and False: the kernel writes what the predicate form writes under
+    # pred & apply, to the bit, and the touched rows' sum of squares it
+    # implies (theirs before plus its p'^2 - p^2) is the plain form's,
+    # within 1e-5
+    touched_before = float(torch.sum(before[rows[:live]].double() ** 2))
+
+    def norm_run(kernel, apply, pred):
+        t = before.clone()
+        st = init_sparse_table_state(t)
+        count = st.count + apply
+        st.count.add_(pred & apply)
+        delta = kernel(t, st.mu, st.nu, rows, row_grads, count,
+                       pred=pred & apply, norm=True, apply=apply, **kw)
+        return (t, st), touched_before + float(delta)
+
+    s_norm_forms = {}
+    for apply in (yes, no):
+        for pred in (yes, no):
+            (kernel_out, got) = norm_run(sparse_adamw_cuda, apply, pred)
+            bits = same(kernel_out, run(sparse_adamw_cuda, before, rows,
+                                        row_grads, 1, kw,
+                                        preds=[pred & apply]))
+            del kernel_out
+            torch.cuda.empty_cache()
+            _, want = norm_run(sparse_adamw_plain, apply, pred)
+            torch.cuda.empty_cache()
+            rel = abs(got - want) / want
+            s_norm_forms[f"apply_{bool(apply)}_pred_{bool(pred)}"] = {
+                "writes_bit_equal_pred_form": bits,
+                "touched_sumsq_rel_err": rel}
+            if not bits or rel > 1e-5:
+                raise AssertionError(f"sparse_adamw norm mode: "
+                                     f"{s_norm_forms}")
     (tk, sk), (tp, sp) = [run(kernel, before, zipf_rows, row_grads, 2, kw)
                           for kernel in (sparse_adamw_cuda,
                                          sparse_adamw_plain)]
@@ -2266,7 +2386,7 @@ def phase_optimizer_kernels(card, data):
          dedupe_ms=dedupe_ms, device_ms=s_device, bound_ms=s_bound_ms,
          bound_by=s_bound_by, max_abs_err=err, checks=checks,
          zipf_ranks={"live_rows": zipf_live, "bound_ms": zipf_bound_ms},
-         predicate=s_predicate,
+         predicate=s_predicate, norm_forms=s_norm_forms,
          decay_sensitivity=decay_sensitivity["sparse_adamw"])
     _hold("sparse_adamw", s_over)
     # Held: untouched rows and the moments; the parameters are held at the
@@ -4154,6 +4274,116 @@ def _telemetry_cpu_norms(kind, batch_np):
     return float(out["grad_norm"][0]), float(out["param_norm"][0])
 
 
+def _frozen_replica(kind, first, cpu):
+    """ROADMAP C.4 on the card: an R = 2 sweep of the paper-width DBN with
+    telemetry on takes one step of ``first`` with replica 1 frozen (dense:
+    lrs 1.5e-3 and 3e-3, injected; sparse: lr 3e-3, guarded). Replica 1's
+    parameters, moments and count stay equal to the bit, and its grad and
+    parameter norms are those of the update it would make: the CPU port's
+    single step at its lr (``cpu``), within 1e-5. Replica 0's parameters
+    and state equal to the bit the same sweep's with telemetry off, and its
+    param_norm that of the parameters it wrote, within 1e-5."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs.clax_baidu import make_model
+    from repro_torch.train import TrainEngine
+    from repro_torch.train.capture import tree_leaves
+
+    chunk = {k: torch.from_numpy(v)[None].cuda() for k, v in first.items()}
+    runs = {}
+    for telemetry in (False, True):
+        if kind == "dense":
+            kw = {}
+            opt = optim.adamw(0.99, weight_decay=1e-4, inject_lr=True)
+        else:
+            kw = dict(SPARSE_TABLES, nonfinite_guard=True)
+            opt = optim.adamw(3e-3, weight_decay=1e-4)
+        engine = TrainEngine(make_model("dbn", device="cuda"), opt,
+                             replicas=2, telemetry=telemetry, **kw)
+        engine.init_replica_params([0, 1])
+        state = engine.init_opt_state()
+        if kind == "dense":
+            engine.set_replica_lrs(state, [1.5e-3, 3e-3])
+        frozen = [t[1].clone() for t in engine.replica_params
+                  + tree_leaves(state)]
+        _, out = engine.step(state, chunk, active=[True, False])
+        torch.cuda.synchronize()
+        leaves = engine.replica_params + tree_leaves(state)
+        if not all(torch.equal(b, t[1]) for b, t in zip(frozen, leaves)):
+            raise AssertionError(f"frozen_replica_{kind}: replica 1 moved")
+        # the active replica's param_norm: that of the parameters it wrote
+        written = float(torch.sqrt(sum(torch.sum(t[0].double() ** 2)
+                                       for t in engine.replica_params)))
+        runs[telemetry] = ([t[0].clone() for t in leaves], out, written)
+        del engine, state, frozen, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not all(torch.equal(a, b) for a, b in zip(runs[False][0],
+                                                  runs[True][0])):
+        raise AssertionError(f"frozen_replica_{kind}: replica 0 differs "
+                             "from the run without telemetry")
+    _, out, written = runs[True]
+    got = {k: float(out[k][0, 1]) for k in ("grad_norm", "param_norm")}
+    rel = {k: abs(got[k] - c) / abs(c)
+           for k, c in zip(("grad_norm", "param_norm"), cpu)}
+    active = float(out["param_norm"][0, 0])
+    rel["active_param_norm_vs_written"] = abs(active - written) / written
+    if max(rel.values()) > 1e-5:
+        raise AssertionError(f"frozen_replica_{kind}: norms against the CPU "
+                             f"port's and the written parameters': {rel}")
+    return {"frozen_bits_equal": True, "active_bits_equal_to_off": True,
+            "frozen_norms": got,
+            "cpu_norms": dict(zip(("grad_norm", "param_norm"), cpu)),
+            "rel_err_vs_cpu": rel, "active_param_norm": active,
+            "active_written_param_norm": written}
+
+
+def _frozen_sweep_cost(data, R=4, frozen=2):
+    """What telemetry costs the R = 4 DBN sweep (lrs SWEEP_LRS, replica 2
+    frozen; ROADMAP C.4's would-be norms): device ms per step of a replayed 4-step chunk and the peak
+    memory, telemetry off and on, and on with every replica active (what
+    the frozen replica's would-be update costs)."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs.clax_baidu import make_model
+    from repro_torch.train import TrainEngine
+
+    chunks = _stacked_chunks(_train_batches(data, 8))
+    frozen_mask = np.ones(R, bool)
+    frozen_mask[frozen] = False
+    out = {}
+    for telemetry, mask in ((False, frozen_mask), (True, frozen_mask),
+                            (True, np.ones(R, bool))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        engine = TrainEngine(make_model("dbn", device="cuda"),
+                             optim.adamw(0.99, weight_decay=1e-4,
+                                         inject_lr=True),
+                             chunk_batches=4, replicas=R,
+                             telemetry=telemetry)
+        engine.init_replica_params(list(range(R)))
+        state = engine.set_replica_lrs(engine.init_opt_state(), SWEEP_LRS)
+        engine.step(state, chunks[0], active=mask)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        engine.step(state, chunks[1], active=mask)
+        end.record()
+        end.synchronize()
+        out["off" if not telemetry else "on" if not mask.all()
+            else "on_all_active"] = {
+            "device_ms_per_step": start.elapsed_time(end) / 4,
+            "max_memory_allocated": torch.cuda.max_memory_allocated() - base,
+            "captures": engine.graphs.captures}
+        del engine, state
+    return out
+
+
 def phase_telemetry(data, card, steps=16):
     """On-device telemetry and the profiler window on the paper-width DBN:
     dense and with sparse tables, 16 steps with ``telemetry=True`` under a
@@ -4230,18 +4460,21 @@ def phase_telemetry(data, card, steps=16):
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             staged[1].synchronize()
-            # the norms' device time at this width, and their bound
+            # the device time of the norms outside the update's pass (the
+            # gradients'; with sparse tables each table's sum of squares
+            # before its update), and their bound
             grads = [torch.randn_like(p) for p in probe.params]
+            tables = [probe.params[at] for at in probe._table_at.values()]
 
             def norms():
                 with torch.no_grad():
                     return (optim.global_norm(grads),
-                            optim.global_norm(probe.params))
+                            [torch.linalg.vector_norm(t) for t in tables])
 
             norm_ms = graph_ms(norms)
-            n_bytes = 2 * sum(p.numel() * p.element_size()
-                              for p in probe.params)
-            n_ops = 2 * 2 * sum(p.numel() for p in probe.params)
+            n_bytes = sum(t.numel() * t.element_size()
+                          for t in grads + tables)
+            n_ops = 2 * sum(t.numel() for t in grads + tables)
             t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
             t_ops = n_ops / PEAK_FP32_PER_S * 1e3
             del grads, probe, state, payload, staged, chunk
@@ -4254,6 +4487,7 @@ def phase_telemetry(data, card, steps=16):
             if max(rel.values()) > 1e-5:
                 raise AssertionError(f"telemetry_{kind}: norms against the "
                                      f"CPU port's: {rel}")
+            frozen = _frozen_replica(kind, first, cpu)
             out[kind] = {
                 "params_bits_equal_to_off": True, "versus_off": versus,
                 "captures": graphs.captures, "replays": graphs.replays,
@@ -4265,7 +4499,7 @@ def phase_telemetry(data, card, steps=16):
                 "first_step": gpu_first,
                 "cpu_first_step": dict(zip(("grad_norm", "param_norm"),
                                            cpu)),
-                "norms_rel_err_vs_cpu": rel,
+                "norms_rel_err_vs_cpu": rel, "frozen_replica": frozen,
                 "norms_device_ms": norm_ms,
                 "norms_bound_ms": max(t_bytes, t_ops),
                 "norms_bound_by": ("bytes" if t_bytes >= t_ops
@@ -4325,6 +4559,7 @@ def phase_telemetry(data, card, steps=16):
         gc.collect()
         torch.cuda.empty_cache()
         out["launcher"] = _launcher_observability(root)
+        out["frozen_sweep_cost"] = _frozen_sweep_cost(data)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit("telemetry", card=card, steps=steps, batch=TRAIN_BATCH, **out,
@@ -4375,6 +4610,552 @@ def _launcher_observability(root):
 
 
 
+# -- serving (slice 11) --------------------------------------------------------
+
+SERVE_BUCKETS = (1, 4, 16, 64, 256, 512)
+SERVE_PAIRS = 1 << 31           # configs/clax_baidu.py: 2^31 ids, hashed 10x
+TOWER = "pbm_tower"
+DRILL_PAIRS = 500
+
+
+def _randomized(model, seed):
+    """``model`` with every parameter drawn N(0, 0.5) from a seeded
+    generator on its device (the tables start at constants, which int8
+    would hold exactly)."""
+    import torch
+
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.5, generator=gen)
+    return model
+
+
+def _serve_requests(name, n, rng, n_pairs=SERVE_PAIRS, features=None):
+    from repro_torch.serve import make_request
+
+    reqs = [make_request(i, name, K_MAIN, rng, n_pairs) for i in range(n)]
+    if features:
+        for r in reqs:
+            r.features = rng.normal(size=(K_MAIN, features)).astype(
+                np.float32)
+    return reqs
+
+
+def _serve_registry():
+    """The three paper-width entries, every (tier, bucket) captured: the
+    DBN and UBM of configs/clax_baidu.py and the Listing-4 two-tower PBM
+    (16 features), their weights drawn from seeds 1-3."""
+    from repro_torch.configs.clax_baidu import (TOWER_FEATURES, make_model,
+                                                make_two_tower)
+    from repro_torch.serve import ModelRegistry
+
+    reg = ModelRegistry(buckets=SERVE_BUCKETS)
+    reg.add("dbn", _randomized(make_model("dbn", device="cuda"), 1), None,
+            n_pairs=SERVE_PAIRS)
+    reg.add("ubm", _randomized(make_model("ubm", device="cuda"), 2), None,
+            n_pairs=SERVE_PAIRS)
+    reg.add(TOWER, _randomized(make_two_tower("pbm", device="cuda"), 3),
+            None, n_pairs=SERVE_PAIRS, feature_dim=TOWER_FEATURES)
+    return reg
+
+
+def _widened_forward(entry, tensors):
+    """The dequantize-then-gather form of the int8 tier: every quantized
+    leaf widened whole, then ``predict_clicks``."""
+    import torch
+
+    from repro_torch.distrib import QuantizedTensor, dequantize_int8
+    from repro_torch.train.engine import call_with
+
+    names = [n for n, qt in entry.qparams.items()
+             if isinstance(qt, QuantizedTensor)]
+    with torch.no_grad():
+        return call_with(entry.model, names,
+                         [dequantize_int8(*entry.qparams[n]) for n in names],
+                         "predict_clicks", tensors)
+
+
+def _int8_bound(entry):
+    """max |dP(click)| the int8 tier may show: each quantized factor's
+    logit moves at most scale/2, its probability at most a quarter of that,
+    and a click probability is multilinear in at most 2K such factors."""
+    from repro_torch.distrib import QuantizedTensor
+
+    scales = [float(qt.scale) for qt in entry.qparams.values()
+              if isinstance(qt, QuantizedTensor)]
+    return 2 * K_MAIN * max(scales, default=0.0) / 2 / 4, scales
+
+
+@contextlib.contextmanager
+def _plain_dcn():
+    """The port's ``dcn_cross`` op routed to its plain version on the card
+    while the block runs; yields the list of each call's inputs (copies),
+    the shapes the serving path gives the kernel."""
+    from repro_torch.kernels import dcn_cross_plain, ops
+
+    calls = []
+
+    def plain(*args):
+        calls.append(tuple(a.clone() for a in args))
+        return dcn_cross_plain(*args)
+
+    kernel, ops.dcn_cross_cuda = ops.dcn_cross_cuda, plain
+    try:
+        yield calls
+    finally:
+        ops.dcn_cross_cuda = kernel
+
+
+def _tier_checks(reg, rng):
+    """Each tier of each entry against its plain eager call at every
+    bucket: primary equal to the bit to eager predict_clicks, the int8
+    graph to the eager int8 call, gather-first to dequantize-then-gather,
+    int8 within its bound of primary, prior constant; each quantized
+    table's gathered rows within scale/2. The two-tower's graphs against
+    its eager tiers with dcn_cross on its plain version, log_ctr within
+    1e-5 (1 + |log_ctr|), and dcn_cross against dcn_cross_plain on the
+    inputs the path gives it (bucket x 10 rows, D = 16), within
+    phase_dcn_kernel's 1e-5."""
+    import torch
+
+    from repro_torch.core.parameterization import EmbeddingParameter
+    from repro_torch.kernels import dcn_cross_cuda, dcn_cross_plain
+    from repro_torch.serve import pad_batch
+
+    out = {}
+    for name, entry in reg.entries.items():
+        bound, scales = _int8_bound(entry)
+        worst = {"int8_dp": 0.0, "lookup_err_over_half_scale": 0.0}
+        plain_route = {"log_ctr_abs_err": 0.0, "dcn_abs_err": 0.0,
+                       "dcn_rows": []}
+        for bucket in SERVE_BUCKETS:
+            batch = pad_batch(_serve_requests(
+                name, bucket, rng, features=entry.feature_dim), bucket,
+                entry)
+            tensors = {k: torch.from_numpy(v).cuda() for k, v in
+                       batch.items()}
+            primary = entry.run("primary", batch)
+            int8 = entry.run("int8", batch)
+            with torch.no_grad():
+                eager = entry._fns["primary"](tensors).cpu().numpy()
+                eager8 = entry._fns["int8"](tensors).cpu().numpy()
+            widened = _widened_forward(entry, tensors).cpu().numpy()
+            for what, a, b in (("primary", primary, eager),
+                               ("int8_graph", int8, eager8),
+                               ("gather_first", eager8, widened)):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"serve {name}/{bucket}: {what} "
+                                         f"differs by {np.abs(a - b).max()}")
+            if name == TOWER:
+                with _plain_dcn() as calls, torch.no_grad():
+                    plain = {t: entry._fns[t](tensors).cpu().numpy()
+                             for t in ("primary", "int8")}
+                for tier, got in (("primary", primary), ("int8", int8)):
+                    err = np.abs(got - plain[tier])
+                    if not (err <= 1e-5 * (1.0 + np.abs(plain[tier]))).all():
+                        raise AssertionError(
+                            f"serve {name}/{bucket}: the {tier} graph "
+                            f"against dcn_cross_plain: {err.max()}")
+                    plain_route["log_ctr_abs_err"] = max(
+                        plain_route["log_ctr_abs_err"], float(err.max()))
+                if len(calls) != 4 or any(a[0].shape[0] != bucket * K_MAIN
+                                          for a in calls):
+                    raise AssertionError(f"serve {name}/{bucket}: dcn_cross "
+                                         f"calls {[a[0].shape for a in calls]}")
+                for args in calls:
+                    got, want = dcn_cross_cuda(*args), dcn_cross_plain(*args)
+                    if _dcn_over(got, *args, want, 1e-5) > 0:
+                        raise AssertionError(f"serve {name}/{bucket}: "
+                                             "dcn_cross against its plain "
+                                             "version")
+                    plain_route["dcn_abs_err"] = max(
+                        plain_route["dcn_abs_err"], _max_err(got, want))
+                plain_route["dcn_rows"].append(bucket * K_MAIN)
+            dp = float(np.abs(np.exp(primary) - np.exp(int8)).max())
+            if not np.isfinite(primary).all() or dp > bound + 1e-6:
+                raise AssertionError(f"serve {name}/{bucket}: int8 dP {dp} "
+                                     f"over its bound {bound}")
+            prior = entry.run("prior", batch)
+            if not (prior == np.float32(entry.prior_log_ctr)).all():
+                raise AssertionError(f"serve {name}: prior not constant")
+            worst["int8_dp"] = max(worst["int8_dp"], dp)
+            for mname, module in entry.model.named_modules():
+                if isinstance(module, EmbeddingParameter):
+                    rows = module.row_ids(tensors)
+                    q, scale = entry.qparams[f"{mname}.table"]
+                    err = float((q[rows].float() * scale
+                                 - module.table.detach()[rows]).abs().max())
+                    worst["lookup_err_over_half_scale"] = max(
+                        worst["lookup_err_over_half_scale"],
+                        err / (float(scale) / 2))
+        if worst["lookup_err_over_half_scale"] > 1.0 + 1e-5:
+            raise AssertionError(f"serve {name}: a lookup off by more than "
+                                 f"scale/2: {worst}")
+        out[name] = {"primary_bits_equal_eager": True,
+                     "int8_graph_bits_equal_eager": True,
+                     "gather_first_bits_equal_widened": True,
+                     "prior_constant": True, "int8_scales": scales,
+                     "int8_max_abs_dp": worst["int8_dp"],
+                     "int8_dp_bound": bound,
+                     "lookup_err_over_half_scale":
+                         worst["lookup_err_over_half_scale"]}
+        if name == TOWER:
+            out[name]["versus_plain_dcn_cross"] = plain_route
+    return out
+
+
+def _busy_us(prof):
+    """The device's busy microseconds in a torch.profiler trace: the union
+    of its kernels' and copies' intervals."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, len(spans)
+
+
+def _dispatch_ms(entry, tier, bucket, rng, reps=50):
+    """One dispatch from host to host (pad, the copies, the replay, the
+    answer on the host), ``reps`` times: host ms, the stream's span from
+    the first copy to the answer's copy (CUDA events: the device's work
+    and the gaps the host leaves in it), and the replay alone, back to
+    back. The device's busy time comes from a torch.profiler trace (CUDA
+    activity only, to keep the tracer's host cost small) of ``reps`` more
+    dispatches: the union of its kernels' and copies' device time. The idle
+    share is one minus that over the loop's host time under the trace, and
+    over the untraced dispatches' median host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import pad_batch
+
+    reqs = _serve_requests(entry.name, bucket, rng,
+                           features=entry.feature_dim)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host, device = [], []
+    for _ in range(reps + 3):
+        t0 = time.perf_counter()
+        batch = pad_batch(reqs, bucket, entry)
+        start.record()
+        replay = entry.launch(tier, batch)
+        end.record()
+        entry.collect(replay)
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        device.append(start.elapsed_time(end))
+    host, device = host[3:], device[3:]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            entry.collect(entry.launch(tier, pad_batch(reqs, bucket,
+                                                       entry)))
+        window_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, n_events = _busy_us(prof)
+    if n_events == 0:
+        raise AssertionError(f"serve {entry.name}/{tier}/{bucket}: the "
+                             "trace holds no device work")
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        replay.graph.replay()
+    end.record()
+    end.synchronize()
+    replay_ms = start.elapsed_time(end) / reps
+    busy = busy_us / 1e3 / window_ms
+    return {"host_ms": _spread(host), "stream_span_ms": _spread(device),
+            "replay_device_ms": replay_ms,
+            "traced_host_ms_per_dispatch": window_ms / reps,
+            "traced_device_busy_ms_per_dispatch": busy_us / 1e3 / reps,
+            "traced_device_events_per_dispatch": n_events / reps,
+            "device_idle_share": 1.0 - busy,
+            "device_idle_share_untraced_host": 1.0 - busy_us / 1e3 / reps
+            / _spread(host)["median"]}
+
+
+def _bulk(model, name, rng):
+    """configs/clax_baidu.serve_bulk at 262,144 x 10: host to host, and
+    predict_clicks alone on the device; its bound: the 32-byte sectors the
+    gathers touch plus the batch's bytes in and the answer's out."""
+    import torch
+
+    from repro_torch.configs.clax_baidu import SHAPES, serve_bulk
+    from repro_torch.core.parameterization import EmbeddingParameter
+
+    rows = SHAPES["serve_bulk"]["batch"]
+    batch = {"positions": np.tile(np.arange(1, K_MAIN + 1, dtype=np.int32),
+                                  (rows, 1)),
+             "query_doc_ids": rng.integers(0, SERVE_PAIRS, (rows, K_MAIN))
+             .astype(np.int32),
+             "mask": np.ones((rows, K_MAIN), bool)}
+    host = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        out = serve_bulk(model, batch)
+        host.append((time.perf_counter() - t0) * 1e3)
+    if out.shape != (rows, K_MAIN) or not np.isfinite(out).all():
+        raise AssertionError(f"serve_bulk {name}: {out.shape}")
+    tensors = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        device = time_ms(lambda: model.predict_clicks(tensors), iters=20,
+                         warmup=3)
+        sectors = sum(int(torch.unique(m.row_ids(tensors) // 8).numel())
+                      for m in model.modules()
+                      if isinstance(m, EmbeddingParameter))
+        lines, total = profile_kernels(lambda: model.predict_clicks(tensors),
+                                       calls=5)
+    n_bytes = sectors * SECTOR + rows * K_MAIN * (4 + 4 + 1) \
+        + rows * K_MAIN * 4
+    return {"rows": rows, "host_ms": _spread(host[1:]),
+            "profile": {"device_kernels": total, "top": lines[:8]},
+            "device_ms": device, "rows_per_s_device": rows / device * 1e3,
+            "rows_per_s_host": rows / _spread(host[1:])["median"] * 1e3,
+            "table_sectors": sectors, "bound_bytes": n_bytes,
+            "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def _drill_registry(device):
+    """The chaos drill's registry (tests/test_torch_serve.py's: PBM and DBN
+    over 500 pairs, buckets 1, 4, 16, modeled service times), its
+    parameters drawn by numpy from seeds 0 and 1, on ``device``."""
+    import torch
+
+    from repro_torch.core import MODEL_REGISTRY
+    from repro_torch.serve import ModelRegistry, ServiceModel
+
+    reg = ModelRegistry(buckets=(1, 4, 16), service_model=ServiceModel())
+    for seed, name in enumerate(("pbm", "dbn")):
+        model = MODEL_REGISTRY[name](query_doc_pairs=DRILL_PAIRS,
+                                     positions=K_MAIN, device=device)
+        rng = np.random.default_rng(seed)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.from_numpy(rng.normal(
+                    0.0, 0.5, tuple(p.shape)).astype(np.float32)))
+        reg.add(name, model, None, n_pairs=DRILL_PAIRS,
+                quantize_min_size=64)
+    reg.warmup()
+    return reg
+
+
+def _drill(reg):
+    """tests/test_torch_serve.py's pinned chaos drill: a failing primary
+    for pbm's first 6 dispatches, every 7th request from the 6th poisoned,
+    SIGTERM at request 70, on the virtual clock."""
+    from repro_torch.serve import ServeEngine, VirtualClock, poisson_trace
+    from repro_torch.testing import PoisonTrace, ServeKillSwitch, SlowModel
+
+    trace = PoisonTrace(poisson_trace(90, qps=500.0, models=["pbm", "dbn"],
+                                      positions_k=K_MAIN,
+                                      n_pairs=DRILL_PAIRS, deadline_s=0.05,
+                                      seed=1),
+                        at=[5, 12, 19, 26, 33], seed=0)
+    eng = ServeEngine(reg, clock=VirtualClock(), faults=[
+        SlowModel(model="pbm", fail=True, at_dispatches=range(0, 6)),
+        ServeKillSwitch(at_request=70)],
+        breaker_kwargs=dict(window=8, min_samples=2, threshold=0.5,
+                            cooldown=4))
+    results = eng.run_trace(trace, handle_signals=True)
+    return eng, results
+
+
+def _serve_launcher(root):
+    """``python -m repro_torch.launch.serve --models dbn,pbm --virtual-time
+    --fault-poison-every 17 --fault-sigterm-at 150 --requests 300`` on the
+    card: exit 0, one result per request (no drop in flight), every JSONL
+    line valid."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    metrics = os.path.join(root, "serve.jsonl")
+    summary = os.path.join(root, "serve_summary.json")
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--models",
+            "dbn,pbm", "--virtual-time", "--fault-poison-every", "17",
+            "--fault-sigterm-at", "150", "--requests", "300",
+            "--metrics-out", metrics, "--summary-out", summary]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, env=env, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serve launcher exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    from repro_torch import obs
+
+    events = obs.read_jsonl(metrics, validate=True)
+    with open(summary) as f:
+        report = json.load(f)
+    s = report["summary"]
+    if s["requests"] != 300 or s["answered"] + s["shed"] + s[
+            "rejected"] != 300 or report["counters"].get(
+            "serve.drains") != 1:
+        raise AssertionError(f"serve launcher: {report}")
+    return {"exit": 0, "seconds": seconds, "summary": s,
+            "drops_in_flight": 0, "jsonl_lines": len(events),
+            "jsonl_valid": True,
+            "trace_counts": {m: h["trace_counts"]
+                             for m, h in report["health"].items()},
+            "last_line": proc.stdout.strip().splitlines()[-1]}
+
+
+def phase_serve_engine(card):
+    """The serving engine on the card (slice 11): the paper-width DBN and
+    UBM and the two-tower PBM in one registry, every (model, tier, bucket)
+    captured at warmup, then a wall-clock Poisson trace of 2,000 requests
+    at 1,000 requests/s with 50 ms deadlines, counted (dcn_cross: 2 per
+    two-tower forward, eager warm-ups and replayed graph nodes); each tier
+    against its eager call; each graph's kernel nodes; one dispatch timed
+    host to host; no host sync in a launch; serve_bulk; the chaos drill
+    against the CPU port's; the launcher's SIGTERM drill."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.serve import ServeEngine, WallClock, poisson_trace
+    from repro_torch.train import capture
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(11)
+    reg = _serve_registry()
+    entries = reg.entries
+    tower = entries[TOWER]
+
+    def main_path():
+        reg.warmup()
+        before = {n: dict(e.trace_counts) for n, e in entries.items()}
+        trace = poisson_trace(2000, qps=1000.0, models=list(entries),
+                              positions_k=K_MAIN, n_pairs=SERVE_PAIRS,
+                              deadline_s=0.05, seed=0)
+        feats = np.random.default_rng(1)
+        for r in trace:
+            if r.model == TOWER:
+                r.features = feats.normal(size=(K_MAIN, tower.feature_dim)
+                                          ).astype(np.float32)
+        eng = ServeEngine(reg, clock=WallClock(),
+                          recorder=obs.Recorder([obs.MemorySink()]))
+        results = eng.run_trace(trace, handle_signals=False)
+        return before, eng, results
+
+    def tower_launches(out):
+        del out
+        return {"dcn_cross": 2 * (2 * len(SERVE_BUCKETS) + tower.replays)}
+
+    (before, eng, results), counted = measured_run(
+        "serve_engine", main_path, tower_launches,
+        lambda _: {"dcn_cross": 2 * 2 * len(SERVE_BUCKETS)})
+    after = {n: dict(e.trace_counts) for n, e in entries.items()}
+    want = {"primary": len(SERVE_BUCKETS), "int8": len(SERVE_BUCKETS)}
+    if any(c != want for c in before.values()) or after != before:
+        raise AssertionError(f"serve_engine: captures {before} -> {after}")
+    summary = eng.summary(results)
+    if summary["requests"] != 2000 or sorted(
+            r.request_id for r in results) != list(range(2000)):
+        raise AssertionError(f"serve_engine: {summary}")
+    # no model error, nothing degraded: every answer from a primary graph
+    answered_tiers = Counter(r.tier for r in results if r.answered)
+    if (eng.stats["serve.model_errors"] or summary["degraded"]
+            or summary["rejected"] or not summary["answered"]
+            or set(answered_tiers) != {"primary"}):
+        raise AssertionError(f"serve_engine: {summary}, {dict(eng.stats)}, "
+                             f"tiers {dict(answered_tiers)}")
+    model_errors = eng.stats["serve.model_errors"]
+    # each graph's kernel nodes: dcn_cross twice in the tower's, never in
+    # the DBN's or the UBM's
+    nodes = {}
+    for name, entry in entries.items():
+        for key, replay in entry._replays.items():
+            n = port_kernels(capture.graph_kernels(
+                replay.graph.raw_cuda_graph())).get("dcn_cross", 0)
+            if n != (2 if name == TOWER else 0):
+                raise AssertionError(f"serve_engine: {name} {key[0]} graph "
+                                     f"holds {n} dcn_cross nodes")
+            nodes[f"{name}/{key[0]}/{len(replay.host['positions'])}"] = n
+    tiers = _tier_checks(reg, rng)
+    # one dispatch, host to host, and no host sync in a launch
+    dispatch = {}
+    for name, entry in entries.items():
+        for tier in ("primary", "int8"):
+            for bucket in (1, 512):
+                dispatch[f"{name}/{tier}/{bucket}"] = _dispatch_ms(
+                    entry, tier, bucket, rng)
+    from repro_torch.serve import pad_batch
+
+    for name, entry in entries.items():
+        for bucket in (1, 512):
+            batch = pad_batch(_serve_requests(name, bucket, rng,
+                                              features=entry.feature_dim),
+                              bucket, entry)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                replay = entry.launch("primary", batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            entry.collect(replay)
+    # the whole-table dequantize form as a yardstick, the DBN at 512
+    dbn = entries["dbn"]
+    batch = pad_batch(_serve_requests("dbn", 512, rng), 512, dbn)
+    tensors = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    widen_ms = time_ms(lambda: _widened_forward(dbn, tensors), iters=10,
+                       warmup=2)
+    bulk = {name: _bulk(entries[name].model, name, rng)
+            for name in ("dbn", "ubm")}
+    sizes = {name: {"primary_nbytes": e.primary_nbytes,
+                    "int8_nbytes": e.int8_nbytes,
+                    "trace_counts": e.trace_counts,
+                    "capture_ms": {k: v * 1e3 for k, v in
+                                   e.capture_seconds.items()}}
+             for name, e in entries.items()}
+    del reg, entries, tower, dbn, tensors, eng, results
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the chaos drill on the card against the CPU port's
+    gpu_eng, gpu_res = _drill(_drill_registry("cuda"))
+    cpu_eng, cpu_res = _drill(_drill_registry("cpu"))
+    sig = [(r.request_id, r.status, r.tier, r.reason) for r in gpu_res]
+    if sig != [(r.request_id, r.status, r.tier, r.reason)
+               for r in cpu_res] or dict(gpu_eng.stats) != dict(
+                   cpu_eng.stats):
+        raise AssertionError("serve chaos drill: the card's signature or "
+                             "counters differ from the CPU port's")
+    drill_err = max(float(np.abs(a.log_ctr - b.log_ctr).max())
+                    for a, b in zip(gpu_res, cpu_res) if a.answered)
+    if drill_err > 1e-5:
+        raise AssertionError(f"serve chaos drill: log_ctr {drill_err}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        launcher = _serve_launcher(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("serve_engine", card=card, buckets=list(SERVE_BUCKETS),
+         entries=sizes, launches=counted["launches"],
+         wrapper_launches=counted["wrapper_launches"],
+         replayed_launches=counted["replayed_launches"],
+         dcn_cross_nodes_per_graph=nodes, captures_before_trace=before,
+         captures_after_trace=after, trace=summary,
+         trace_answered_tiers=dict(answered_tiers),
+         trace_model_errors=model_errors, tiers=tiers,
+         dispatch=dispatch, no_host_sync_in_launch=True,
+         dequantize_whole_tables_ms=widen_ms, serve_bulk=bulk,
+         chaos_drill={"signature_equal_cpu": True,
+                      "counters": dict(gpu_eng.stats),
+                      "max_log_ctr_err_vs_cpu": drill_err},
+         launcher=launcher, seconds=time.perf_counter() - t_phase)
+    return counted["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -4418,6 +5199,8 @@ def main() -> int:
     phase_store(data, smi)
     phase_telemetry(data, smi)
     del data
+    # The serving engine, after every earlier path.
+    phase_serve_engine(smi)
     # Each kernel's launches in the training run of its path.
     for name, counts in (("examination_nll", dbn), ("session_nll", dctr),
                          ("embedding_bag", deepfm),

@@ -11,8 +11,17 @@ of that size; DCTR, which the port trains at the same width to drive the
 :func:`make_two_tower` builds the paper's Listing-4 pair
 (``examples/two_tower.py``): a PBM whose attraction is a DeepCrossV2 tower
 over the query-document features, and the naive DCTR with the same tower.
+
+``SHAPES`` are JAX's two cells of this config: a training batch of 65,536
+sessions and a bulk serving batch of 262,144; :func:`serve_bulk` runs the
+latter through ``predict_clicks``.
 """
 from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
 
 from repro_torch.core import (Compression, DeepCrossParameterConfig,
                               DocumentCTR, DynamicBayesianNetwork,
@@ -22,6 +31,11 @@ from repro_torch.core import (Compression, DeepCrossParameterConfig,
 POSITIONS = 10
 TRAIN_BATCH = 65536
 TOWER_FEATURES = 16
+
+SHAPES = {
+    "train_batch": dict(batch=TRAIN_BATCH, kind="train"),
+    "serve_bulk": dict(batch=262144, kind="serve"),
+}
 
 
 def make_model(kind: str = "ubm", device="cuda"):
@@ -55,3 +69,17 @@ def make_two_tower(kind: str = "pbm", features: int = TOWER_FEATURES,
         return DocumentCTR(positions=POSITIONS, attraction=tower,
                            device=device, seed=seed)
     raise ValueError(f"no two-tower {kind!r} in the port (pbm, dctr)")
+
+
+@torch.no_grad()
+def serve_bulk(model, batch: Dict[str, np.ndarray]) -> np.ndarray:
+    """JAX's ``serve_bulk`` cell (``SHAPES["serve_bulk"]``, 262,144 x 10 for
+    the paper-width UBM, the JAX default, or DBN): the host batch
+    (``positions``, ``query_doc_ids``, ``mask``) copied to the model's
+    device, ``predict_clicks`` over it, and the ``(B, K)`` log P(click)
+    copied back to the host."""
+    device = next(model.parameters()).device
+    out = model.predict_clicks({k: torch.from_numpy(np.ascontiguousarray(
+        batch[k])).to(device) for k in ("positions", "query_doc_ids",
+                                         "mask")})
+    return out.cpu().numpy()

@@ -14,10 +14,11 @@ the model's ``seed`` (0 by default), which gives other numbers than
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import math
-from typing import Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -125,7 +126,16 @@ class EmbeddingParameter(Module):
 
     Baseline correction (paper §4.2): a shared scalar is added to every row's
     logit; rows start at zero so unseen ids start at the global baseline.
+
+    ``int8`` (None unless :func:`int8_lookups` sets it) maps a table's name
+    to an int8 copy ``(q, scale)``: a lookup then gathers the int8 rows and
+    widens only them, ``q[rows].float() * scale``, which equals the
+    dequantize-then-gather ``(q.float() * scale)[rows]`` to the bit (the
+    product is elementwise). The serving registry's int8 tier reads the
+    tables so, and never makes a float32 table.
     """
+
+    int8: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
 
     def __init__(self, config: EmbeddingParameterConfig, device=None):
         super().__init__()
@@ -168,20 +178,47 @@ class EmbeddingParameter(Module):
         raise NotImplementedError(
             "quotient-remainder compression has no single row-id stream")
 
+    def _rows(self, name: str, rows: torch.Tensor) -> torch.Tensor:
+        """Rows ``rows`` of the table ``name``, gathered from its int8 copy
+        and widened where :attr:`int8` holds one."""
+        quantized = (self.int8 or {}).get(name)
+        if quantized is None:
+            return getattr(self, name)[rows]
+        q, scale = quantized
+        return q[rows].float() * scale
+
     def forward(self, batch) -> torch.Tensor:
         c = self.config
         if c.compression in (Compression.NONE, Compression.HASH):
-            logits = self.table[self.row_ids(batch)]
+            logits = self._rows("table", self.row_ids(batch))
         else:  # QR: element-wise product of quotient and remainder rows
             ids = batch[c.use_feature].to(torch.int64)
-            q = self.quotient[(ids // self.rem_rows) % self.quot_rows]
-            r = self.remainder[ids % self.rem_rows]
+            q = self._rows("quotient", (ids // self.rem_rows) % self.quot_rows)
+            r = self._rows("remainder", ids % self.rem_rows)
             logits = q * r
         if c.baseline_correction:
             logits = logits + self.baseline
         if c.features == 1:
             logits = logits.squeeze(-1)
         return logits
+
+
+@contextlib.contextmanager
+def int8_lookups(tables: Iterable[Tuple[EmbeddingParameter,
+                                        Dict[str, Tuple[torch.Tensor,
+                                                        torch.Tensor]]]]):
+    """Within the block, each ``(part, {name: (q, scale)})`` of ``tables``
+    looks its named tables up in their int8 copies
+    (:attr:`EmbeddingParameter.int8`); afterwards they read their float32
+    tables again."""
+    tables = list(tables)
+    for part, copies in tables:
+        part.int8 = dict(copies)
+    try:
+        yield
+    finally:
+        for part, _ in tables:
+            part.int8 = None
 
 
 class PositionParameter(Module):

@@ -7,7 +7,9 @@ JAX chain's order of operations (``repro/optim/optimizers.py:93-150``). It
 is not a TPU kernel: it replaces the loop XLA fuses out of that chain. Its
 plain version is the chain itself, ``repro_torch.optim.adamw``'s ``update``
 followed by ``apply_updates``, which the CPU runs;
-``repro_torch.optim.step`` picks by device.
+``repro_torch.optim.step`` picks by device. With ``norm=True`` the launch
+also returns the sum of squares of the parameters the step would write
+(the engine's telemetry: ``repro_torch.optim.step(..., norm=True)``).
 
 ``adamw_cuda.launches`` counts kernel launches.
 """
@@ -53,7 +55,7 @@ def _library() -> ctypes.CDLL:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.adamw_step.argtypes = ([ptr] * 4 + [i64, i32, i32] + [f32] * 7
-                               + [ptr, ptr, ptr, i32, i32, ptr])
+                               + [ptr] * 5 + [i32, i32, ptr])
     lib.adamw_step.restype = i32
     lib.adamw_error_string.argtypes = [i32]
     lib.adamw_error_string.restype = ctypes.c_char_p
@@ -73,7 +75,9 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                v: torch.Tensor, count: torch.Tensor, *, b1: float, b2: float,
                eps: float, weight_decay: float, lr: float,
                lr_tensor: Optional[torch.Tensor] = None,
-               pred: Optional[torch.Tensor] = None) -> None:
+               pred: Optional[torch.Tensor] = None, norm: bool = False,
+               apply: Optional[torch.Tensor] = None
+               ) -> Optional[torch.Tensor]:
     """One AdamW step of ``p`` in place, with its moments ``m`` and ``v``.
 
     ``p`` and ``g`` are float32, ``m`` and ``v`` float32 or bfloat16, all of
@@ -83,14 +87,22 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     float32 0-d tensor) when one is given, else takes ``lr``. ``pred``, a
     bool 0-d tensor on that device, is the step's predicate (the
     non-finite guard's, a sweep's active replica): where it is False the
-    launch writes nothing, and the caller advances ``count`` by it. Raises
-    on anything else, and if the launch is refused."""
+    launch writes nothing, and the caller advances ``count`` by it.
+
+    ``norm=True`` (a sweep's telemetry) also returns the float64 0-d sum of
+    squares of the parameters the step *would* write: the step runs where
+    ``apply`` (a bool 0-d tensor, the guard's; None: always) holds, reading
+    ``count`` as its step count (the count plus ``apply``, which the caller
+    makes), and is written only where ``pred`` holds too; where ``apply``
+    is False the parameter counts as it stands. Raises on anything else,
+    and if the launch is refused."""
     device = p.device
     if device.type != "cuda":
         raise ValueError(f"adamw_cuda needs CUDA tensors, got {device}")
     for name, t in (("g", g), ("m", m), ("v", v), ("count", count)) + (
             (("lr", lr_tensor),) if lr_tensor is not None else ()) + (
-            (("pred", pred),) if pred is not None else ()):
+            (("pred", pred),) if pred is not None else ()) + (
+            (("apply", apply),) if apply is not None else ()):
         if t.device != device:
             raise ValueError(f"adamw_cuda: {name} on {t.device}, p on "
                              f"{device}")
@@ -109,19 +121,26 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if lr_tensor is not None and (lr_tensor.dtype != torch.float32
                                   or lr_tensor.dim() != 0):
         raise TypeError("adamw_cuda takes a float32 0-d injected lr")
-    if pred is not None and (pred.dtype != torch.bool or pred.dim() != 0):
-        raise TypeError("adamw_cuda takes a bool 0-d predicate")
+    for t in (pred, apply):
+        if t is not None and (t.dtype != torch.bool or t.dim() != 0):
+            raise TypeError("adamw_cuda takes bool 0-d predicates")
+    if apply is not None and not norm:
+        raise ValueError("adamw_cuda: apply is the would-be step's "
+                         "predicate, for norm=True only")
     if not all(t.is_contiguous() for t in (p, g, m, v)):
         raise ValueError("adamw_cuda takes contiguous tensors")
     n = p.numel()
     if n == 0:
-        return
+        return torch.zeros((), dtype=torch.float64, device=device) \
+            if norm else None
     moment_bytes = 16 if m.dtype == torch.float32 else 8
     vector = (_aligned(p, 16) and _aligned(g, 16)
               and _aligned(m, moment_bytes) and _aligned(v, moment_bytes))
     plan = launch_plan(n, vector, _sm_count(device.index
                                             if device.index is not None
                                             else torch.cuda.current_device()))
+    partials = (torch.empty(plan.blocks, dtype=torch.float64, device=device)
+                if norm else None)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -131,12 +150,15 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
             1.0 - b2, eps, weight_decay, lr, count.data_ptr(),
             None if lr_tensor is None else lr_tensor.data_ptr(),
             None if pred is None else pred.data_ptr(),
+            None if apply is None else apply.data_ptr(),
+            None if partials is None else partials.data_ptr(),
             plan.blocks, plan.threads, stream)
     if err != 0:
         raise RuntimeError("adamw kernel launch failed: "
                            + lib.adamw_error_string(err).decode())
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         adamw_cuda.launches += 1
+    return None if partials is None else partials.sum()
 
 
 adamw_cuda.launches = 0

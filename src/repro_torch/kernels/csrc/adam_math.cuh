@@ -1,4 +1,5 @@
-// The Adam arithmetic that adamw.cu and sparse_adamw.cu share.
+// The Adam arithmetic that adamw.cu and sparse_adamw.cu share, and their
+// norm mode's block sum.
 //
 // Both forms compute, per element,
 //
@@ -61,6 +62,22 @@ __device__ __forceinline__ float update(float p, float m, float v,
                       __fadd_rn(__fsqrt_rn(__fdiv_rn(v, s.c2)), h.eps));
   if (h.weight_decay != 0.f) u = __fadd_rn(u, __fmul_rn(h.weight_decay, p));
   return u;
+}
+
+// The norm mode's block sum of a double (a sweep's telemetry), valid in
+// thread 0; blockDim a multiple of 32, at most 256. A fixed order, so a
+// launch gives the same bits each time.
+__device__ __forceinline__ double block_sum(double x) {
+  __shared__ double warps[8];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_down_sync(0xffffffffu, x, off);
+  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = x;
+  __syncthreads();
+  x = 0.0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) x += warps[w];
+  return x;
 }
 
 }  // namespace adam

@@ -15,7 +15,10 @@ gradient rows and the int32 0-d step count, already advanced:
 
 Both keep the sparse form's own order (``p - lr * u``, the update from the
 unrounded moments), and both take an optional predicate, a bool 0-d tensor
-on the device: where it is False nothing is written.
+on the device: where it is False nothing is written. With ``norm=True``
+both also return the float64 0-d sum of ``p'^2 - p^2`` over the touched
+elements, where ``p'`` is what the step would write (a sweep's telemetry:
+the norm of a frozen replica's would-be update).
 ``sparse_adamw_cuda.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -39,14 +42,15 @@ def _library() -> ctypes.CDLL:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.sparse_adamw_step.argtypes = ([ptr] * 5 + [i64, i32, i64, i32]
-                                      + [f32] * 7 + [ptr, ptr, ptr])
+                                      + [f32] * 7 + [ptr] * 5)
     lib.sparse_adamw_step.restype = i32
     lib.sparse_adamw_error_string.argtypes = [i32]
     lib.sparse_adamw_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(table, mu, nu, ids, grads, count, pred=None):
+def _check(table, mu, nu, ids, grads, count, pred=None, apply=None,
+           norm=False):
     if table.dim() != 2 or mu.shape != table.shape or nu.shape != table.shape:
         raise ValueError(f"sparse_adamw: table {tuple(table.shape)} and "
                          f"moments {tuple(mu.shape)}, {tuple(nu.shape)} must "
@@ -65,8 +69,12 @@ def _check(table, mu, nu, ids, grads, count, pred=None):
         raise TypeError(f"sparse_adamw takes int64 ids, got {ids.dtype}")
     if count.dtype != torch.int32 or count.dim() != 0:
         raise TypeError("sparse_adamw takes an int32 0-d step count")
-    if pred is not None and (pred.dtype != torch.bool or pred.dim() != 0):
-        raise TypeError("sparse_adamw takes a bool 0-d predicate")
+    for t in (pred, apply):
+        if t is not None and (t.dtype != torch.bool or t.dim() != 0):
+            raise TypeError("sparse_adamw takes bool 0-d predicates")
+    if apply is not None and not norm:
+        raise ValueError("sparse_adamw: apply is the would-be step's "
+                         "predicate, for norm=True only")
 
 
 def _hyper(b1, b2):
@@ -79,12 +87,15 @@ def _hyper(b1, b2):
 @torch.no_grad()
 def sparse_adamw_plain(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
                        b2=0.999, eps=1e-8, weight_decay=0.0,
-                       pred=None) -> None:
+                       pred=None, norm=False, apply=None):
     """The plain form: gather the live slots' rows (a boolean mask drops the
     sentinel), update, scatter back in place; with a predicate, each
     scattered row is ``where(pred, new, old)``, as JAX keeps a skipped
-    step's state."""
-    _check(table, mu, nu, ids, grads, count, pred)
+    step's state. With ``norm=True`` the step is the would-be step under
+    ``apply``, written only where ``pred`` holds too (see
+    :func:`sparse_adamw_cuda`), and the sum of ``p'^2 - p^2`` is
+    returned."""
+    _check(table, mu, nu, ids, grads, count, pred, apply, norm)
     k = np.float32(int(count))
     b1f, b2f, omb1, omb2 = _hyper(b1, b2)
     c1 = float(np.float32(1) - b1f ** k)
@@ -98,22 +109,37 @@ def sparse_adamw_plain(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
     if weight_decay:
         u = u + p * weight_decay
     new = (p - u * lr, m.to(mu.dtype), v.to(nu.dtype))
+    delta = None
+    if norm:
+        delta = torch.sum(new[0].double() ** 2 - p.double() ** 2)
+        if apply is not None:
+            delta = torch.where(apply, delta, 0.0)
+            pred = apply if pred is None else pred & apply
     for t, x in zip((table, mu, nu), new):
         t[rows] = x if pred is None else torch.where(pred, x, t[rows])
+    return delta
 
 
 def sparse_adamw_cuda(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
                       b2=0.999, eps=1e-8, weight_decay=0.0,
-                      pred=None) -> None:
+                      pred=None, norm=False, apply=None):
     """Launch the CUDA kernel on the current stream. All tensors on one CUDA
     device and contiguous; the ids distinct apart from the sentinel. Where
-    ``pred`` (a bool 0-d tensor) is False the launch writes nothing. Raises
-    on anything else, and if the launch is refused."""
+    ``pred`` (a bool 0-d tensor) is False the launch writes nothing.
+
+    ``norm=True`` (a sweep's telemetry) also returns the float64 0-d sum of
+    ``p'^2 - p^2`` over the touched elements, ``p'`` being what the step
+    would write: the step runs where ``apply`` (the guard's bool 0-d
+    tensor; None: always) holds, reading ``count`` as its step count (the
+    count plus ``apply``, which the caller makes), and is written only where
+    ``pred`` holds too. Raises on anything else, and if the launch is
+    refused."""
     device = table.device
     if device.type != "cuda":
         raise ValueError(f"sparse_adamw_cuda needs CUDA tensors, got {device}")
-    _check(table, mu, nu, ids, grads, count, pred)
-    for t in (mu, nu, ids, grads, count) + (() if pred is None else (pred,)):
+    _check(table, mu, nu, ids, grads, count, pred, apply, norm)
+    for t in (mu, nu, ids, grads, count) + tuple(
+            t for t in (pred, apply) if t is not None):
         if t.device != device:
             raise ValueError("sparse_adamw inputs lie on different devices")
     if not all(t.is_contiguous() for t in (table, mu, nu, ids, grads)):
@@ -122,7 +148,10 @@ def sparse_adamw_cuda(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
     if slots * d >= 2 ** 31 * 256:
         raise ValueError(f"{slots} x {d} exceeds one launch's grid")
     if slots * d == 0:
-        return
+        return torch.zeros((), dtype=torch.float64, device=device) \
+            if norm else None
+    partials = (torch.empty(-(-slots * d // 256), dtype=torch.float64,
+                            device=device) if norm else None)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -131,12 +160,15 @@ def sparse_adamw_cuda(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
             grads.data_ptr(), slots, d, table.shape[0],
             _MOMENT_DTYPES[mu.dtype], b1, b2, 1.0 - b1, 1.0 - b2, eps,
             weight_decay, lr, count.data_ptr(),
-            None if pred is None else pred.data_ptr(), stream)
+            None if pred is None else pred.data_ptr(),
+            None if apply is None else apply.data_ptr(),
+            None if partials is None else partials.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("sparse_adamw kernel launch failed: "
                            + lib.sparse_adamw_error_string(err).decode())
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         sparse_adamw_cuda.launches += 1
+    return None if partials is None else partials.sum()
 
 
 sparse_adamw_cuda.launches = 0

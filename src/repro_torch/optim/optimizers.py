@@ -41,7 +41,8 @@ class GradientTransformation(NamedTuple):
     update: Callable[[Tensors, Any, Optional[Tensors]], Tuple[Tensors, Any]]
     # fused(grads, state, params, pred) -> state: one pass on the card that
     # updates params and state in place (nothing where the bool 0-d device
-    # tensor pred is False); None where there is none.
+    # tensor pred is False); None where there is none. fused(..., pred,
+    # norm=True, apply=ok) -> (state, sumsq): see step.
     fused: Optional[Callable[..., Any]] = None
 
 
@@ -69,7 +70,8 @@ def _cloned(tree):
 
 @torch.no_grad()
 def step(transform: GradientTransformation, grads: Tensors, state: Any,
-         params: Tensors, pred: Optional[torch.Tensor] = None) -> Any:
+         params: Tensors, pred: Optional[torch.Tensor] = None, *,
+         norm: bool = False, apply: Optional[torch.Tensor] = None) -> Any:
     """One optimizer step of ``params`` in place; returns the new state.
 
     CPU parameters take ``transform.update`` and :func:`apply_updates`. CUDA
@@ -81,27 +83,53 @@ def step(transform: GradientTransformation, grads: Tensors, state: Any,
     predicate (JAX's ``_guarded_one_step`` / the sweep's active mask): where
     it is False the parameters and the state, step count included, keep
     their values. The CPU takes JAX's ``where(pred, new, old)`` per leaf;
-    the fused pass reads the predicate on the device and writes nothing."""
+    the fused pass reads the predicate on the device and writes nothing.
+
+    ``norm=True`` (the engine's telemetry) returns ``(state, sumsq)``:
+    ``sumsq`` is the float64 0-d sum of squares of the parameters the step
+    *would* write under ``apply`` alone (the guard's ``ok``; None: always),
+    the updated parameters where it holds and the parameters as they stand
+    where it does not. The step is written under ``pred & apply``. JAX's
+    vmapped step takes its ``param_norm`` after the guard and before a
+    sweep's active mask, so a frozen replica reports the update it would
+    have made and keeps its parameters and state to the bit. The fused
+    pass sums in the same pass that reads each tensor once."""
     params, grads = list(params), list(grads)
+    if apply is not None:
+        if not norm:
+            raise ValueError("optim.step: apply is the would-be step's "
+                             "predicate, for norm=True only")
+        pred = apply if pred is None else pred & apply
     if {p.device.type for p in params} <= {"cpu"}:
         if pred is None:
             updates, state = transform.update(grads, state, params)
             apply_updates(params, updates)
-            return state
+            return (state, _sumsq(params)) if norm else state
         old_params, old_state = _cloned(params), _cloned(state)
         updates, state = transform.update(grads, state, params)
         apply_updates(params, updates)
+        if norm:
+            sumsq = _sumsq(params if apply is None else
+                           [torch.where(apply, p, old)
+                            for p, old in zip(params, old_params)])
         for p, old in zip(params, old_params):
             p.copy_(torch.where(pred, p, old))
-        return tree_map(lambda new, old: torch.where(pred, new, old)
-                        if isinstance(new, torch.Tensor) else new,
-                        state, old_state)
+        state = tree_map(lambda new, old: torch.where(pred, new, old)
+                         if isinstance(new, torch.Tensor) else new,
+                         state, old_state)
+        return (state, sumsq) if norm else state
     if transform.fused is None:
         raise ValueError(
             "optim.step: this transformation has no fused pass for "
             f"{_device(params)} (adam and adamw with a constant or injected "
             "lr have one); call update and apply_updates to run the chain")
-    return transform.fused(grads, state, params, pred)
+    return transform.fused(grads, state, params, pred, norm=norm,
+                           apply=apply)
+
+
+def _sumsq(tensors: Tensors) -> torch.Tensor:
+    return sum((torch.sum(torch.square(t.double())) for t in tensors),
+               torch.zeros((), dtype=torch.float64))
 
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
@@ -233,19 +261,30 @@ def _fused_adam(b1, b2, eps, weight_decay, learning_rate, inject):
     """The fused pass of adam (``weight_decay=0``) and adamw: advance the
     step count on the device (by the predicate, when there is one), then
     one ``adamw`` kernel launch per tensor, which reads the count (and an
-    injected lr, and the predicate) there."""
+    injected lr, and the predicate) there. In norm mode (see
+    :func:`step`) the launches read the would-be step's count,
+    the count plus ``apply``, and the pass returns the state and the sum
+    of their sums of squares."""
     from repro_torch.kernels.adamw import adamw_cuda
 
-    def fused(grads, state, params, pred=None):
+    def fused(grads, state, params, pred=None, norm=False, apply=None):
         adam_state = state[0]
         lr_tensor = state[-1].lr if inject else None
+        count = adam_state.count
+        if norm:
+            count = count + (1 if apply is None else apply)
         adam_state.count.add_(1 if pred is None else pred)
-        for p, g, m, v in zip(params, grads, adam_state.mu, adam_state.nu):
-            adamw_cuda(p.detach(), g, m, v, adam_state.count, b1=b1, b2=b2,
-                       eps=eps, weight_decay=weight_decay,
-                       lr=0.0 if inject else learning_rate,
-                       lr_tensor=lr_tensor, pred=pred)
-        return state
+        sums = [adamw_cuda(p.detach(), g, m, v, count, b1=b1, b2=b2,
+                           eps=eps, weight_decay=weight_decay,
+                           lr=0.0 if inject else learning_rate,
+                           lr_tensor=lr_tensor, pred=pred, norm=norm,
+                           apply=apply)
+                for p, g, m, v in zip(params, grads, adam_state.mu,
+                                      adam_state.nu)]
+        if not norm:
+            return state
+        return state, sum(sums, torch.zeros((), dtype=torch.float64,
+                                            device=count.device))
 
     return fused
 

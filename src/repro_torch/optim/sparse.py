@@ -104,24 +104,42 @@ def sparse_adamw_update(table: torch.Tensor, state: SparseTableState,
                         unique_ids: torch.Tensor, grads: torch.Tensor, *,
                         lr: float, b1: float = 0.9, b2: float = 0.999,
                         eps: float = 1e-8, weight_decay: float = 0.0,
-                        pred: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, SparseTableState]:
+                        pred: Optional[torch.Tensor] = None,
+                        norm: bool = False,
+                        apply: Optional[torch.Tensor] = None):
     """Update only the touched rows of (table, mu, nu), in place; advances
     ``state.count`` in place. Sentinel slots change nothing. Returns the
     same table and state. CPU tensors take the plain form, CUDA tensors the
     ``sparse_adamw`` kernel; other devices raise. With ``pred`` (a bool 0-d
     tensor on the device: the non-finite guard's, a sweep's active replica)
-    the count advances by it, and where it is False nothing is written."""
+    the count advances by it, and where it is False nothing is written.
+
+    ``norm=True`` (the engine's telemetry, ``repro_torch.optim.step``'s
+    sparse twin) also returns the float64 0-d sum of squares of the table
+    the step *would* write under ``apply`` alone: the table's sum of
+    squares before the step plus the kernel's (or the plain form's) sum of
+    ``p'^2 - p^2`` over the touched elements. The step is written under
+    ``pred & apply``; the would-be step reads the count plus ``apply``."""
     table = table.detach()
+    if apply is not None:
+        if not norm:
+            raise ValueError("sparse_adamw_update: apply is the would-be "
+                             "step's predicate, for norm=True only")
+        pred = apply if pred is None else pred & apply
+    before = count = None
+    if norm:
+        before = torch.linalg.vector_norm(table).double() ** 2
+        count = state.count + (1 if apply is None else apply)
     state.count.add_(1 if pred is None else pred)
     kwargs = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-                  pred=pred)
-    args = (table, state.mu, state.nu, unique_ids, grads.float(), state.count)
+                  pred=pred, norm=norm, apply=apply)
+    args = (table, state.mu, state.nu, unique_ids, grads.float(),
+            state.count if count is None else count)
     if table.device.type == "cpu":
-        sparse_adamw_plain(*args, **kwargs)
+        delta = sparse_adamw_plain(*args, **kwargs)
     else:
-        sparse_adamw_cuda(*args, **kwargs)
-    return table, state
+        delta = sparse_adamw_cuda(*args, **kwargs)
+    return (table, state, before + delta) if norm else (table, state)
 
 
 def make_sparse_embedding_train_step(forward_from_rows, gather_rows, *,

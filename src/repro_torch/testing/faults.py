@@ -24,7 +24,12 @@ index, a byte offset), so a chaos test that fails replays bit for bit:
 The injectors are loader and store proxies: any attribute they do not
 override forwards to the wrapped object, so ``state_dict``, ``batch_size``
 and the rest keep working and the proxies compose with ``DevicePrefetcher``
-and ``Trainer`` unchanged. The serving faults wait for serving.
+and ``Trainer`` unchanged.
+
+The serving faults (:class:`ServeFault`, :class:`SlowModel`,
+:class:`ServeKillSwitch`, :func:`poison_request`, :class:`PoisonTrace`)
+hook into :class:`repro_torch.serve.ServeEngine`; they are copied from
+``repro.testing.faults``.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import json
 import os
 import signal
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -206,3 +211,186 @@ class KillSwitch(_LoaderProxy):
                 os.kill(os.getpid(), self.sig)
             self.produced += 1
             yield batch
+
+
+# ---------------------------------------------------------------------------
+# Serving-side injectors (repro_torch.serve), copied from
+# ``repro.testing.faults``. The engine consults registered fault
+# objects through two duck-typed hooks:
+#   on_admit(request_index, request)           — fired as a request enters
+#       admission control (before validation); may signal the process.
+#   on_dispatch(model, tier, bucket, index)    — fired once per ladder
+#       attempt of batch dispatch ``index`` of ``model``; returns
+#       (extra_seconds, error_or_None). Extra seconds are charged to the
+#       engine clock (virtual) or slept (wall); an error makes the attempt
+#       fail and the engine fall down the degradation ladder.
+# Both are keyed on deterministic indices, so drills replay bit-for-bit.
+# ---------------------------------------------------------------------------
+
+
+class ServeFault:
+    """No-op base: subclass and override the hooks you need."""
+
+    def on_admit(self, request_index: int, request) -> None:
+        del request_index, request
+
+    def on_dispatch(self, model: str, tier: str, bucket: int,
+                    dispatch_index: int):
+        del model, tier, bucket, dispatch_index
+        return 0.0, None
+
+
+class SlowModel(ServeFault):
+    """Latency (or failure) injection on chosen dispatches of one tier.
+
+    ``at_dispatches`` are per-model batch dispatch indices (None = every
+    dispatch); matching attempts on a ``tiers`` tier gain
+    ``delay_seconds`` of service time — enough injected delay drives
+    deadline misses, which trips the tier's breaker — or, with ``fail``,
+    raise a ``RuntimeError`` (a crashed/overloaded model replica).
+    """
+
+    def __init__(self, model: Optional[str] = None,
+                 delay_seconds: float = 0.05,
+                 at_dispatches: Optional[Iterable[int]] = None,
+                 tiers: Sequence[str] = ("primary",), fail: bool = False):
+        self.model = model
+        self.delay_seconds = float(delay_seconds)
+        self.at_dispatches = (None if at_dispatches is None
+                              else frozenset(int(i) for i in at_dispatches))
+        self.tiers = tuple(tiers)
+        self.fail = bool(fail)
+        self.triggered = 0
+
+    def on_dispatch(self, model, tier, bucket, dispatch_index):
+        del bucket
+        if self.model is not None and model != self.model:
+            return 0.0, None
+        if tier not in self.tiers:
+            return 0.0, None
+        if (self.at_dispatches is not None
+                and dispatch_index not in self.at_dispatches):
+            return 0.0, None
+        self.triggered += 1
+        if self.fail:
+            return 0.0, RuntimeError(
+                f"injected model failure ({model}/{tier} "
+                f"dispatch {dispatch_index})")
+        return self.delay_seconds, None
+
+
+class ServeKillSwitch(ServeFault):
+    """SIGTERM (or any signal) the current process when request
+    ``at_request`` enters admission — the serving twin of
+    :class:`KillSwitch`, with the same caller-armed, fire-once gate. The
+    engine's :class:`~repro_torch.train.fault_tolerance.PreemptionHandler`
+    converts the signal into a drain: admission stops, in-flight requests
+    are flushed, nothing is dropped.
+    """
+
+    def __init__(self, at_request: int, sig: int = signal.SIGTERM,
+                 armed: bool = True):
+        self.at_request = int(at_request)
+        self.sig = sig
+        self.armed = bool(armed)
+        self.fired = False
+
+    def arm(self, armed: bool = True) -> "ServeKillSwitch":
+        self.armed = bool(armed)
+        return self
+
+    def on_admit(self, request_index, request):
+        del request
+        if request_index == self.at_request and self.armed and not self.fired:
+            self.fired = True
+            os.kill(os.getpid(), self.sig)
+
+
+POISON_MODES = (
+    "nan_ids", "inf_ids", "ids_negative", "ids_out_of_range",
+    "short_arrays", "extra_dim", "string_ids", "float_mask",
+    "positions_zero", "nan_features", "deadline_negative",
+)
+
+
+def poison_request(request, mode: str, seed: int = 0):
+    """Deterministically mutate a valid ServeRequest into rejectable
+    garbage. Returns the mutated request (a copy); the original is left
+    intact. Every mode must be caught by ``repro_torch.serve.validate_request``
+    — the fuzz test sweeps the full cross product.
+    """
+    import copy
+
+    import numpy as np  # noqa: F811 — keep module import list minimal
+
+    req = copy.copy(request)
+    rng = np.random.default_rng((seed, hash(mode) % (2 ** 31)))
+    k = len(np.asarray(req.query_doc_ids))
+    if mode == "nan_ids":
+        ids = np.asarray(req.query_doc_ids, np.float64).copy()
+        ids[int(rng.integers(0, k))] = np.nan
+        req.query_doc_ids = ids
+    elif mode == "inf_ids":
+        ids = np.asarray(req.query_doc_ids, np.float64).copy()
+        ids[int(rng.integers(0, k))] = np.inf
+        req.query_doc_ids = ids
+    elif mode == "ids_negative":
+        ids = np.asarray(req.query_doc_ids).copy()
+        ids[int(rng.integers(0, k))] = -1 - int(rng.integers(0, 100))
+        req.query_doc_ids = ids
+    elif mode == "ids_out_of_range":
+        ids = np.asarray(req.query_doc_ids, np.int64).copy()
+        ids[int(rng.integers(0, k))] = np.iinfo(np.int32).max
+        req.query_doc_ids = ids
+    elif mode == "short_arrays":
+        req.query_doc_ids = np.asarray(req.query_doc_ids)[:-1]
+    elif mode == "extra_dim":
+        req.positions = np.asarray(req.positions)[None, :]
+    elif mode == "string_ids":
+        req.query_doc_ids = np.array(["x"] * k)
+    elif mode == "float_mask":
+        mask = np.asarray(req.mask, np.float64) + 0.5
+        req.mask = mask
+    elif mode == "positions_zero":
+        pos = np.asarray(req.positions).copy()
+        pos[0] = 0
+        req.positions = pos
+    elif mode == "nan_features":
+        feats = np.full((k, 4), 0.5, np.float32)
+        feats[int(rng.integers(0, k)), 0] = np.nan
+        req.features = feats
+    elif mode == "deadline_negative":
+        req.deadline_s = -abs(req.deadline_s)
+    else:
+        raise ValueError(f"unknown poison mode {mode!r}")
+    return req
+
+
+class PoisonTrace:
+    """Wrap an arrival trace, poisoning chosen request indices.
+
+    ``at`` are trace positions (0-based); each poisoned request cycles
+    through ``modes`` deterministically. Iterating twice replays the same
+    mutations.
+    """
+
+    def __init__(self, trace, at: Iterable[int],
+                 modes: Sequence[str] = POISON_MODES, seed: int = 0):
+        self.trace = list(trace)
+        self.at = sorted(set(int(i) for i in at))
+        self.modes = tuple(modes)
+        self.seed = int(seed)
+        self.poisoned = 0
+
+    def __iter__(self):
+        hit = {idx: n for n, idx in enumerate(self.at)}
+        for i, req in enumerate(self.trace):
+            if i in hit:
+                self.poisoned += 1
+                mode = self.modes[hit[i] % len(self.modes)]
+                yield poison_request(req, mode, seed=self.seed + i)
+            else:
+                yield req
+
+    def __len__(self):
+        return len(self.trace)

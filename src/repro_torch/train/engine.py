@@ -66,9 +66,11 @@ off is the unguarded engine, bit for bit.
 **On-device telemetry.** ``telemetry=True`` computes per-step scalars
 inside the chunk (JAX ``_telemetry_out``): the global norm of the gradients
 (:func:`repro_torch.optim.global_norm`), the global norm of the parameters
-after the update (after the guard's and the active mask's predicate: a
-skipped step reports the parameters it kept), and the injected learning
-rate where the optimizer carries one. They are outputs of the chunk beside
+after the update, from the update's own pass (:func:`repro_torch.optim.step`
+with ``norm=True``; after the guard's predicate: a skipped step reports
+the parameters it kept; a sweep's frozen replica, as in JAX's vmapped
+step, the parameters its update would write), and the injected learning rate
+where the optimizer carries one. They are outputs of the chunk beside
 the losses, at fixed addresses in the captured graph, so they leave the
 card with the losses, one chunk behind (:mod:`repro_torch.obs.telemetry`):
 no host sync and no dispatch of their own, still one replay per chunk. The
@@ -368,17 +370,23 @@ class TrainEngine:
                     .shape[0])
                 for key, part in self.sparse_parts.items()}
 
-    def _update(self, opt_state, params, grads, rows, pred):
+    def _update(self, opt_state, params, grads, rows, pred, norm=False,
+                apply=None):
         """The optimizer half of a step over ``params`` (the model's, or a
         replica's views) and their ``grads``, under the predicate ``pred``
-        (None: always). Returns the new state."""
+        (None: always). Returns the new state; with ``norm`` also the
+        float64 sum of squares of the parameters the step would write under
+        ``apply`` alone (see ``optim.step``: the telemetry's
+        ``param_norm``)."""
         if not self.sparse_parts:
             return optim_lib.step(self.optimizer, grads, opt_state, params,
-                                  pred)
-        dense = optim_lib.step(self.optimizer,
-                               [grads[i] for i in self._dense_at],
-                               opt_state["dense"],
-                               [params[i] for i in self._dense_at], pred)
+                                  pred, norm=norm, apply=apply)
+        dense = optim_lib.step(
+            self.optimizer, [grads[i] for i in self._dense_at],
+            opt_state["dense"], [params[i] for i in self._dense_at], pred,
+            norm=norm, apply=apply)
+        if norm:
+            dense, sumsq = dense
         sparse = {}
         for key, at in self._table_at.items():
             table, d_table = params[at], grads[at]
@@ -386,10 +394,14 @@ class TrainEngine:
             # the sentinel pads read the last row, and are skipped
             d_rows = torch.index_select(
                 d_table, 0, torch.clamp(rows[key], max=n_rows - 1))
-            _, sparse[key] = sparse_adamw_update(
+            done = sparse_adamw_update(
                 table, opt_state["sparse"][key], rows[key], d_rows,
-                pred=pred, **self.sparse_kwargs)
-        return {"dense": dense, "sparse": sparse}
+                pred=pred, norm=norm, apply=apply, **self.sparse_kwargs)
+            sparse[key] = done[1]
+            if norm:
+                sumsq = sumsq + done[2]
+        state = {"dense": dense, "sparse": sparse}
+        return (state, sumsq) if norm else state
 
     def apply_update(self, opt_state, batch: Dict[str, torch.Tensor]):
         """The optimizer half of a step, from the gradients that
@@ -398,14 +410,15 @@ class TrainEngine:
         return self._update(opt_state, self.params, _grads(self.params),
                             self._sparse_rows(batch), None)
 
-    def _telemetry_out(self, out, grads, params, opt_state) -> None:
+    def _telemetry_out(self, out, grads, opt_state, sumsq) -> None:
         """Add the step's telemetry to ``out``: ``grad_norm`` of ``grads``
-        (which the update reads and leaves), ``param_norm`` of ``params``
-        as the update left them, and the injected ``lr`` (a copy) where the
-        state has one."""
+        (which the update reads and leaves), ``param_norm``, the root of
+        ``sumsq`` (the update's own sum of squares of the parameters it
+        would write under the guard), and the injected ``lr`` (a copy)
+        where the state has one (the update leaves it as it is)."""
         with torch.no_grad():
             out["grad_norm"] = optim_lib.global_norm(grads)
-            out["param_norm"] = optim_lib.global_norm(params)
+            out["param_norm"] = torch.sqrt(sumsq).float()
             lr = optim_lib.get_injected_lr(opt_state)
             if lr is not None:
                 out["lr"] = lr.clone()
@@ -421,16 +434,20 @@ class TrainEngine:
         grads = _grads(self.params)
         rows = self._sparse_rows(batch)
         out = {"loss": loss.detach()}
-        if not self.nonfinite_guard:
-            opt_state = self._update(opt_state, self.params, grads, rows,
-                                     None)
-        else:
+        ok = None
+        if self.nonfinite_guard:
             ok = all_finite(out["loss"], grads)
-            new = self._update(opt_state, self.params, grads, rows, ok)
-            tree_copy_(opt_state, new)
             out["skipped"] = ~ok
+        new = self._update(opt_state, self.params, grads, rows, ok,
+                           norm=self.telemetry,
+                           apply=ok if self.telemetry else None)
         if self.telemetry:
-            self._telemetry_out(out, grads, self.params, opt_state)
+            new, sumsq = new
+            self._telemetry_out(out, grads, new, sumsq)
+        if ok is None:
+            opt_state = new
+        else:
+            tree_copy_(opt_state, new)
         for p in self.params:
             p.grad = None
         return opt_state, out
@@ -440,7 +457,14 @@ class TrainEngine:
         its backward, and its update under ``active[r]`` (and its own
         finiteness, with the guard), into its slice of the stacked state.
         Returns the state and the step's outputs, each ``(R,)``: ``loss``,
-        with the guard ``skipped``, with telemetry its series."""
+        with the guard ``skipped``, with telemetry its series.
+
+        Telemetry follows JAX's vmapped step, which takes it before the
+        active mask: ``param_norm`` is the norm of the parameters the
+        replica's update would write (under the guard's ``ok``), so a
+        frozen replica reports its would-be update while its parameters,
+        moments and count stay as they were (``optim.step``'s norm
+        mode)."""
         rows = self._sparse_rows(batch)
         outs = []
         for r, views in enumerate(self._views):
@@ -451,17 +475,20 @@ class TrainEngine:
             loss.backward()
             grads = _grads(views)
             out = {"loss": loss.detach()}
-            pred = self.active[r]
+            pred, ok = self.active[r], None
             if self.nonfinite_guard:
                 ok = all_finite(out["loss"], grads)
                 # a frozen replica attempted no update: not skipped
                 out["skipped"] = ~ok & pred
                 pred = pred & ok
             state_r = tree_map(lambda t, r=r: t[r], opt_state)
-            tree_copy_(state_r, self._update(state_r, views, grads, rows,
-                                              pred))
+            new = self._update(state_r, views, grads, rows, pred,
+                               norm=self.telemetry,
+                               apply=ok if self.telemetry else None)
             if self.telemetry:
-                self._telemetry_out(out, grads, views, state_r)
+                new, sumsq = new
+                self._telemetry_out(out, grads, new, sumsq)
+            tree_copy_(state_r, new)
             for v in views:
                 v.grad = None
             outs.append(out)

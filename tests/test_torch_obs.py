@@ -363,6 +363,84 @@ def test_engine_telemetry_matches_jax_and_keeps_the_bits(log, name, replicas,
         np.testing.assert_array_equal(on["skipped"].numpy(), jout["skipped"])
 
 
+FROZEN_CASES = {
+    "dense": {},
+    "dense_guard": dict(nonfinite_guard=True),
+    "sparse": dict(sparse_tables=True, sparse_table_kwargs=dict(
+        lr=0.05, weight_decay=1e-4)),
+    "sparse_guard": dict(nonfinite_guard=True, sparse_tables=True,
+                         sparse_table_kwargs=dict(lr=0.05,
+                                                  weight_decay=1e-4)),
+    "dense_lr_schedule": {},   # per-replica lrs retuned between the chunks
+    "dense_scheduled_optimizer": {},   # adamw over a cosine schedule
+}
+
+
+@pytest.mark.parametrize("case", list(FROZEN_CASES))
+def test_frozen_replica_reports_its_would_be_update_as_jax(log, case):
+    """ROADMAP C.4: a sweep's frozen replica reports the ``param_norm`` (and
+    ``lr``) of the update it would make, as JAX's vmapped step takes its
+    telemetry before the active mask, with the guard's ``ok`` applied; its
+    parameters, moments and count stay as they were, to the bit. One chunk
+    all active, then a chunk with replica 1 frozen (R = 2, DBN)."""
+    cfg, (train, _, _) = log
+    kw = FROZEN_CASES[case]
+    batches = list(ClickLogLoader(train, batch_size=96, seed=1))[:8]
+    chunks = [{k: np.stack([b[k] for b in batches[i:i + 4]])
+               for k in batches[0]} for i in (0, 4)]
+    if kw.get("nonfinite_guard"):
+        chunks[1]["clicks"][2] = np.nan  # the frozen chunk's third step skips
+    sparse = "sparse" in case
+    lrs = [[0.05, 0.02], [0.03, 0.01] if case == "dense_lr_schedule"
+           else [0.05, 0.02]]
+
+    def optimizer(mod):
+        if case == "dense_scheduled_optimizer":
+            return mod.adamw(mod.cosine_decay(0.05, 6, alpha=0.1),
+                             weight_decay=1e-4)
+        return mod.adamw(0.05, weight_decay=1e-4, inject_lr=not sparse)
+
+    jm, tm = _models("dbn", cfg)
+    jeng = JaxEngine(jm, optimizer(jopt), chunk_batches=4, replicas=2,
+                     telemetry=True, **kw)
+    jparams = jeng.init_replica_params([0, 1])
+    jstate = jeng.init_opt_state(jparams)
+    eng = TrainEngine(tm, optimizer(optim), chunk_batches=4, replicas=2,
+                      telemetry=True, **kw)
+    eng.init_replica_params([0, 1])
+    state = eng.init_opt_state()
+    outs = []
+    for c, (chunk, active) in enumerate(zip(chunks, ([True, True],
+                                                     [True, False]))):
+        if case.startswith("dense") and "scheduled" not in case:
+            jstate = jeng.set_replica_lrs(jstate, lrs[c])
+            eng.set_replica_lrs(state, lrs[c])
+        jparams, jstate, jout = jeng.step(jparams, jstate, chunk,
+                                          active=np.asarray(active))
+        if c == 1:
+            frozen = [t[1].clone() for t in eng.replica_params
+                      + tree_leaves(state)]
+        state, out = eng.step(state, {k: torch.from_numpy(v)
+                                      for k, v in chunk.items()},
+                              active=active)
+        outs.append((out, jax.device_get(jout)))
+    for t, before in zip(eng.replica_params + tree_leaves(state), frozen,
+                         strict=True):
+        assert torch.equal(t[1], before)
+    for out, jout in outs:
+        assert set(out) == set(jout)
+        for key in set(out) - {"skipped"}:
+            np.testing.assert_allclose(out[key].numpy(), jout[key],
+                                       rtol=REL, err_msg=key)
+        if "skipped" in out:
+            np.testing.assert_array_equal(out["skipped"].numpy(),
+                                          jout["skipped"])
+    # the frozen replica's would-be update is not its frozen parameters
+    frozen_norm = float(torch.sqrt(sum(torch.sum(t[1].double() ** 2)
+                                       for t in eng.replica_params)))
+    assert abs(float(outs[1][0]["param_norm"][-1, 1]) - frozen_norm) > 1e-4
+
+
 class _StandIn:
     """Stand-in graphs: a replay runs the captured body over the static
     buffers."""

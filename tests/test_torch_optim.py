@@ -222,6 +222,9 @@ def test_fused_adamw_takes_only_cuda_tensors():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         topt.step(opt, [torch.ones(4, device="meta")], opt.init(params),
                   params)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        topt.step(opt, [torch.ones(4, device="meta")], opt.init(params),
+                  params, norm=True)
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 7, 100, 1023, 4097, 1_000_003])
