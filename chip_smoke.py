@@ -42,6 +42,10 @@ Phases, each printing JSON lines:
                   (B, S, H, Dh)-backed layout, each case with the variant
                   (rows or tiles) its launch plan took, and the first
                   design (the tiles variant) timed at the main shape;
+                  BST's attention (65,536, 8, 8, 21, 21, 4) in its
+                  (B, S, H, Dh)-backed layout and BST's retrieval bag, one
+                  (1, 20) mean bag over a 20,000,000 x 32 table, each a row
+                  of its own;
                   dcn_cross at the two-tower's (655,360, 16), the
                   conformance and sweep shapes, (65,536, 1024) and bf16;
                   adamw over the DBN's two 214,748,672-row tables against
@@ -116,8 +120,9 @@ Phases, each printing JSON lines:
                   parameter tensor a step; the held-out loss must fall.
 11. serve_autoint, train_autoint   the same for AutoInt: three
                   flash_attention launches per forward.
-12. cpu_vs_gpu_recsys   the reduced DeepFM and AutoInt: CPU (plain) and GPU
-                  (kernels) agree on loss and every gradient.
+12. cpu_vs_gpu_recsys   the reduced DeepFM, AutoInt, BST and MIND: CPU
+                  (plain) and GPU (kernels) agree on loss, every gradient
+                  and the served scores.
 13. The Trainer's run contract, after the earlier paths, on the
    two-tower PBM and the paper-width DBN (each phase prints its
    seconds; launches held exactly, the graphs' kernel nodes where graphs
@@ -216,13 +221,35 @@ Phases, each printing JSON lines:
                   card against the CPU port's (signature, counters,
                   log_ctr); the launcher's SIGTERM drill in a subprocess.
 
+16. Slice 12, after every earlier path:
+   conformance    testing.conformance's sweep on the card: JAX's six specs
+                  at every shape, float32 and bfloat16 (flash_attention also
+                  as (B, S, H, Dh)-backed views), values and gradients of
+                  the kernel route (the public op: kernel forward, the op's
+                  backward) against the plain route's autograd at TOLS
+                  (1e-5, 2e-2), the extreme corpora and examination_nll's
+                  saturated sessions; one line per kernel (cells, held,
+                  largest value and gradient errors).
+   serve_bst, train_bst   BST at its published width (a 20,000,000 x 32
+                  table, 8 heads, S = 21, MLP 1024-512-256) on a synthetic
+                  sequence log: serve at 512 and 262,144 rows and score
+                  1,000,000 candidates (first and last 512 held to the
+                  plain forward), then 8 AdamW(1e-3) steps at 65,536 rows:
+                  one flash_attention per forward, one embedding_bag per
+                  retrieval call, one adamw per parameter tensor a step;
+                  peak memory allocated and reserved.
+   serve_mind, train_mind   the same for MIND (10,000,000 x 64, 4
+                  interests, history 50 with -1 padding): no kernel but
+                  adamw.
+
 Every phase that drives a path sets every kernel's launch count to 0 just
 before it and reads the counts just after; they must be exact (where
 graphs replay, the wrappers' and the graphs' kernel nodes together). A
 control
 line holds the device times of the six kernels this slice left untouched
-beside the last runs before it. Then the kernel summary line (eight
-kernels: the six ports of TPU kernels and the optimizer's two), the card's
+beside the last runs before it. Then the kernel summary line (the six
+ports of TPU kernels, each with its conformance summary, the optimizer's
+two, and BST's attention and retrieval bag as rows of their own), the card's
 name and power limit as nvidia-smi prints them, and the final status
 line. Any mismatch raises, and the script exits
 non-zero; it exits non-zero without a result when no GPU is visible. It
@@ -2420,6 +2447,8 @@ TABLE_ROWS = 80_000_000     # configs/deepfm.py, configs/autoint.py
 N_FIELDS = 39
 FM_D = 10                   # DeepFM's embed_dim
 ATTN = (65536, 2, 2, 39, 39, 16)  # AutoInt: (B, Hq, Hkv, Sq, Skv, Dh)
+BST_ATTN = (65536, 8, 8, 21, 21, 4)  # BST (configs/bst.py) at train_batch
+BST_ROWS, BST_D, BST_L = 20_000_000, 32, 20  # its table and history
 
 
 class CriteoLog:
@@ -2467,24 +2496,90 @@ class CriteoLog:
         return {"field_ids": ids}
 
 
+class SequenceLog:
+    """A synthetic behavior log made on the card from a seed, its ids drawn
+    the way CriteoLog draws them: item ids Zipf-skewed over the whole item
+    vocabulary (rank r with density ~ 1/r), a ``history_len`` history and a
+    target item per row, and labels from a planted logistic model (a random
+    weight per item: the target's plus the history's mean, base rate
+    ~25%). With ``padded``, half the rows keep a history of 0 to L - 1
+    items and pad the rest with -1 (MIND's histories; a row with none is
+    fully padded). Ids are int32, as the JAX package hands them over."""
+
+    def __init__(self, device, vocab, history_len, padded=False, seed=0):
+        import torch
+
+        self.vocab, self.history_len, self.padded = vocab, history_len, padded
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(seed)
+        self.device = device
+        self.planted = torch.randn(vocab, generator=self.gen,
+                                   device=device) * 0.7
+
+    def item_ids(self, *shape):
+        import torch
+
+        u = torch.rand(*shape, generator=self.gen, device=self.device)
+        rank = torch.floor(torch.pow(float(self.vocab), u)).long() - 1
+        return rank.clamp_(0, self.vocab - 1).int()
+
+    def history(self, n):
+        import torch
+
+        ids = self.item_ids(n, self.history_len)
+        if self.padded:
+            L = self.history_len
+            keep = torch.randint(0, L, (n, 1), generator=self.gen,
+                                 device=self.device)
+            cut = torch.rand(n, 1, generator=self.gen,
+                             device=self.device) < 0.5
+            keep = torch.where(cut, keep, L)
+            ids[torch.arange(L, device=self.device)[None, :] >= keep] = -1
+        return ids
+
+    def batch(self, n):
+        import torch
+
+        hist, target = self.history(n), self.item_ids(n)
+        live = (hist >= 0).float()
+        past = (self.planted[hist.clamp(min=0).long()] * live).sum(1) / (
+            live.sum(1).clamp(min=1.0))
+        logit = self.planted[target.long()] + past - 1.2
+        labels = (torch.rand(n, generator=self.gen, device=self.device)
+                  < torch.sigmoid(logit)).float()
+        return {"history_ids": hist, "target_ids": target, "labels": labels}
+
+    def candidates(self, n):
+        """One user's history beside ``n`` candidate items drawn uniformly
+        over the vocabulary."""
+        import torch
+
+        return {"history_ids": self.history(1),
+                "candidate_ids": torch.randint(
+                    0, self.vocab, (n,), generator=self.gen,
+                    device=self.device, dtype=torch.int32)}
+
+
 def bag_bound(table, ids, weights):
     """(bound_ms, bound_by) of one bag call on these inputs: ids (and
     weights) read once, each 32-byte table sector that a live id touches
     read once, the output written once; a multiply-add per gathered float.
     Ids are counted at 4 bytes while the table has fewer than 2^31 rows
     (the function needs no more; the TPU kernel reads int32), whatever
-    width the caller hands over. For rows of at most
-    32 bytes (D <= 8; DeepFM's first-order D = 1), each touching one or
-    two sectors; the table starts on a sector boundary (torch allocations
+    width the caller hands over. A row of D floats touches the sectors from
+    its first byte's to its last's (DeepFM's first-order D = 1: one; BST's
+    D = 32: four); the table starts on a sector boundary (torch allocations
     do)."""
     import torch
 
     rows, dim = table.shape
-    if dim * 4 > 32:
-        raise ValueError(f"bag_bound counts rows of <= 32 bytes, got D={dim}")
     live = torch.clamp(ids[ids >= 0].long(), max=rows - 1)
-    sectors = int(torch.unique(torch.cat([
-        live * dim * 4 // 32, ((live + 1) * dim * 4 - 1) // 32])).numel())
+    first, last = live * dim * 4 // 32, ((live + 1) * dim * 4 - 1) // 32
+    sectors = 0
+    if live.numel():
+        span = int((last - first).max()) + 1
+        sectors = int(torch.unique(torch.cat([
+            torch.minimum(first + k, last) for k in range(span)])).numel())
     id_bytes = 4 if rows < 2 ** 31 else 8
     nbytes = (ids.numel() * id_bytes + sectors * 32
               + ids.shape[0] * dim * 4
@@ -2593,7 +2688,7 @@ def _attn_inputs(gen, device, B, Hq, Hkv, Sq, Skv, Dh):
 
 def _autoint_layout(args):
     """The same values as transpose(1, 2) views of contiguous (B, S, H, Dh)
-    tensors: the layout AutoInt's projections hand the kernel."""
+    tensors: the layout AutoInt's and BST's projections hand the kernel."""
     return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in args]
 
 
@@ -2612,8 +2707,12 @@ def _flash_cases(gen, device):
               "ragged_b_autoint": (129, 2, 2, 39, 39, 16, False),
               "causal_rows_dh16": (7, 4, 2, 20, 39, 16, True),
               "gqa_3to1_dh8": (33, 3, 1, 10, 12, 8, False)}
-    return {name: (_attn_inputs(gen, device, *shape[:6]), shape[6])
-            for name, shape in shapes.items()}
+    cases = {name: (_attn_inputs(gen, device, *shape[:6]), shape[6])
+             for name, shape in shapes.items()}
+    # BST's attention at train_batch, in the layout its projections give.
+    cases["bst_8x21_dh4"] = (
+        _autoint_layout(_attn_inputs(gen, device, *BST_ATTN)), False)
+    return cases
 
 
 def _hold(name, over):
@@ -2677,7 +2776,8 @@ def phase_recsys_kernels(card):
         emit("kernel", name=name, shape=shape, card=card, kernel_ms=ms,
              plain_ms=plain_ms, library_ms=library_ms, device_ms=device_ms,
              bound_ms=bound_ms, bound_by=bound_by, max_abs_err=main_err,
-             edge_cases=len(errs), max_edge_abs_err=max(errs.values()),
+             edge_cases=len(errs),
+             max_edge_abs_err=max(errs.values(), default=0.0),
              edge_abs_errs=errs, timing_s=time.perf_counter() - t0)
 
     # embedding_bag: DeepFM's first-order bag over the real (80M, 1) table,
@@ -2757,6 +2857,25 @@ def phase_recsys_kernels(card):
          **{k: entry[k] for k in ("plan", "int64", "plan_sweep_device_ms",
                                   "data_forms")})
     del table, main, main64, cases, log
+    # BST's retrieval bag, a row of its own: one (1, 20) mean bag (weights
+    # 1 / 20, as the op's mean combiner makes them) over the 20,000,000 x
+    # 32 table, the smallest grid of the launch plan (wide variant).
+    table = torch.randn(BST_ROWS, BST_D, generator=gen, device=device)
+    ids = SequenceLog(device, BST_ROWS, BST_L, seed=1).history(1)
+    args = [table, ids, torch.full((1, BST_L), 1.0 / BST_L, device=device)]
+    got, want = embedding_bag_cuda(*args), embedding_bag_plain(*args)
+    _hold("embedding_bag_bst_b1", {"main": _over(got, want, 1e-5)})
+    if _over(bag_library(*args), want, 1e-4) > 0:
+        raise AssertionError("embedding_bag B = 1: library yardstick "
+                             "disagrees")
+    record("embedding_bag_bst_b1", "cuda",
+           "src/repro_torch/kernels/csrc/embedding_bag.cu",
+           "src/repro/kernels/embedding_bag.py:33", [BST_ROWS, BST_D, 1, BST_L],
+           embedding_bag_cuda, embedding_bag_plain, bag_library, args,
+           {"main": _max_err(got, want)}, bag_bound(*args))
+    results["embedding_bag_bst_b1"].update(
+        kernel="embedding_bag", plan=bag_plan_for(*args)._asdict())
+    del table, args
 
     # fm_interaction at DeepFM's (B, F, D).
     v = torch.randn(B_MAIN, N_FIELDS, FM_D, generator=gen, device=device)
@@ -2809,10 +2928,13 @@ def phase_recsys_kernels(card):
 
     def attn_library(q, k, v):
         # Heads are independent here (Hq == Hkv), so (B, H) is refolded to
-        # (4, B H / 4): PyTorch's fp32 kernel puts batch and heads on grid
-        # axes that hold at most 65,535 blocks.
+        # (B H / 32,768, 32,768): PyTorch's fp32 kernel puts batch and
+        # heads on grid axes that hold at most 65,535 blocks. A view in the
+        # (B, S, H, Dh) layout is copied by the refold.
         B, H, S, D = q.shape
-        fold = [t.reshape(4, B * H // 4, S, D) for t in (q, k, v)]
+        n = B * H
+        fold = [t.reshape(-(-n // 32768), min(n, 32768), S, D)
+                for t in (q, k, v)]
         return F.scaled_dot_product_attention(*fold).reshape(B, H, S, D)
 
     library_err = _max_err(attn_library(*main), flash_attention_plain(*main))
@@ -2860,38 +2982,105 @@ def phase_recsys_kernels(card):
          shape=list(ATTN), **{k: entry[k] for k in (
              "plan", "bf16", "autoint_layout", "tiles_variant_device_ms",
              "plan_sweep_device_ms")})
+    # BST's attention at train_batch in its (B, S, H, Dh)-backed layout, a
+    # row of its own.
+    args = cases["bst_8x21_dh4"][0]
+    library_err = _max_err(attn_library(*args), flash_attention_plain(*args))
+    record("flash_attention_bst", "cuda",
+           "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:30", list(BST_ATTN),
+           flash_attention_cuda, flash_attention_plain, attn_library, args,
+           {"main": errs["bst_8x21_dh4"]}, flash_bound(*args))
+    results["flash_attention_bst"].update(
+        kernel="flash_attention", layout="bshd_views",
+        library_max_abs_err=library_err, plan=plan_for(*args)._asdict())
     del main, cases
     torch.cuda.empty_cache()
     return results
 
 
-def per_forward(model):
-    """Kernel launches in one forward: DeepFM one embedding_bag and one
-    fm_interaction, AutoInt one flash_attention per attention layer."""
-    if hasattr(model.cfg, "n_attn_layers"):
-        return {"flash_attention": model.cfg.n_attn_layers}
+SEQUENCE_ARCHS = ("bst", "mind")
+
+
+def per_forward(model, retrieval=False):
+    """Kernel launches in one forward (or, with ``retrieval``, one
+    retrieval_score call): DeepFM one embedding_bag and one fm_interaction,
+    AutoInt one flash_attention per attention layer, BST one
+    flash_attention per block (its retrieval one mean embedding_bag and no
+    attention), MIND none."""
+    cfg = model.cfg
+    if cfg.name.startswith("bst"):
+        return ({"embedding_bag": 1} if retrieval
+                else {"flash_attention": cfg.n_blocks})
+    if cfg.name.startswith("mind"):
+        return {}
+    if hasattr(cfg, "n_attn_layers"):
+        return {"flash_attention": cfg.n_attn_layers}
     return {"embedding_bag": 1, "fm_interaction": 1}
 
 
 def _config(arch):
-    if arch == "deepfm":
-        from repro_torch.configs import deepfm as mod
-    else:
-        from repro_torch.configs import autoint as mod
-    return mod
+    from repro_torch.configs.registry import get_arch
+
+    return get_arch(arch)
+
+
+def _log(arch, device, seed):
+    """The synthetic log each recsys arch trains and serves on."""
+    if arch not in SEQUENCE_ARCHS:
+        return CriteoLog(device, seed=seed)
+    cfg = _config(arch).FULL
+    if arch == "bst":
+        return SequenceLog(device, cfg.item_vocab, cfg.seq_len, seed=seed)
+    return SequenceLog(device, cfg.item_vocab, cfg.history_len, padded=True,
+                       seed=seed)
+
+
+@contextlib.contextmanager
+def _swapped(module, **names):
+    """``module``'s attributes replaced by ``names`` for the block."""
+    saved = {name: getattr(module, name) for name in names}
+    for name, value in names.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
 
 
 def _plain_forward(arch, model, batch):
-    """The model's forward with each kernel's plain version in its place,
-    on the same card: the reference the kernels' forward is held to."""
+    """The model's forward (or, for a candidate batch of BST or MIND, its
+    retrieval_score) with each kernel's plain version in its place, on the
+    same card: the reference the kernels' forward is held to."""
     import torch
 
     from repro_torch.kernels import (embedding_bag_plain,
                                      flash_attention_plain,
                                      fm_interaction_plain)
-    from repro_torch.models.recsys import table_lookup
+    from repro_torch.models.recsys import bst, table_lookup
 
-    cfg, ids = model.cfg, batch["field_ids"]
+    cfg = model.cfg
+    if arch == "bst":
+        def plain_mean_bag(table_cfg, params, ids, combiner):
+            live = (ids >= 0).float()
+            return embedding_bag_plain(
+                params["table"], ids,
+                live / live.sum(1, keepdim=True).clamp_min(1.0))
+
+        def plain_attention(q, k, v, causal=False):
+            return flash_attention_plain(q, k, v, causal=causal)
+
+        with _swapped(bst, bag_lookup=plain_mean_bag,
+                      flash_attention=plain_attention):
+            if "candidate_ids" in batch:
+                return model.retrieval_score(batch)
+            return model.forward(batch)
+    if arch == "mind":  # no kernel
+        if "candidate_ids" in batch:
+            return model.retrieval_score(batch)
+        return model.forward(batch)
+    ids = batch["field_ids"]
     if arch == "deepfm":
         v = table_lookup(cfg.table, model.embedding, ids)
         first = embedding_bag_plain(model.first_order["table"], ids)[:, 0]
@@ -2910,22 +3099,28 @@ def _plain_forward(arch, model, batch):
 
 
 def _check_rows(arch, shape, model, batch, scores, serve):
-    """Hold the scores of the first and last 512 rows of a call (where the
-    kernels' offsets are smallest and largest) to the plain forward of
-    those rows alone, rtol and atol 1e-5; rows are independent, so no full
-    plain pass is needed. Returns the largest error."""
+    """Hold the scores of the first and last 512 rows of a call (for a
+    sequence model's retrieval, of its candidates), where the kernels'
+    offsets are smallest and largest, to the plain forward of those alone,
+    rtol and atol 1e-5; rows are independent, so no full plain pass is
+    needed. Returns the largest error."""
     import torch
 
     from repro_torch.stable import log_sigmoid
 
-    rows = scores.shape[0]
+    n = scores.shape[-1]
     sel = torch.unique(torch.cat([
-        torch.arange(min(512, rows)), torch.arange(max(0, rows - 512), rows)
+        torch.arange(min(512, n)), torch.arange(max(0, n - 512), n)
     ])).to(scores.device)
-    want = _plain_forward(arch, model, {"field_ids": batch["field_ids"][sel]})
+    if "candidate_ids" in batch:  # BST, MIND: one user, (1, C) scores
+        sub = dict(batch, candidate_ids=batch["candidate_ids"][sel])
+        got = scores[:, sel]
+    else:
+        sub = {k: v[sel] for k, v in batch.items() if k != "labels"}
+        got = scores[sel]
+    want = _plain_forward(arch, model, sub)
     if serve:
         want = log_sigmoid(want)
-    got = scores[sel]
     if _over(got, want, 1e-5) > 0:
         raise AssertionError(f"{arch} {shape}: kernels' scores vs plain "
                              f"forward differ by {_max_err(got, want)}")
@@ -2941,26 +3136,30 @@ def phase_serve(arch, model, log, card):
 
     from repro_torch.configs.recsys_common import SHAPES
 
-    calls = 0
+    expected = Counter()
     out, ref_err = {}, {}
     with torch.no_grad():
         reset_counts()
         for shape, iters in (("serve_p99", 50), ("serve_bulk", 10),
                              ("retrieval_cand", 3)):
             info = SHAPES[shape]
-            if info["kind"] == "retrieval":
+            retrieval = info["kind"] == "retrieval"
+            if retrieval:
                 rows = info["n_candidates"]
                 batch, fn = log.candidates(rows), model.retrieval_score
+                want_shape = ((1, rows) if arch in SEQUENCE_ARCHS
+                              else (rows,))
             else:
                 rows = info["batch"]
                 batch, fn = log.batch(rows), model.serve
+                want_shape = (rows,)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             scores = fn(batch)
             torch.cuda.synchronize()
             first_call_ms = (time.perf_counter() - t0) * 1e3
-            if scores.shape != (rows,) or not bool(
+            if scores.shape != want_shape or not bool(
                     torch.isfinite(scores).all()):
                 raise AssertionError(f"{arch} {shape}: bad scores")
             if info["kind"] == "serve" and bool(torch.any(scores > 0)):
@@ -2969,15 +3168,17 @@ def phase_serve(arch, model, log, card):
                                          info["kind"] == "serve")
             del scores
             ms = time_ms(lambda: fn(batch), iters=iters, warmup=1)
-            calls += 1 + 1 + iters
+            for k, n in per_forward(model, retrieval).items():
+                expected[k] += n * (1 + 1 + iters)
             out[shape] = {"rows": rows, "ms_per_call": ms,
                           "rows_per_s": rows / ms * 1e3,
                           "first_call_ms": first_call_ms,
                           "max_memory_allocated":
-                              torch.cuda.max_memory_allocated()}
-        launches = check_counts(f"serve_{arch}", {
-            k: n * calls for k, n in per_forward(model).items()})
-    emit(f"serve_{arch}", card=card, params=model.n_params(), calls=calls,
+                              torch.cuda.max_memory_allocated(),
+                          "max_memory_reserved":
+                              torch.cuda.max_memory_reserved()}
+        launches = check_counts(f"serve_{arch}", expected)
+    emit(f"serve_{arch}", card=card, params=model.n_params(),
          launches=launches, shapes=out, forward_vs_plain_abs_err=ref_err)
     return launches
 
@@ -3044,6 +3245,7 @@ def phase_train_recsys(arch, model, log, card, steps=8):
         **{k: n * steps for k, n in per_forward(model).items()},
         "adamw": steps * sum(1 for p in model.parameters() if p.numel())})
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{arch}: non-finite train loss {losses}")
@@ -3059,7 +3261,8 @@ def phase_train_recsys(arch, model, log, card, steps=8):
          steps_per_s=steps / seconds, rows_per_s=steps * rows / seconds,
          cold_step_ms=cold_s * 1e3, warm_step_ms=warm_s * 1e3,
          warm_steps_per_s=1.0 / warm_s, warm_rows_per_s=rows / warm_s,
-         max_memory_allocated=peak, launches=launches, train_losses=losses,
+         max_memory_allocated=peak, max_memory_reserved=peak_reserved,
+         launches=launches, train_losses=losses,
          held_out_loss_before=loss_before, held_out_loss_after=loss_after,
          step_breakdown_ms=breakdown)
     return launches
@@ -3089,22 +3292,21 @@ def clamp_fold_timing(model, log, card):
         for what, (batch, fn, iters) in batches.items():
             times = {"before": [], "after": []}
             for form in ("before", "after", "after", "before"):
-                deepfm.bag_lookup = unfolded if form == "before" else folded
-                try:
+                with _swapped(deepfm, bag_lookup=unfolded
+                              if form == "before" else folded):
                     times[form].append(time_ms(lambda: fn(batch),
                                                iters=iters, warmup=3))
-                finally:
-                    deepfm.bag_lookup = folded
             out[what] = {form: min(v) for form, v in times.items()}
     emit("clamp_fold", card=card, **out)
     return out
 
 
 def phase_recsys(arch, card):
-    """Serve, then train, the published-width model; freed afterwards."""
+    """Serve, then train, the published-width model; freed afterwards.
+    Returns the serve and the train phase's launches."""
     import torch
 
-    log = CriteoLog(torch.device("cuda"), seed=2)
+    log = _log(arch, torch.device("cuda"), seed=2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = _config(arch).make_model(device="cuda", seed=0)
@@ -3112,27 +3314,45 @@ def phase_recsys(arch, card):
     emit(f"build_{arch}", params=model.n_params(),
          seconds=time.perf_counter() - t0,
          memory_allocated=torch.cuda.memory_allocated())
-    phase_serve(arch, model, log, card)
+    serve = phase_serve(arch, model, log, card)
     if arch == "deepfm":
         clamp_fold_timing(model, log, card)
-    launches = phase_train_recsys(arch, model, log, card)
+    train = phase_train_recsys(arch, model, log, card)
     del model, log
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return serve, train
+
+
+def _cpu_batch(arch, cfg, rng, rows=512):
+    """A numpy batch for the reduced ``cfg``: field ids, or a history (MIND's
+    with a fully and a partly padded row and 10% padding) and targets."""
+    if arch not in SEQUENCE_ARCHS:
+        return {"field_ids": rng.integers(0, cfg.table_rows,
+                                          (rows, cfg.n_sparse)),
+                "labels": (rng.random(rows) < 0.3).astype(np.float32)}
+    L = cfg.seq_len if arch == "bst" else cfg.history_len
+    hist = rng.integers(0, cfg.item_vocab, (rows, L)).astype(np.int32)
+    if arch == "mind":
+        hist[rng.random((rows, L)) < 0.1] = -1
+        hist[0], hist[1, 3:] = -1, -1
+    return {"history_ids": hist,
+            "target_ids": rng.integers(0, cfg.item_vocab, rows
+                                       ).astype(np.int32),
+            "labels": (rng.random(rows) < 0.3).astype(np.float32)}
 
 
 def phase_recsys_cpu_vs_gpu():
-    """The reduced DeepFM and AutoInt with the same weights through
-    ``convert``: CPU (plain versions) and GPU (kernels) agree on the loss
-    and every gradient to 1e-5."""
+    """The reduced DeepFM, AutoInt, BST and MIND with the same weights
+    through ``convert``: CPU (plain versions) and GPU (kernels) agree on the
+    loss, every gradient and the served scores to 1e-5."""
     import numpy as np
     import torch
 
     from repro_torch.convert import export_params, load_jax_params
 
     out = {}
-    for arch in ("deepfm", "autoint"):
+    for arch in ("deepfm", "autoint", "bst", "mind"):
         mod = _config(arch)
         cfg = mod.reduced()
         cpu = mod.make_model(device="cpu", seed=1, cfg=cfg)
@@ -3143,10 +3363,8 @@ def phase_recsys_cpu_vs_gpu():
                     scale=0.3, size=tuple(p.shape)).astype(np.float32)))
         gpu = mod.make_model(device="cuda", seed=2, cfg=cfg)
         load_jax_params(gpu, export_params(cpu))
-        batch = {"field_ids": rng.integers(0, cfg.table_rows,
-                                           (512, cfg.n_sparse)),
-                 "labels": (rng.random(512) < 0.3).astype(np.float32)}
-        losses, grads = [], []
+        batch = _cpu_batch(arch, cfg, rng)
+        losses, grads, served = [], [], []
         reset_counts()
         for model, dev in ((cpu, torch.device("cpu")),
                            (gpu, torch.device("cuda"))):
@@ -3154,9 +3372,14 @@ def phase_recsys_cpu_vs_gpu():
             loss = model.loss(b)
             grads.append(torch.autograd.grad(loss, list(model.parameters())))
             losses.append(float(loss.detach()))
-        check_counts(f"cpu_vs_gpu {arch}", per_forward(gpu))
+            with torch.no_grad():
+                served.append(model.serve(b).cpu())
+        check_counts(f"cpu_vs_gpu {arch}", {
+            k: 2 * n for k, n in per_forward(gpu).items()})
         check_close(f"cpu_vs_gpu {arch} loss", losses[1], losses[0],
                     rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(served[1], served[0], rtol=1e-5, atol=1e-5,
+                                   msg=lambda m: f"{arch} serve: {m}")
         worst = 0.0
         for (name, _), g_cpu, g_gpu in zip(cpu.named_parameters(), *grads):
             torch.testing.assert_close(g_gpu.cpu(), g_cpu, rtol=1e-5,
@@ -3164,7 +3387,8 @@ def phase_recsys_cpu_vs_gpu():
                                        msg=lambda m: f"{arch} {name}: {m}")
             worst = max(worst, _max_err(g_gpu.cpu(), g_cpu))
         out[arch] = {"loss_cpu": losses[0], "loss_gpu": losses[1],
-                     "max_grad_abs_err": worst}
+                     "max_grad_abs_err": worst,
+                     "max_serve_abs_err": _max_err(served[1], served[0])}
     emit("cpu_vs_gpu_recsys", **out)
 
 
@@ -5156,6 +5380,34 @@ def phase_serve_engine(card):
     return counted["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: the kernel conformance sweep on the card
+# ---------------------------------------------------------------------------
+
+def phase_conformance(card):
+    """``testing.conformance.sweep`` on the card: every spec x shape x dtype
+    of JAX's six specs (flash_attention's also as (B, S, H, Dh)-backed
+    views), values and gradients of the kernel route (the public op: the
+    kernel's forward, the op's backward on what it produced) against the
+    plain route's autograd on the same card at TOLS, each extreme corpus
+    and examination_nll's saturated sessions. One line per kernel; raises
+    after every cell was measured if any missed. Returns the summary by
+    kernel."""
+    from repro_torch.testing import conformance
+
+    t0 = time.perf_counter()
+    report, misses = conformance.sweep(device="cuda")
+    for name, row in report.items():
+        emit("conformance", name=name, card=card, **row)
+    emit("conformance_done", seconds=time.perf_counter() - t0,
+         cells=sum(r["cells"] for r in report.values()),
+         held=sum(r["held"] for r in report.values()), misses=misses)
+    if misses:
+        raise AssertionError(f"conformance: {len(misses)} misses: "
+                             + "; ".join(misses))
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -5201,14 +5453,24 @@ def main() -> int:
     del data
     # The serving engine, after every earlier path.
     phase_serve_engine(smi)
-    # Each kernel's launches in the training run of its path.
+    # Slice 12, after every earlier path: the conformance sweep forward and
+    # backward, then BST and MIND at their published widths.
+    conformance = phase_conformance(smi)
+    bst_serve, bst = phase_recsys("bst", smi)
+    phase_recsys("mind", smi)
+    # Each kernel's launches in the training run of its path; BST's
+    # retrieval bag in its serve phase.
     for name, counts in (("examination_nll", dbn), ("session_nll", dctr),
-                         ("embedding_bag", deepfm),
-                         ("fm_interaction", deepfm),
-                         ("flash_attention", autoint),
+                         ("embedding_bag", deepfm[1]),
+                         ("fm_interaction", deepfm[1]),
+                         ("flash_attention", autoint[1]),
                          ("dcn_cross", two_tower),
                          ("adamw", dbn), ("sparse_adamw", dbn)):
         kernels[name]["launches"] = counts[name]
+    kernels["flash_attention_bst"]["launches"] = bst["flash_attention"]
+    kernels["embedding_bag_bst_b1"]["launches"] = bst_serve["embedding_bag"]
+    for name, row in conformance.items():
+        kernels[name]["conformance"] = row
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)

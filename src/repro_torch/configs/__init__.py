@@ -1,2 +1,3 @@
 """Model configurations (port of ``repro.configs``: ``clax_baidu``,
-``deepfm``, ``autoint`` and the recsys ``SHAPES``)."""
+``deepfm``, ``autoint``, ``bst``, ``mind``, the recsys ``SHAPES`` and
+batch factories, and the ``registry``; the LM and GNN configs wait)."""

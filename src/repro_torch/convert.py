@@ -8,8 +8,9 @@ a feature tower's ``("attraction", "cross_0", "kernel")`` is
 ``parts.attraction.cross_0.kernel``. The mixture model's tree
 (``("prior_logits",)``, ``("store", "m0_attraction", "table")``) and a
 recsys model's (``("embedding", "table")``, ``("mlp", "layer_0",
-"kernel")``, ``("attn_0", "wq")``, a 0-d ``("bias",)``) map with no
-prefix.
+"kernel")``, ``("attn_0", "wq")``, a 0-d ``("bias",)``; BST's
+``("pos_embed",)`` and ``("block_0", "ln1")``, MIND's ``("bilinear",)``
+and ``("routing_init",)``) map with no prefix.
 The tree arrives as nested dicts of numpy arrays
 (``jax.device_get(params)``), so this module needs no JAX, or of tensors
 (the EM fits of ``repro_torch.core.em``, on any device).

@@ -48,6 +48,14 @@ from repro_torch.kernels.session_nll import (session_nll_cuda,
                                              session_nll_plain)
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A floating input as float32, others as they are. The session_nll,
+    examination_nll, embedding_bag and fm_interaction kernels read float32;
+    JAX's Pallas kernels take any float and compute in float32, so the op
+    widens first (a no-op on float32, a copy otherwise)."""
+    return t.float() if t.is_floating_point() else t
+
+
 def _route(device: torch.device, kernel, plain):
     if device.type == "cuda":
         return kernel
@@ -81,8 +89,8 @@ class _SessionNLL(torch.autograd.Function):
 def session_nll(logits: torch.Tensor, clicks: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
     """Masked-mean Bernoulli click NLL straight from (B, K) logits."""
-    return _SessionNLL.apply(logits.contiguous(), clicks.contiguous(),
-                             mask.contiguous())
+    return _SessionNLL.apply(*(_f32(t).contiguous()
+                               for t in (logits, clicks, mask)))
 
 
 class _ExaminationNLL(torch.autograd.Function):
@@ -120,8 +128,9 @@ def examination_nll(attr_logits, clicks, mask, p_skip_survive, p_death,
     minimizes.
     """
     return _ExaminationNLL.apply(
-        *(t.contiguous() for t in (attr_logits, clicks, mask, p_skip_survive,
-                                   p_death, p_reset, p_reset_not)))
+        *(_f32(t).contiguous() for t in (attr_logits, clicks, mask,
+                                         p_skip_survive, p_death, p_reset,
+                                         p_reset_not)))
 
 
 class _EmbeddingBag(torch.autograd.Function):
@@ -177,7 +186,9 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   ) -> torch.Tensor:
     """out[b] = reduce_l table[ids[b, l]]; ids < 0 are padding.
 
-    combiner: "sum" | "mean" (mean over non-padding entries). Ids >= N
+    combiner: "sum" | "mean" (mean over non-padding entries). A table of
+    another float type is widened to float32 first (a copy of the whole
+    table: no path runs one). Ids >= N
     read the table's last row in the forward; in the backward they add
     nothing to the table's gradient and give a NaN weight gradient, as
     JAX's ``_bag_bwd``, unless ``clip_ids`` makes them the last row there
@@ -197,8 +208,9 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     elif combiner != "sum":
         raise ValueError(f"unknown combiner {combiner!r}")
     if weights is not None:
-        weights = weights.contiguous()
-    return _EmbeddingBag.apply(table.contiguous(), ids, weights, clip_ids)
+        weights = _f32(weights).contiguous()
+    return _EmbeddingBag.apply(_f32(table).contiguous(), ids, weights,
+                               clip_ids)
 
 
 class _FMInteraction(torch.autograd.Function):
@@ -218,7 +230,7 @@ class _FMInteraction(torch.autograd.Function):
 
 def fm_interaction(v: torch.Tensor) -> torch.Tensor:
     """FM second-order term: (B, F, D) field embeddings -> (B,) float32."""
-    return _FMInteraction.apply(v.contiguous())
+    return _FMInteraction.apply(_f32(v).contiguous())
 
 
 class _FlashAttention(torch.autograd.Function):

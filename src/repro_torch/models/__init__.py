@@ -1,2 +1,2 @@
 """Model families beyond the click models (port of ``repro.models``): so
-far the tabular recsys models."""
+far the recsys models (``models/gnn`` and ``models/lm`` wait)."""

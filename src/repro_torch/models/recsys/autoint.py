@@ -14,7 +14,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import flash_attention
-from repro_torch.models.recsys.base import TabularModel, make_generator
+from repro_torch.models.recsys.base import RecsysModel, make_generator
 from repro_torch.models.recsys.embedding import (TableConfig, init_table,
                                                  table_lookup)
 from repro_torch.nn import init as initializers
@@ -38,7 +38,7 @@ class AutoIntConfig:
                            self.compression_ratio)
 
 
-class AutoInt(TabularModel):
+class AutoInt(RecsysModel):
     def __init__(self, cfg: AutoIntConfig, device="cuda", seed: int = 0):
         super().__init__()
         self.cfg = cfg

@@ -1,6 +1,6 @@
-"""What DeepFM and AutoInt share around their ``forward``: the loss,
-serving, retrieval scoring and the train step (the methods each JAX model
-repeats)."""
+"""What the recsys models share around their ``forward``: the loss,
+serving and the train step (the methods each JAX model repeats), and the
+tabular models' retrieval scoring."""
 from __future__ import annotations
 
 import torch
@@ -16,9 +16,10 @@ def make_generator(device, seed: int) -> torch.Generator:
     return gen
 
 
-class TabularModel(Module):
-    """A click-probability model over a (B, n_sparse) ``field_ids`` batch;
-    subclasses define ``forward(batch) -> (B,) logits``."""
+class RecsysModel(Module):
+    """A click-probability model over a batch dict; subclasses define
+    ``forward(batch) -> (B,) logits``. The default ``retrieval_score`` is
+    the tabular models' (DeepFM, AutoInt); BST and MIND define their own."""
 
     def loss(self, batch) -> torch.Tensor:
         log_p = log_sigmoid(self.forward(batch))
@@ -30,7 +31,7 @@ class TabularModel(Module):
 
         Unlike the JAX step, which returns new params, this one updates the
         module's parameters (and the Adam moments) in place: at full width
-        the tables hold ~0.9-1.3B floats, and one copy of each is kept. On
+        the tables hold 0.6-1.3B floats, and one copy of each is kept. On
         the card the update is ``optim.step``'s fused pass (one ``adamw``
         launch per tensor). The loss comes back as a device tensor, so the
         step does not sync.

@@ -16,7 +16,7 @@ from typing import Dict, Sequence
 import torch
 
 from repro_torch.kernels import fm_interaction
-from repro_torch.models.recsys.base import TabularModel, make_generator
+from repro_torch.models.recsys.base import RecsysModel, make_generator
 from repro_torch.models.recsys.embedding import (TableConfig, bag_lookup,
                                                  init_table, table_lookup)
 from repro_torch.nn import MLP
@@ -44,7 +44,7 @@ class DeepFMConfig:
                            self.compression_ratio)
 
 
-class DeepFM(TabularModel):
+class DeepFM(RecsysModel):
     def __init__(self, cfg: DeepFMConfig, device="cuda", seed: int = 0):
         super().__init__()
         self.cfg = cfg

@@ -8,6 +8,8 @@ carry weights over with ``repro_torch.convert`` instead of re-drawing them.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -72,3 +74,20 @@ def lecun_normal():
         return (out * std).to(dtype)
 
     return _init
+
+
+def glorot_uniform():
+    """Uniform on +-sqrt(6 / (fan_in + fan_out))."""
+    def _init(shape, generator: torch.Generator, device=None,
+              dtype=torch.float32) -> torch.Tensor:
+        fan_in, fan_out = _fans(shape)
+        limit = (6.0 / max(fan_in + fan_out, 1)) ** 0.5
+        out = torch.rand(shape, generator=generator, device=device)
+        return (out * (2.0 * limit) - limit).to(dtype)
+
+    return _init
+
+
+def logit_of_prob(p: float):
+    """A constant with sigmoid(value) == p (CLAX's CTR-style init)."""
+    return constant(math.log(p) - math.log1p(-p))

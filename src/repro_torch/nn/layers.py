@@ -1,18 +1,20 @@
-"""Dense layers (port of ``Dense``, ``MLP`` and ``DeepCrossV2`` of
-``repro.nn.layers``).
+"""Layers (port of ``repro.nn.layers``: ``Dense``, ``MLP``,
+``DeepCrossV2``, ``Scalar``, ``Embedding``, ``LayerNorm``, ``RMSNorm`` and
+``Sequential``).
 
 ``kernel`` keeps the JAX layout (in, out), so ``y = x @ kernel + bias`` and
 ``repro_torch.convert`` copies a JAX tree without transposing. The dense
 products are plain ``torch.matmul``, as the JAX package leaves them to XLA;
 DeepCrossV2's cross layers go through the ``dcn_cross`` kernel op. Layers
 are registered under the keys of the JAX tree (``layer_0 ..``,
-``cross_0 ..``, ``deep``, ``head``). Only the options some caller sets are
-ported (lecun_normal kernels and a bias on every layer, as in JAX's
-defaults).
+``cross_0 ..``, ``deep``, ``head``, ``mod_0 ..``) and parameters under its
+leaf names (``kernel``, ``bias``, ``value``, ``table``, ``scale``). Only
+the options some caller sets are ported (lecun_normal kernels and a bias
+on every dense layer, the norms' float32 output, as in JAX's defaults).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -125,3 +127,93 @@ class DeepCrossV2(Module):
         else:
             h = torch.cat([crossed, self.deep(x)], dim=-1)
         return self.head(h)
+
+
+class Scalar(Module):
+    """A single learnable scalar (or small vector) logit, e.g. GCTR's rho.
+    ``init_fn`` is a constant initializer of ``repro_torch.nn.init``
+    (``zeros`` by default)."""
+
+    def __init__(self, shape=(), init_fn: Optional[Callable] = None,
+                 device=None):
+        super().__init__()
+        init_fn = init_fn or initializers.zeros
+        self.value = torch.nn.Parameter(init_fn(tuple(shape), device))
+
+    def forward(self) -> torch.Tensor:
+        return self.value
+
+
+class Embedding(Module):
+    """Plain dense embedding table: ids -> rows, drawn from normal(0.02)."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        self.table = torch.nn.Parameter(initializers.normal(0.02)(
+            (num_embeddings, features), generator, device))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.table[ids.long()]
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               eps: float = 1e-6) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale (+ bias) over the last axis,
+    in float32, with JAX's population variance (``jnp.var``, ddof 0; not
+    ``torch.var``'s unbiased default) and its default eps of 1e-6 (not
+    ``torch.nn.LayerNorm``'s 1e-5)."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * scale.float()
+    return y if bias is None else y + bias.float()
+
+
+class LayerNorm(Module):
+    """:func:`layer_norm` with a learned ``scale`` (ones) and, with
+    ``use_bias``, ``bias`` (zeros); float32 out."""
+
+    def __init__(self, features: int, eps: float = 1e-6,
+                 use_bias: bool = True, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = torch.nn.Parameter(initializers.ones((features,),
+                                                          device))
+        self.bias = (torch.nn.Parameter(initializers.zeros((features,),
+                                                           device))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.scale, self.bias, self.eps)
+
+
+class RMSNorm(Module):
+    """x * rsqrt(mean(x^2) + eps) * scale over the last axis; float32 out."""
+
+    def __init__(self, features: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = torch.nn.Parameter(initializers.ones((features,),
+                                                          device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        return xf * torch.rsqrt(ms + self.eps) * self.scale.float()
+
+
+class Sequential(Module):
+    """The modules in order, registered as ``mod_0 ..``."""
+
+    def __init__(self, modules: Sequence[torch.nn.Module]):
+        super().__init__()
+        self.n_modules = len(modules)
+        for i, m in enumerate(modules):
+            self.add_module(f"mod_{i}", m)
+
+    def forward(self, x):
+        for i in range(self.n_modules):
+            x = getattr(self, f"mod_{i}")(x)
+        return x

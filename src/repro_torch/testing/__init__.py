@@ -1,6 +1,11 @@
-"""Deterministic fault injection for chaos tests and drills (port of part
-of ``repro.testing``): the data plane's, the train step's, the process's
-and the serving engine's."""
+"""Test-support machinery (port of ``repro.testing``): deterministic fault
+injection for the data plane, the train step, the process and the serving
+engine, plus the differential kernel conformance harness
+(``repro_torch.testing.conformance``)."""
+from repro_torch.testing.conformance import (KERNEL_SPECS, SPECS_BY_NAME,
+                                             KernelSpec, check_extreme,
+                                             check_grads, check_value,
+                                             run_conformance)
 from repro_torch.testing.faults import (POISON_MODES, FlakyShardReads,
                                         KillSwitch, NonFiniteBatchInjector,
                                         PoisonTrace, ServeFault,
@@ -11,4 +16,5 @@ from repro_torch.testing.faults import (POISON_MODES, FlakyShardReads,
 __all__ = ["FlakyShardReads", "KillSwitch", "NonFiniteBatchInjector",
            "corrupt_shard_file", "truncate_tail", "ServeFault", "SlowModel",
            "ServeKillSwitch", "poison_request", "PoisonTrace",
-           "POISON_MODES"]
+           "POISON_MODES", "KernelSpec", "KERNEL_SPECS", "SPECS_BY_NAME",
+           "check_value", "check_grads", "check_extreme", "run_conformance"]
