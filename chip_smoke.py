@@ -118,6 +118,12 @@ Phases, each printing JSON lines:
 10. train_deepfm  the same model takes 8 AdamW(1e-3) steps at 65,536 rows of
                   a synthetic Criteo-shaped log, one adamw launch per
                   parameter tensor a step; the held-out loss must fall.
+                  Then gather_forms: table_lookup's row gather as
+                  indexing, F.embedding and the port's index_add_ form, in
+                  turns on one training batch: the loss's forward and
+                  backward ms, the gathers alone, bits over two runs, the
+                  most repeated row (after every train phase below too;
+                  MIND also with its padding redrawn).
 11. serve_autoint, train_autoint   the same for AutoInt: three
                   flash_attention launches per forward.
 12. cpu_vs_gpu_recsys   the reduced DeepFM, AutoInt, BST and MIND: CPU
@@ -222,7 +228,7 @@ Phases, each printing JSON lines:
                   log_ctr); the launcher's SIGTERM drill in a subprocess.
 
 16. Slice 12, after every earlier path:
-   conformance    testing.conformance's sweep on the card: JAX's six specs
+   conformance    testing.conformance.run_conformance on the card: JAX's specs
                   at every shape, float32 and bfloat16 (flash_attention also
                   as (B, S, H, Dh)-backed views), values and gradients of
                   the kernel route (the public op: kernel forward, the op's
@@ -3301,6 +3307,131 @@ def clamp_fold_timing(model, log, card):
     return out
 
 
+GATHER_FORMS = ("index", "embedding", "index_add")
+
+
+def _gather_form(form):
+    """``table_lookup``'s row gather in each form, as ``embedding._Rows``
+    is called: ``index`` is ``table[rows]`` (the form before slice 12; its
+    backward is ``index_put_`` with accumulate, which sorts the ids and
+    sums an id's repeats one after another), ``embedding`` is
+    ``F.embedding`` (sorted into partial sums), ``index_add`` the ``_Rows``
+    the port keeps (one ``index_add_``: atomics, in no fixed order)."""
+    import types
+
+    import torch.nn.functional as F
+
+    from repro_torch.models.recsys import embedding
+
+    if form == "index_add":
+        return embedding._Rows
+    if form == "index":
+        return types.SimpleNamespace(apply=lambda table, rows: table[rows])
+    return types.SimpleNamespace(
+        apply=lambda table, rows: F.embedding(rows, table))
+
+
+def _gathers(model, batch):
+    """(table, rows) of every ``table_lookup`` gather in the model's loss."""
+    import types
+
+    import torch
+
+    from repro_torch.models.recsys import embedding
+
+    seen = []
+
+    def record(table, rows):
+        seen.append((table.detach(), rows))
+        return table[rows]
+
+    with _swapped(embedding, _Rows=types.SimpleNamespace(apply=record)), \
+            torch.no_grad():
+        model.loss(batch)
+    return seen
+
+
+def _gather_form_times(model, batch, gen, rounds=("index", "embedding",
+                                                  "index_add", "index_add",
+                                                  "embedding", "index")):
+    """In the turns ``rounds`` gives, the best of each form: ms of the loss's
+    forward and backward (every parameter's gradient), and ms of the
+    gathers alone (each gather's forward and its table's gradient from a
+    fixed cotangent), both back to back from CUDA events; and whether each
+    form's table gradients come out equal to the bit when taken twice."""
+    import torch
+
+    from repro_torch.models.recsys import embedding
+
+    params = list(model.parameters())
+    gathers = _gathers(model, batch)
+    cotangents = [torch.randn(*rows.shape, table.shape[1], generator=gen,
+                              device=rows.device)
+                  for table, rows in gathers]
+
+    def gather_grads(form):
+        out = []
+        for (table, rows), g in zip(gathers, cotangents):
+            leaf = table.requires_grad_(True)
+            (d,) = torch.autograd.grad(form.apply(leaf, rows), [leaf], g)
+            leaf.requires_grad_(False)
+            out.append(d)
+        return out
+
+    step = {f: [] for f in GATHER_FORMS}
+    alone = {f: [] for f in GATHER_FORMS}
+    bits = {}
+    for name in rounds:
+        form = _gather_form(name)
+        with _swapped(embedding, _Rows=form):
+            step[name].append(time_ms(
+                lambda: torch.autograd.grad(model.loss(batch), params),
+                iters=2, warmup=1))
+        alone[name].append(time_ms(lambda: gather_grads(form), iters=2,
+                                   warmup=1))
+        if name not in bits:
+            first, second = gather_grads(form), gather_grads(form)
+            bits[name] = all(torch.equal(a, b)
+                             for a, b in zip(first, second))
+    return ({f: min(v) for f, v in step.items()},
+            {f: min(v) for f, v in alone.items()}, bits, gathers)
+
+
+def gather_forms(arch, model, log, card):
+    """``table_lookup``'s gather forms (``_gather_form``) on one training
+    batch of ``arch``, in turns: the loss's forward and backward ms, the
+    gathers alone, bits over repeats, and the ids' skew (rows gathered, the
+    most repeated row's count). For MIND also the same batch with its -1
+    history slots redrawn from the log, so that the padded slots' repeats
+    of row 0 (MIND reads a -1 as row 0, as JAX's ``maximum(ids, 0)`` does)
+    can be told apart from the rest."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    batch = log.batch(B_MAIN)
+    variants = {"batch": batch}
+    if arch == "mind":
+        hist = batch["history_ids"]
+        variants["unpadded"] = dict(batch, history_ids=torch.where(
+            hist < 0, log.item_ids(*hist.shape), hist))
+    out = {}
+    for what, b in variants.items():
+        step, alone, bits, gathers = _gather_form_times(model, b, gen)
+        rows = torch.cat([r.reshape(-1) for _, r in gathers])
+        entry = {"step_fwd_bwd_ms": step, "gathers_ms": alone,
+                 "bits_equal_over_repeats": bits,
+                 "rows_gathered": rows.numel(),
+                 "hottest_row_repeats": int(
+                     torch.unique(rows, return_counts=True)[1].max())}
+        if arch == "mind":
+            entry["padded_share"] = float(
+                (b["history_ids"] < 0).float().mean())
+        out[what] = entry
+    emit("gather_forms", arch=arch, card=card, **out)
+    return out
+
+
 def phase_recsys(arch, card):
     """Serve, then train, the published-width model; freed afterwards.
     Returns the serve and the train phase's launches."""
@@ -3318,6 +3449,7 @@ def phase_recsys(arch, card):
     if arch == "deepfm":
         clamp_fold_timing(model, log, card)
     train = phase_train_recsys(arch, model, log, card)
+    gather_forms(arch, model, log, card)
     del model, log
     gc.collect()
     torch.cuda.empty_cache()
@@ -5385,9 +5517,9 @@ def phase_serve_engine(card):
 # ---------------------------------------------------------------------------
 
 def phase_conformance(card):
-    """``testing.conformance.sweep`` on the card: every spec x shape x dtype
-    of JAX's six specs (flash_attention's also as (B, S, H, Dh)-backed
-    views), values and gradients of the kernel route (the public op: the
+    """``testing.conformance.run_conformance`` on the card: every spec x
+    shape x dtype of JAX's six specs (flash_attention's also as (B, S, H,
+    Dh)-backed views), values and gradients of the kernel route (the public op: the
     kernel's forward, the op's backward on what it produced) against the
     plain route's autograd on the same card at TOLS, each extreme corpus
     and examination_nll's saturated sessions. One line per kernel; raises
@@ -5396,7 +5528,7 @@ def phase_conformance(card):
     from repro_torch.testing import conformance
 
     t0 = time.perf_counter()
-    report, misses = conformance.sweep(device="cuda")
+    report, misses = conformance.run_conformance(device="cuda")
     for name, row in report.items():
         emit("conformance", name=name, card=card, **row)
     emit("conformance_done", seconds=time.perf_counter() - t0,

@@ -58,13 +58,17 @@ def init_table(cfg: TableConfig, generator: torch.Generator, device=None,
 class _Rows(torch.autograd.Function):
     """``table[rows]`` for rows in range, whose backward is one
     ``index_add_``, as the ``embedding_bag`` op's is: the card's atomics
-    add an id's repeats as they come (in no fixed order). Indexing's
-    backward (``index_put_`` with accumulate) sorts the ids and sums each
-    id's repeats one after another, and ``F.embedding``'s sorts them into
-    partial sums. Skewed ids make the difference: MIND's padded slots all
-    read row 0, 945,053 repeats in a batch, and its step took 696 ms with
-    indexing, 46 with ``F.embedding`` and 38 with this; BST 67.9, 53.4,
-    51.7; DeepFM 20.3, 22.2, 18.7 (PERF.md §6)."""
+    add an id's repeats as they come, in no fixed order, so two runs of the
+    same step give table gradients that differ in their last bits.
+    Indexing's backward (``index_put_`` with accumulate) sorts the ids and
+    sums each id's repeats one after another, and ``F.embedding``'s sorts
+    them into partial sums; both repeat to the bit. Skewed ids make the
+    difference: MIND reads every padded slot as row 0, and
+    ``chip_smoke.py``'s ``gather_forms`` (the three forms in turns, PERF.md
+    §6) times a training batch's forward and backward on an H100 at 683 ms
+    with indexing, 40 with ``F.embedding`` and 31 with this (127, 32 and
+    28 with the padding redrawn); BST 61, 47, 45; DeepFM 11.2, 13.2,
+    9.6."""
 
     @staticmethod
     def forward(ctx, table, rows):

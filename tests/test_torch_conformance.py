@@ -174,16 +174,17 @@ def test_extreme_corpus_nan_free(name, impl):
     for t, j in zip(tcases, jcases):  # the same corpus as JAX's
         for a, b in zip(t, j):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert tconf.check_extreme(spec, impl, "cpu") == len(jcases)
+    assert tconf.check_extreme(spec, impl, "cpu") == []
 
 
 @pytest.mark.parametrize("impl", tconf.IMPLS)
 def test_examination_nll_saturated_sessions_finite_with_zero_grad(impl):
-    tconf.check_saturated_sessions(impl, "cpu")
+    assert tconf.saturated_session_misses(impl, "cpu") == []
 
 
 def test_sweep_holds_on_the_cpu_and_reports_every_cell():
-    report = tconf.run_conformance(device="cpu")
+    report, misses = tconf.run_conformance(device="cpu")
+    assert misses == []
     assert list(report) == NAMES
     for name, row in report.items():
         spec = tconf.SPECS_BY_NAME[name]
@@ -199,22 +200,22 @@ def test_a_miss_is_reported_after_every_cell(monkeypatch):
     measures the other kernels before it raises."""
     spec = tconf.SPECS_BY_NAME["fm_interaction"]
     broken = dataclasses.replace(
-        spec, op=lambda v: 1.001 * tops.fm_interaction(v))
+        spec, op=lambda v: 1.1 * tops.fm_interaction(v))
     specs = tuple(broken if s.name == "fm_interaction" else s
                   for s in tconf.KERNEL_SPECS)
     monkeypatch.setattr(tconf, "KERNEL_SPECS", specs)
-    report, misses = tconf.sweep(device="cpu", dtypes=(torch.float32,))
+    report, misses = tconf.run_conformance(device="cpu")
     assert list(report) == NAMES
     assert report["fm_interaction"]["held"] == 0
     assert all(row["held"] == row["cells"] for n, row in report.items()
                if n != "fm_interaction")
-    assert len(misses) == 6 and all("fm_interaction" in m for m in misses)
-    with pytest.raises(AssertionError, match="6 misses"):
-        tconf.run_conformance(device="cpu", dtypes=(torch.float32,))
+    # 3 shapes x 2 dtypes, each by value and by gradient
+    assert len(misses) == 12 and all("fm_interaction" in m for m in misses)
     for check in (tconf.check_value, tconf.check_grads):
-        assert check(spec, "kernel", spec.shapes[0]) <= 1e-5
-        with pytest.raises(AssertionError, match="fm_interaction"):
-            check(broken, "kernel", spec.shapes[0])
+        err, held = check(spec, "kernel", spec.shapes[0])
+        assert held and err <= 1e-5
+        err, held = check(broken, "kernel", spec.shapes[0])
+        assert not held and err > 1e-5
 
 
 @pytest.mark.parametrize("name", ["session_nll", "examination_nll",
