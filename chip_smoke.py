@@ -248,6 +248,45 @@ Phases, each printing JSON lines:
                   interests, history 50 with -1 padding): no kernel but
                   adamw.
 
+17. Slice 13, after every earlier path:
+   kernel adamw_bf16   adamw over llama3.2-1b's 1,498,482,688 parameter
+                  elements in bfloat16, with bfloat16 and float32 gradients
+                  and float32 and bfloat16 moments, against the plain chain
+                  on the card tensor by tensor (moments equal to the bit,
+                  the parameters' elements apart counted and held within
+                  two bfloat16 steps), its predicate and norm modes and
+                  edge cases; the 24 B (float32 g and moments) and 14 B
+                  (all bfloat16) forms timed against their bounds, the
+                  latter beside torch.optim.AdamW(fused=True).
+   gnn            GraphSAGE (2 layers, hidden 128) on the copied
+                  random_graph at JAX's four shapes, adam(1e-2): Reddit's
+                  sampled minibatch_lg (232,965 nodes, 114,615,892 edges,
+                  d 602, batch 1,024, fanout 15-10; 8 steps of one target
+                  batch, the host's sample and gather, the copy and the
+                  device step timed apart), ogb_products full batch
+                  (2,449,029 nodes, 61,859,140 edges, d 100; 2 steps, its
+                  edges summed in chunks; peak memory), full_graph_sm
+                  (Cora's shape) and molecule (128 graphs of 30 nodes), 8
+                  steps each; every loss falls; 6 adamw launches a step.
+                  Then the reduced config on the CPU port and the card,
+                  float32, at 1e-5 (gnn_cpu_vs_gpu).
+   lm             llama3.2-1b (8 steps, global batch 4 of JAX's 256, 2
+                  microbatches), granite-moe-1b-a400m (4 steps, batch 4)
+                  and phi3-mini-3.8b (4 steps, batch 4, 4 microbatches,
+                  scan_chunks 4) at their FULL widths, bfloat16, seq 4,096,
+                  adamw(3e-4) over bfloat16 parameters (one launch per
+                  tensor a step), on one repeated batch whose loss must
+                  fall: tokens/s and peak memory (and one more llama3.2-1b
+                  step under torch.profiler: its top kernels, the device's
+                  busy ms); then one 32,768-token
+                  prompt prefilled and 16 tokens decoded at batch 2 against
+                  its cache (ms, tokens/s, no kernel); llama3-405b and
+                  Maverick on meta (parameter counts). Then the five
+                  reduced configs, float32, on the CPU port and the card:
+                  logits, loss, gradients, AdamW steps with 1 and 2
+                  microbatches, prefill and two decode steps at 1e-5
+                  (lm_cpu_vs_gpu).
+
 Every phase that drives a path sets every kernel's launch count to 0 just
 before it and reads the counts just after; they must be exact (where
 graphs replay, the wrappers' and the graphs' kernel nodes together). A
@@ -255,7 +294,8 @@ control
 line holds the device times of the six kernels this slice left untouched
 beside the last runs before it. Then the kernel summary line (the six
 ports of TPU kernels, each with its conformance summary, the optimizer's
-two, and BST's attention and retrieval bag as rows of their own), the card's
+two, BST's attention and retrieval bag and adamw over bfloat16 parameters
+as rows of their own), the card's
 name and power limit as nvidia-smi prints them, and the final status
 line. Any mismatch raises, and the script exits
 non-zero; it exits non-zero without a result when no GPU is visible. It
@@ -5540,6 +5580,823 @@ def phase_conformance(card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: GraphSAGE and the LM family at their published widths, and the
+# adamw kernel over bfloat16 parameters
+# ---------------------------------------------------------------------------
+
+#: adamw's bytes an element by (parameter, gradient, moments) type for the
+#: two timed forms: p, g, m and v read once, p, m and v written once.
+ADAMW_BF16_BYTES = {("bfloat16", "bfloat16", "bfloat16"): 14,
+                    ("bfloat16", "float32", "float32"): 24}
+LM_SEED = 13
+
+
+def _free_card():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb():
+    import torch
+
+    return {"max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "max_memory_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+
+
+def _lm_param_shapes(cfg):
+    """The shapes of an LM's parameter tensors, in the train step's order
+    (``params.parameters()``), from a ``meta`` init."""
+    from repro_torch.models.lm import init_params
+
+    return [tuple(p.shape) for p in init_params(cfg, device="meta"
+                                                ).parameters()]
+
+
+def _bf16_steps(got, want):
+    """The most bfloat16 steps between two bfloat16 tensors, element by
+    element: their bit patterns read as sign-magnitude integers, so +0 and
+    -0 are 0 apart and neighbours across 0 are counted through it."""
+    import torch
+
+    def key(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return int((key(got) - key(want)).abs().max()) if got.numel() else 0
+
+
+def _bf16_apart_max(n):
+    """The most parameters of ``n`` a bfloat16 step may leave apart from
+    the plain chain: 1 + n / 10^7 (150 of llama3.2-1b's 1,498,482,688; the
+    sound kernel left 3). A form that rounds only p + u, not the update
+    first, leaves some 1% apart (``_single_rounding_run``)."""
+    return 1 + n // 10 ** 7
+
+
+def _single_rounding_run(make_opt, params0, grads, steps):
+    """The plain chain with apply_updates's first rounding left out: p + u
+    in float32, rounded once to p's type. The control that the bfloat16
+    hold must refuse."""
+    params = [p.clone() for p in params0]
+    opt = make_opt()
+    state = opt.init(params)
+    for _ in range(steps):
+        updates, state = opt.update(grads, state, params)
+        for p, u in zip(params, updates):
+            p.copy_((p.float() + u.float()).to(p.dtype))
+        del updates
+    return params
+
+
+def _bf16_compare(make_opt, params0, grads, steps=2, control=False):
+    """Kernel against plain chain from the same bfloat16 parameters, tensor
+    by tensor (the plain chain's float32 temporaries of one tensor at a
+    time): moments equal to the bit; the parameters' elements apart, the
+    max abs error and the most bfloat16 steps apart. A bfloat16 parameter
+    rounds the update and the sum, so where the chain's float32 division
+    is an ulp off the kernel's correctly rounded one, a rounding can flip
+    by one step. With ``control`` the single-rounding form
+    (``_single_rounding_run``) is held against the plain chain the same
+    way."""
+    import torch
+
+    out = {"elements": 0, "params_apart": 0, "params_abs_err": 0.0,
+           "bf16_steps": 0, "moments_bit_equal": True}
+    if control:
+        out["control"] = {"params_apart": 0, "bf16_steps": 0}
+    for p0, g in zip(params0, grads):
+        runs = [_adam_run(make_opt, [p0], [g], steps, fused)
+                for fused in (True, False)]
+        (pk, sk), (pp, sp) = runs
+        out["elements"] += p0.numel()
+        out["params_apart"] += int((pk[0] != pp[0]).sum())
+        out["params_abs_err"] = max(out["params_abs_err"],
+                                    _max_err(pk[0], pp[0]))
+        out["bf16_steps"] = max(out["bf16_steps"], _bf16_steps(pk[0], pp[0]))
+        out["moments_bit_equal"] &= bool(
+            torch.equal(sk[0].mu[0], sp[0].mu[0])
+            and torch.equal(sk[0].nu[0], sp[0].nu[0]))
+        out["count"] = int(sk[0].count)
+        del runs, pk, sk
+        if control:
+            (pc,) = _single_rounding_run(make_opt, [p0], [g], steps)
+            c = out["control"]
+            c["params_apart"] += int((pc != pp[0]).sum())
+            c["bf16_steps"] = max(c["bf16_steps"], _bf16_steps(pc, pp[0]))
+            del pc
+        del pp, sp
+        torch.cuda.empty_cache()
+    out["params_bit_equal"] = out["params_apart"] == 0
+    out["apart_max"] = _bf16_apart_max(out["elements"])
+    if control:
+        c = out["control"]
+        c["held"] = c["bf16_steps"] <= 1 and \
+            c["params_apart"] <= out["apart_max"]
+    return out
+
+
+def _hold_bf16(cases):
+    """Raise, after every case was measured, unless each case's moments are
+    equal to the bit and its parameters are within one bfloat16 step and at
+    most ``apart_max`` of them apart; and unless every control the case
+    ran is refused by that hold."""
+    bad = {name: c for name, c in cases.items()
+           if not (c["moments_bit_equal"] and c["bf16_steps"] <= 1
+                   and c["params_apart"] <= c["apart_max"])}
+    if bad:
+        raise AssertionError(f"adamw bf16 kernel vs plain chain: {bad}")
+    passed = {name: c["control"] for name, c in cases.items()
+              if c.get("control", {}).get("held", False)}
+    if passed:
+        raise AssertionError("adamw bf16: the hold passes the single-"
+                             f"rounding control, so it cannot see it: "
+                             f"{passed}")
+
+
+def phase_adamw_bf16(card):
+    """adamw over bfloat16 parameters, the LM family's, at llama3.2-1b's
+    parameter tensors (its train step's launches): bfloat16 p with bfloat16
+    and float32 g, float32 and bfloat16 moments, each against the plain
+    chain on the card (two steps from the same inputs: the moments equal to
+    the bit, the parameters within one bfloat16 step and at most
+    ``_bf16_apart_max`` of them apart; the single-rounding control, run on
+    the float32 g and moments, must fail that hold); the predicate and norm
+    modes and edge cases (a tail, a 0-d scalar, an unaligned view,
+    decay-dominant steps) on bfloat16 parameters; the 14 B and 24 B forms
+    timed against their bounds, the 14 B one beside
+    torch.optim.AdamW(fused=True) over the same bfloat16 tensors (its state
+    in bfloat16: decay first, another order; timed, not held). The row's
+    main form is the 24 B one, which no PyTorch call computes."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import llama3_2_1b
+
+    device = torch.device("cuda")
+    _free_card()
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    shapes = _lm_param_shapes(llama3_2_1b.FULL)
+    n = sum(math.prod(s) for s in shapes)
+
+    def make(mdt, lr=3e-4, wd=1e-4):
+        return lambda: optim.adamw(lr, weight_decay=wd, moment_dtype=mdt)
+
+    def tensors(shape_list, dtype, scale):
+        return [(torch.randn(s, generator=gen, device=device) * scale
+                 ).to(dtype) for s in shape_list]
+
+    params = tensors(shapes, torch.bfloat16, 0.02)
+    cases, times = {}, {}
+    for gdt in (torch.bfloat16, torch.float32):
+        grads = tensors(shapes, gdt, 1e-3)
+        for mdt in (torch.bfloat16, torch.float32):
+            key = ("bfloat16", str(gdt).split(".")[1], str(mdt).split(".")[1])
+            name = "p_{}_g_{}_m_{}".format(*key)
+            cases[name] = _bf16_compare(
+                make(mdt), params, grads,
+                control=key == ("bfloat16", "float32", "float32"))
+            if key not in ADAMW_BF16_BYTES:
+                continue
+            opt = make(mdt)()
+            work = [p.clone() for p in params]
+            state = opt.init(work)
+            t = {"kernel": time_ms(lambda: optim.step(opt, grads, state,
+                                                      work),
+                                   iters=10, warmup=2),
+                 "device": graph_ms(lambda: optim.step(opt, grads, state,
+                                                       work),
+                                    calls=3, replays=4)}
+
+            def plain_step():
+                updates, _ = opt.update(grads, state, work)
+                optim.apply_updates(work, updates)
+
+            t["plain"] = time_ms(plain_step, iters=3, warmup=1)
+            del work, state
+            _free_card()
+            t_bytes = n * ADAMW_BF16_BYTES[key] / PEAK_BYTES_PER_S
+            t_ops = n * ADAMW_OPS_PER_ELEMENT / PEAK_FP32_PER_S
+            t.update(bound=max(t_bytes, t_ops) * 1e3,
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes_per_element=ADAMW_BF16_BYTES[key], library=None)
+            if key == ("bfloat16",) * 3:
+                lib_params = [torch.nn.Parameter(p.clone()) for p in params]
+                for p, g in zip(lib_params, grads):
+                    p.grad = g
+                lib = torch.optim.AdamW(lib_params, lr=3e-4,
+                                        weight_decay=1e-4, fused=True)
+                t["library"] = time_ms(lib.step, iters=10, warmup=2)
+                del lib, lib_params
+                _free_card()
+            times[name] = t
+        del grads
+        _free_card()
+    del params
+    _free_card()
+    # predicate, norm modes and edges on bfloat16 parameters
+    small = [torch.randn(1_000_003, generator=gen, device=device
+                         ).to(torch.bfloat16)]
+    small_g = [torch.randn(1_000_003, generator=gen, device=device)]
+    predicate = _adam_pred_forms(make(torch.float32), small, small_g)
+    if not all(predicate.values()):
+        raise AssertionError(f"adamw bf16 predicate forms: {predicate}")
+    norm_forms = _adam_norm_forms(make(torch.float32), small,
+                                  [g.to(torch.bfloat16) for g in small_g])
+    edges = {}
+    for case, shape in {"n7": (7,), "scalar": (), "10x10": (10, 10)}.items():
+        p = [torch.randn(shape, generator=gen, device=device
+                         ).to(torch.bfloat16)]
+        g = [torch.randn(shape, generator=gen, device=device)]
+        edges[case] = _bf16_compare(make(torch.float32), p, g)
+    base = torch.randn(4100, generator=gen, device=device).to(torch.bfloat16)
+    g = torch.randn(4099, generator=gen, device=device).to(torch.bfloat16)
+    edges["n4099_bf16_g_and_moments"] = _bf16_compare(
+        make(torch.bfloat16), [base[1:]], [g])
+    edges["decay_dominant"] = _bf16_compare(
+        make(torch.float32, lr=0.05, wd=0.1), [base[1:].contiguous()],
+        [g.float()], steps=5)
+    main_key = "p_bfloat16_g_float32_m_float32"
+    emit("kernel", name="adamw_bf16", card=card, elements=n,
+         shapes="llama3.2-1b's parameter tensors", cases=cases, times=times,
+         predicate=predicate, norm_forms=norm_forms, edge_cases=edges)
+    _hold_bf16({**cases, **edges})
+    t, bf16 = times[main_key], times["p_bfloat16_g_bfloat16_m_bfloat16"]
+    return {"adamw_bf16": {
+        "name": "adamw_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "src/repro/optim/optimizers.py:93 (no pallas_call: the "
+                    "loop XLA fuses from scale_by_adam, add_decayed_weights, "
+                    "scale and apply_updates, :29, over bfloat16 "
+                    "parameters)",
+        "max_abs_err": cases[main_key]["params_abs_err"],
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"],
+        "bound_by": t["bound_by"], "library_ms": t["library"],
+        "device_ms": {k: v["device"] for k, v in times.items()},
+        "bf16_g_and_moments": bf16, "held": True}}
+
+
+def _sage_step_loop(step, params, opt_state, data, steps):
+    """``steps`` train steps on ``data``: losses and ms per step (host clock
+    closed by a synchronize)."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, data)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, ms
+
+
+def _falls(what, losses):
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: loss did not fall: {losses}")
+
+
+def _to_device(batch, device):
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def _molecule_graph(info, rng):
+    n, n_graphs, e = info["n_nodes"], info["batch"], info["n_edges"]
+    offsets = np.repeat(np.arange(n_graphs) * n, e)
+    src = rng.integers(0, n, n_graphs * e) + offsets
+    dst = rng.integers(0, n, n_graphs * e) + offsets
+    deg = np.bincount(dst, minlength=n_graphs * n).astype(np.float32)
+    return {"features": rng.normal(size=(n_graphs * n, info["d_feat"])
+                                   ).astype(np.float32),
+            "src": src.astype(np.int32), "dst": dst.astype(np.int32),
+            "degree_inv": (1.0 / np.maximum(deg, 1.0)).astype(np.float32),
+            "labels": rng.integers(0, info["n_classes"], n_graphs * n
+                                   ).astype(np.int32),
+            "graph_ids": np.repeat(np.arange(n_graphs), n).astype(np.int32)}
+
+
+def phase_gnn(card):
+    """GraphSAGE (FULL: 2 layers, hidden 128) on JAX's four shapes, each
+    graph the copied ``random_graph`` at its size from a seed, trained with
+    adam(1e-2) (one fused adamw launch per tensor, six a step):
+    ``minibatch_lg`` (Reddit's sampled training, 8 steps of the same 1,024
+    target nodes through the copied sampler, host sample + gather, copy and
+    device step timed apart), ``ogb_products`` (full batch, 2 steps, its
+    edges summed in chunks: peak memory and ms a step), ``full_graph_sm``
+    and ``molecule`` (8 steps each). Then the reduced config on the CPU
+    port and the card, float32, at 1e-5. Returns the sampled run's
+    counts."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import graphsage_reddit as conf
+    from repro_torch.models import gnn
+    from repro_torch.models.gnn import graphsage
+
+    device = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out = {}
+
+    def graph_of(shape):
+        info = conf.SHAPES[shape]
+        t0 = time.perf_counter()
+        g = gnn.random_graph(info["n_nodes"], info["n_edges"],
+                             info["d_feat"], info["n_classes"], seed=LM_SEED)
+        return g, time.perf_counter() - t0
+
+    # The two large graphs are built at once (numpy releases the
+    # interpreter lock in its bulk fills, searches and sorts), before any
+    # step is timed.
+    with ThreadPoolExecutor(1) as pool:
+        ogb_graph = pool.submit(graph_of, "ogb_products")
+        # --- minibatch_lg: Reddit, sampled ------------------------------
+        info = conf.SHAPES["minibatch_lg"]
+        cfg = conf.shape_config("minibatch_lg")
+        _free_card()
+        g, t_graph = graph_of("minibatch_lg")
+        t0 = time.perf_counter()
+        sampler = gnn.NeighborSampler(g["src"], g["dst"], info["n_nodes"],
+                                      seed=LM_SEED)
+        t_csr = time.perf_counter() - t0
+        g_ogb, t_ogb = ogb_graph.result()
+    t_graphs = time.perf_counter() - t_phase
+    nodes = np.random.default_rng(LM_SEED).choice(
+        info["n_nodes"], info["batch_nodes"], replace=False)
+    params = gnn.init_params(cfg, device=device, seed=LM_SEED)
+    opt = optim.adam(1e-2)
+    state = opt.init(list(params.parameters()))
+    step = gnn.make_sampled_train_step(cfg, opt)
+    reset_counts()
+    host_ms, copy_ms, device_ms, losses = [], [], [], []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        batch_np = sampler.sample_batch(nodes, cfg.sample_sizes,
+                                        g["features"], g["labels"])
+        t1 = time.perf_counter()
+        batch = _to_device(batch_np, device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        host_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((t2 - t1) * 1e3)
+        device_ms.append((t3 - t2) * 1e3)
+        losses.append(float(loss))
+    counts = check_counts("gnn minibatch_lg", {"adamw": 6 * 8})
+    _falls("gnn minibatch_lg", losses)
+    gathered = info["batch_nodes"] * (1 + 15 + 150)
+    out["minibatch_lg"] = {
+        "nodes": info["n_nodes"], "edges": info["n_edges"],
+        "d_feat": info["d_feat"], "batch_nodes": info["batch_nodes"],
+        "fanout": list(cfg.sample_sizes), "steps": 8,
+        "graph_seconds": t_graph, "csr_seconds": t_csr,
+        "both_graphs_wall_seconds": t_graphs,
+        "host_sample_gather_ms": host_ms, "copy_ms": copy_ms,
+        "device_step_ms": device_ms, "losses": losses,
+        "gathered_rows": gathered,
+        "gathered_mb": gathered * info["d_feat"] * 4 / 1e6,
+        "launches": counts, **_peak_gb(),
+        "cut": "8 steps of one target batch (the same 1,024 nodes, "
+               "neighbours drawn anew each step)"}
+    emit("gnn", shape="minibatch_lg", card=card, **out["minibatch_lg"])
+    del g, sampler, batch, batch_np, params, state
+    # --- ogb_products: full batch ----------------------------------------
+    info = conf.SHAPES["ogb_products"]
+    cfg = conf.shape_config("ogb_products")
+    _free_card()
+    graph = _to_device(g_ogb, device)
+    del g_ogb
+    params = gnn.init_params(cfg, device=device, seed=LM_SEED)
+    state = opt.init(list(params.parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, ms = _sage_step_loop(gnn.make_full_graph_train_step(cfg, opt),
+                                 params, state, graph, 2)
+    counts = check_counts("gnn ogb_products", {"adamw": 6 * 2})
+    _falls("gnn ogb_products", losses)
+    dims = [info["d_feat"], cfg.d_hidden]
+    out["ogb_products"] = {
+        "nodes": info["n_nodes"], "edges": info["n_edges"],
+        "d_feat": info["d_feat"], "steps": 2, "graph_seconds": t_ogb,
+        "step_ms": ms, "losses": losses, "launches": counts, **_peak_gb(),
+        "materialized_messages_gb": [info["n_edges"] * d * 4 / 1e9
+                                     for d in dims],
+        "edge_chunks": [-(-info["n_edges"] // max(
+            1, graphsage.EDGE_CHUNK_BYTES // (d * 4))) for d in dims],
+        "cut": "none (2 steps)"}
+    emit("gnn", shape="ogb_products", card=card, **out["ogb_products"])
+    del graph, params, state
+    # --- full_graph_sm (Cora's shape) and molecule ----------------------
+    for shape in ("full_graph_sm", "molecule"):
+        info = conf.SHAPES[shape]
+        cfg = conf.shape_config(shape)
+        _free_card()
+        rng = np.random.default_rng(LM_SEED)
+        if shape == "molecule":
+            g = _molecule_graph(info, rng)
+            step = conf._make_molecule_step(cfg, opt, info["batch"])
+        else:
+            g = gnn.random_graph(info["n_nodes"], info["n_edges"],
+                                 info["d_feat"], info["n_classes"],
+                                 seed=LM_SEED)
+            step = gnn.make_full_graph_train_step(cfg, opt)
+        graph = _to_device(g, device)
+        params = gnn.init_params(cfg, device=device, seed=LM_SEED)
+        state = opt.init(list(params.parameters()))
+        reset_counts()
+        losses, ms = _sage_step_loop(step, params, state, graph, 8)
+        counts = check_counts(f"gnn {shape}", {"adamw": 6 * 8})
+        _falls(f"gnn {shape}", losses)
+        out[shape] = {"nodes": int(graph["features"].shape[0]),
+                      "edges": int(graph["src"].shape[0]),
+                      "steps": 8, "step_ms": ms, "losses": losses,
+                      "launches": counts, **_peak_gb(), "cut": "none"}
+        emit("gnn", shape=shape, card=card, **out[shape])
+    # --- the reduced config: the CPU port against the card ---------------
+    out["cpu_vs_gpu"] = _gnn_cpu_vs_gpu()
+    emit("gnn_cpu_vs_gpu", card=card, **out["cpu_vs_gpu"])
+    emit("gnn_done", card=card, seconds=time.perf_counter() - t_phase)
+    _free_card()
+    return out["minibatch_lg"]["launches"]
+
+
+def _hold_close(what, got, want, tol=1e-5):
+    """Every element within tol + tol |want|; returns the max abs error."""
+    import torch
+
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol,
+                               msg=lambda m: f"{what}: {m}")
+    return _max_err(got, want)
+
+
+def _gnn_cpu_vs_gpu():
+    """GraphSAGE's reduced config with one set of weights on the CPU port
+    (the plain path) and on the card: the full-graph forward with edge
+    weights, the sampled forward with masks, the loss, every gradient and
+    one adam step of each, float32, at 1e-5."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import graphsage_reddit as conf
+    from repro_torch.convert import export_params, load_jax_params
+    from repro_torch.models import gnn
+
+    cfg = conf.reduced()
+    rng = np.random.default_rng(5)
+    g = gnn.random_graph(300, 1500, cfg.d_in, cfg.n_classes, seed=5)
+    g["edge_weight"] = rng.uniform(0.1, 2.0, 1500).astype(np.float32)
+    batch = gnn.NeighborSampler(g["src"], g["dst"], 300, seed=5
+                                ).sample_batch(np.arange(64),
+                                               cfg.sample_sizes,
+                                               g["features"], g["labels"])
+    batch["mask_hop_2"] = rng.random((64, 5, 3)) < 0.7
+    cpu = gnn.init_params(cfg, device="cpu", seed=5)
+    tree = export_params(cpu)
+    worst = 0.0
+    for name, data, make in (
+            ("full", g, gnn.make_full_graph_train_step),
+            ("sampled", batch, gnn.make_sampled_train_step)):
+        results = []
+        for dev in ("cpu", "cuda"):
+            params = gnn.init_params(cfg, device=dev, seed=6)
+            load_jax_params(params, tree)
+            d = _to_device(data, torch.device(dev))
+            forward = (gnn.full_graph_forward if name == "full"
+                       else gnn.sampled_forward)
+            logits = forward(cfg, params, d)
+            loss = gnn.node_classification_loss(logits, d["labels"])
+            grads = torch.autograd.grad(loss, list(params.parameters()))
+            opt = optim.adam(1e-2)
+            make(cfg, opt)(params, opt.init(list(params.parameters())), d)
+            results.append([logits, loss, *grads, *params.parameters()])
+        for a, b in zip(*results):
+            worst = max(worst, _hold_close(f"gnn cpu_vs_gpu {name}", b, a))
+    return {"max_abs_err": worst}
+
+
+def _lm_batch(cfg, batch, seq, gen):
+    from repro_torch.configs.lm_common import lm_smoke_batch
+
+    return lm_smoke_batch(cfg, batch=batch, seq=seq, gen=gen, device="cuda")
+
+
+#: Each LM run at FULL width: (train steps, global batch); JAX's global
+#: batch is 256 at seq 4,096. The prefill and decode batches are the most
+#: rows that fit the card (``_lm_serve_rows``), up to JAX's 32 (prefill,
+#: 32,768) and 128 (decode against 32,768).
+LM_RUNS = {"llama3.2-1b": (8, 4),
+           "granite-moe-1b-a400m": (4, 4),
+           "phi3-mini-3.8b": (4, 4)}
+LM_TRAIN_SEQ, LM_PREFILL_SEQ, LM_DECODE_STEPS = 4096, 32768, 16
+LM_PREFILL_BATCH, LM_DECODE_BATCH = 32, 128  # JAX's
+#: The share of the card's memory kept free of the reckoned rows: the
+#: allocator's rounding and fragmentation, cuBLAS's workspaces.
+LM_MEMORY_SLACK = 0.15
+
+
+def _lm_serve_rows(cfg):
+    """The prefill and decode batches at seq 32,768 that fit what the card
+    has free now (the parameters already on it), less ``LM_MEMORY_SLACK``
+    of its memory, reckoned a row at a time:
+
+    * a cache row: K and V, every layer, seq x kv heads x head dim in the
+      compute type;
+    * prefill: its cache row, and five float32 score blocks of one
+      attention chunk (heads x chunk x seq x 4 B: the scores, scaled,
+      masked, the softmax and the einsum's own; the chunked attention holds
+      one chunk's at a time). The card's peaks at seq 32,768 stay 4-12%
+      under it;
+    * decode: its cache row at seq 32,784, and one layer's repeated K and
+      V (bfloat16 where GQA repeats them) with their float32 copies (heads
+      x seq x head dim each), as the card's peaks read them.
+
+    The decode cache is filled while the prefill's is held, so its rows
+    also fit beside that. Returns (prefill rows, decode rows, the
+    reckoning)."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    budget = free - LM_MEMORY_SLACK * total
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+    s_pre, s_dec = LM_PREFILL_SEQ, LM_PREFILL_SEQ + LM_DECODE_STEPS
+    kv = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * item  # a token
+    chunk = min(cfg.attn_chunk, s_pre)
+    prefill_row = kv * s_pre + 5 * cfg.n_heads * chunk * s_pre * 4
+    group = cfg.n_heads // cfg.n_kv_heads
+    temps = 2 * cfg.n_heads * s_dec * cfg.head_dim * (
+        4 + (item if group > 1 else 0))
+    decode_row = kv * s_dec + temps
+    pre_b = min(LM_PREFILL_BATCH, int(budget // prefill_row))
+    dec_b = min(LM_DECODE_BATCH, int(budget // decode_row),
+                int((budget - pre_b * kv * s_pre) // (kv * s_dec)))
+    reckoning = {"free_gb": free / 1e9, "total_gb": total / 1e9,
+                 "budget_gb": budget / 1e9,
+                 "prefill_row_gb": prefill_row / 1e9,
+                 "decode_row_gb": decode_row / 1e9,
+                 "cache_row_gb": kv * s_dec / 1e9}
+    if pre_b < 1 or dec_b < 1:
+        raise AssertionError(f"lm {cfg.name}: no row fits {reckoning}")
+    return pre_b, dec_b, reckoning
+
+
+def _lm_run(arch, card):
+    """One LM arch at FULL width on the card: ``steps`` train steps on one
+    repeated batch (the loss must fall), then prefill of 32,768-token
+    prompts and 16 decode steps against their cache, each at the most rows
+    that fit (``_lm_serve_rows``). Returns the train run's counts."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    cfg = registry.get_arch(arch).FULL
+    steps, batch = LM_RUNS[arch]
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    _free_card()
+    params = lm.init_params(cfg, device=device, seed=LM_SEED)
+    n_tensors = len(list(params.parameters()))
+    opt = optim.adamw(3e-4, moment_dtype=cfg.opt_dtype)
+    state = opt.init(list(params.parameters()))
+    data = _lm_batch(cfg, batch, LM_TRAIN_SEQ, gen)
+    step = lm.make_train_step(cfg, opt)
+    reset_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, data)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = check_counts(f"lm {arch} train", {"adamw": n_tensors * steps})
+    _falls(f"lm {arch}", losses)
+    # one profiled step (llama3.2-1b's: processing a larger trace costs
+    # the smoke tens of seconds)
+    profiled = (_step_profile(lambda: step(params, state, data))
+                if arch == "llama3.2-1b" else None)
+    tokens = batch * LM_TRAIN_SEQ
+    train = {"steps": steps, "global_batch": batch, "seq": LM_TRAIN_SEQ,
+             "microbatches": cfg.microbatches, "scan_chunks": cfg.scan_chunks,
+             "step_ms": ms, "losses": losses,
+             "tokens_per_s": tokens / (float(np.median(ms[1:])) / 1e3),
+             "launches": counts, "param_tensors": n_tensors,
+             "params": sum(p.numel() for p in params.parameters()),
+             **_peak_gb(), "profiled_step": profiled,
+             "cut": f"global batch 256 -> {batch} (one repeated batch)"}
+    emit("lm", arch=arch, run="train", card=card, **train)
+    del state, data, step, opt
+    _free_card()
+    # prefill, then decode against its cache
+    pre_b, dec_b, reckoning = _lm_serve_rows(cfg)
+    prompt = _lm_batch(cfg, pre_b, LM_PREFILL_SEQ, gen)["tokens"]
+    prefill, decode = lm.make_prefill_step(cfg), lm.make_decode_step(cfg)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    _check_lm_logits(f"lm {arch} prefill", cfg, logits, pre_b)
+    pre_peak = _peak_gb()
+    torch.cuda.empty_cache()  # the prefill's blocks, before the decode cache
+    full = lm.init_cache(cfg, dec_b, LM_PREFILL_SEQ + LM_DECODE_STEPS,
+                         device=device)
+    for k in full:  # the prompts' rows in turn
+        for r in range(pre_b):
+            full[k][:, :, r::pre_b, :LM_PREFILL_SEQ] = cache[k][:, :, r:r + 1]
+    del cache
+    torch.cuda.reset_peak_memory_stats()
+    tokens = torch.randint(0, cfg.vocab, (dec_b, 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    dec_ms = []
+    for i in range(LM_DECODE_STEPS):
+        t0 = time.perf_counter()
+        logits, full = decode(params, full, tokens, LM_PREFILL_SEQ + i)
+        tokens = torch.argmax(logits[:, -1], dim=-1, keepdim=True
+                              ).to(torch.int32)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+    _check_lm_logits(f"lm {arch} decode", cfg, logits, dec_b)
+    check_counts(f"lm {arch} prefill and decode", {})
+    serve = {"prefill_batch": pre_b, "prefill_seq": LM_PREFILL_SEQ,
+             "prefill_ms": prefill_ms,
+             "prefill_tokens_per_s": pre_b * LM_PREFILL_SEQ
+             / (prefill_ms / 1e3),
+             "prefill_peak": pre_peak, "decode_batch": dec_b,
+             "cache_tokens": LM_PREFILL_SEQ + LM_DECODE_STEPS,
+             "cache_gb": 2 * full["k"].numel() * 2 / 1e9,
+             "decode_ms": dec_ms,
+             "decode_ms_per_token": float(np.median(dec_ms[1:])),
+             "decode_tokens_per_s": dec_b / (float(np.median(dec_ms[1:]))
+                                             / 1e3),
+             "decode_peak": _peak_gb(), "rows": reckoning,
+             "cut": f"prefill batch {LM_PREFILL_BATCH} -> {pre_b}, decode "
+                    f"batch {LM_DECODE_BATCH} -> {dec_b}: the most rows "
+                    f"that fit {reckoning['budget_gb']:.1f} GB at "
+                    f"{reckoning['prefill_row_gb']:.2f} and "
+                    f"{reckoning['decode_row_gb']:.2f} GB a row (the "
+                    f"prompts' caches repeated over the decode rows)"}
+    emit("lm", arch=arch, run="prefill_decode", card=card, **serve)
+    del params, full, logits
+    _free_card()
+    return counts
+
+
+def _step_profile(fn, top=8):
+    """One more call of ``fn`` (a train step, after the timed and counted
+    ones) under torch.profiler: its wall ms, the device's busy ms (the
+    union of kernel and copy intervals), and the ``top`` kernels by device
+    ms with their launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    per_kernel = Counter()
+    launches = Counter()
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            name = evt.name[:100]
+            per_kernel[name] += evt.time_range.elapsed_us() / 1e3
+            launches[name] += 1
+    busy_us, n = _busy_us(prof)
+    return {"wall_ms": wall, "device_busy_ms": busy_us / 1e3,
+            "device_records": n,
+            "top_kernels": [{"kernel": k, "ms": ms, "launches": launches[k]}
+                            for k, ms in per_kernel.most_common(top)]}
+
+
+def _check_lm_logits(what, cfg, logits, batch):
+    import torch
+
+    if tuple(logits.shape) != (batch, 1, cfg.padded_vocab):
+        raise AssertionError(f"{what}: logits {tuple(logits.shape)}")
+    real = logits[..., :cfg.vocab]
+    if not bool(torch.isfinite(real).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    if not bool(torch.isneginf(logits[..., cfg.vocab:]).all()):
+        raise AssertionError(f"{what}: padded vocab not -inf")
+
+
+def _lm_cpu_vs_gpu():
+    """The five LM archs' reduced configs in float32 with one set of weights
+    on the CPU port and on the card: logits, loss, every gradient, one
+    AdamW step with microbatches 1 and 2 (eps 1e-2: Adam's first step with
+    eps 1e-8 is sign(g) wherever a gradient is within rounding of 0, so a
+    rounding apart moves a parameter by 2 lr), prefill and two decode
+    steps, at 1e-5."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.convert import export_params, load_jax_params
+    from repro_torch.models import lm
+
+    out = {}
+    for arch in registry.LM_ARCHS:
+        cfg = dataclasses.replace(registry.get_arch(arch).reduced(),
+                                  dtype=torch.float32,
+                                  param_dtype=torch.float32)
+        tree = export_params(lm.init_params(cfg, device="cpu", seed=7))
+        rng = np.random.default_rng(7)
+        data = {"tokens": rng.integers(0, cfg.vocab, (4, 21)).astype(np.int32),
+                "targets": rng.integers(-1, cfg.vocab, (4, 21)
+                                        ).astype(np.int32)}
+        results = []
+        for dev in ("cpu", "cuda"):
+            def fresh():
+                p = lm.init_params(cfg, device=dev, seed=8)
+                load_jax_params(p, tree)
+                return p
+
+            d = _to_device(data, torch.device(dev))
+            params = fresh()
+            logits = lm.forward(cfg, params, d["tokens"])
+            loss = lm.lm_loss(cfg, params, d)
+            res = [logits, loss, *torch.autograd.grad(
+                loss, list(params.parameters()))]
+            for m in (1, 2):
+                stepped = fresh()
+                opt = optim.adamw(1e-3, eps=1e-2)
+                _, _, sl = lm.make_train_step(
+                    dataclasses.replace(cfg, microbatches=m), opt)(
+                    stepped, opt.init(list(stepped.parameters())), d)
+                res += [sl, *stepped.parameters()]
+            pl, cache = lm.make_prefill_step(cfg)(params, d["tokens"][:2])
+            full = lm.init_cache(cfg, 2, 32, device=torch.device(dev))
+            for k in full:
+                full[k][:, :, :, :21] = cache[k]
+            res += [pl[..., :cfg.vocab], cache["k"], cache["v"]]
+            for i in range(2):
+                dl, full = lm.make_decode_step(cfg)(
+                    params, full, d["tokens"][2:, i:i + 1], 21 + i)
+                res += [dl[..., :cfg.vocab], full["k"].clone(),
+                        full["v"].clone()]
+            results.append(res)
+        worst = 0.0
+        for a, b in zip(*results):
+            worst = max(worst, _hold_close(f"lm cpu_vs_gpu {arch}", b, a))
+        out[arch] = {"max_abs_err": worst, "tensors": len(results[0])}
+    return out
+
+
+def phase_lm(card):
+    """The LM family at FULL width: llama3.2-1b, granite-moe-1b-a400m and
+    phi3-mini-3.8b trained (seq 4,096, JAX's microbatches and scan_chunks;
+    the fused adamw over bfloat16 parameters), prefilled at 32,768 and
+    decoded 16 tokens against that cache; llama3-405b and Maverick on
+    ``meta`` (counts only: neither fits one card). Then the five reduced
+    configs on the CPU port against the card. Returns llama3.2-1b's train
+    counts."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    _free_card()
+    emit("lm_start", card=card,
+         memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         memory_reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    counts = {}
+    for arch in LM_RUNS:
+        counts[arch] = _lm_run(arch, card)
+    for arch in ("llama3-405b", "llama4-maverick-400b-a17b"):
+        cfg = registry.get_arch(arch).FULL
+        params = lm.init_params(cfg, device="meta")
+        numel = sum(p.numel() for p in params.parameters())
+        padding = 2 * (cfg.padded_vocab - cfg.vocab) * cfg.d_model
+        if numel != cfg.param_count() + padding or not all(
+                p.is_meta for p in params.parameters()):
+            raise AssertionError(f"lm {arch} meta init: {numel}")
+        emit("lm", arch=arch, run="meta", card=card,
+             param_count=cfg.param_count(),
+             active_param_count=cfg.active_param_count(),
+             meta_elements=numel,
+             bf16_param_gb=cfg.param_count() * 2 / 1e9)
+    emit("lm_cpu_vs_gpu", card=card, **_lm_cpu_vs_gpu())
+    emit("lm_done", card=card, seconds=time.perf_counter() - t_phase)
+    torch.cuda.synchronize()
+    return counts["llama3.2-1b"]
+
+
 def main() -> int:
     import torch
 
@@ -5590,6 +6447,11 @@ def main() -> int:
     conformance = phase_conformance(smi)
     bst_serve, bst = phase_recsys("bst", smi)
     phase_recsys("mind", smi)
+    # Slice 13, after every earlier path: adamw over bfloat16 parameters,
+    # then GraphSAGE and the LM family at their published widths.
+    kernels.update(phase_adamw_bf16(smi))
+    phase_gnn(smi)
+    lm = phase_lm(smi)
     # Each kernel's launches in the training run of its path; BST's
     # retrieval bag in its serve phase.
     for name, counts in (("examination_nll", dbn), ("session_nll", dctr),
@@ -5601,6 +6463,7 @@ def main() -> int:
         kernels[name]["launches"] = counts[name]
     kernels["flash_attention_bst"]["launches"] = bst["flash_attention"]
     kernels["embedding_bag_bst_b1"]["launches"] = bst_serve["embedding_bag"]
+    kernels["adamw_bf16"]["launches"] = lm["adamw"]  # llama3.2-1b's train
     for name, row in conformance.items():
         kernels[name]["conformance"] = row
     emit("done", seconds=time.perf_counter() - t_start)

@@ -10,10 +10,17 @@ a feature tower's ``("attraction", "cross_0", "kernel")`` is
 recsys model's (``("embedding", "table")``, ``("mlp", "layer_0",
 "kernel")``, ``("attn_0", "wq")``, a 0-d ``("bias",)``; BST's
 ``("pos_embed",)`` and ``("block_0", "ln1")``, MIND's ``("bilinear",)``
-and ``("routing_init",)``) map with no prefix.
+and ``("routing_init",)``) map with no prefix, and so do GraphSAGE's
+(``("layer_0", "w_self")``) and the LM family's (``("embed",)``,
+``("lm_head",)``, a stacked ``(U, ...)`` layer leaf ``("dense", "wq")``,
+an expert stack ``("moe", "we_gate")``).
 The tree arrives as nested dicts of numpy arrays
 (``jax.device_get(params)``), so this module needs no JAX, or of tensors
-(the EM fits of ``repro_torch.core.em``, on any device).
+(the EM fits of ``repro_torch.core.em``, on any device). A leaf is copied
+into the parameter's own type: a bfloat16 leaf (the LM family's) into a
+bfloat16 parameter exactly. numpy has no bfloat16, so
+:func:`export_params` writes a bfloat16 parameter as float32, which loads
+back to the same bits.
 """
 from __future__ import annotations
 
@@ -75,5 +82,7 @@ def export_params(model) -> Dict[str, Any]:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = p.detach().cpu().numpy().copy()
+        t = p.detach().cpu()
+        node[path[-1]] = (t.float() if t.dtype == torch.bfloat16
+                          else t).numpy().copy()
     return tree

@@ -3,7 +3,10 @@
 :func:`adamw_cuda` launches the hand-written CUDA C++ kernel in
 ``csrc/adamw.cu``: it reads the parameter, its gradient and both moments
 once and writes the parameter and the moments once, in place, keeping the
-JAX chain's order of operations (``repro/optim/optimizers.py:93-150``). It
+JAX chain's order of operations (``repro/optim/optimizers.py:93-150``),
+with float32 or bfloat16 parameters, gradients and moments: a bfloat16
+parameter is written as ``apply_updates`` writes it (``:29-31``), the update
+rounded to bfloat16 and then added in bfloat16. It
 is not a TPU kernel: it replaces the loop XLA fuses out of that chain. Its
 plain version is the chain itself, ``repro_torch.optim.adamw``'s ``update``
 followed by ``apply_updates``, which the CPU runs;
@@ -21,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-_MOMENT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's codes
 THREADS = 256           # the kernel's __launch_bounds__
 BLOCKS_PER_SM = 8       # 2,048 resident threads an SM at 256 a block
 
@@ -54,7 +57,7 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build.build("adamw").path)
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-    lib.adamw_step.argtypes = ([ptr] * 4 + [i64, i32, i32] + [f32] * 7
+    lib.adamw_step.argtypes = ([ptr] * 4 + [i64] + [i32] * 4 + [f32] * 7
                                + [ptr] * 5 + [i32, i32, ptr])
     lib.adamw_step.restype = i32
     lib.adamw_error_string.argtypes = [i32]
@@ -80,8 +83,9 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                ) -> Optional[torch.Tensor]:
     """One AdamW step of ``p`` in place, with its moments ``m`` and ``v``.
 
-    ``p`` and ``g`` are float32, ``m`` and ``v`` float32 or bfloat16, all of
-    one shape, contiguous and on one CUDA device. ``count`` is the int32 0-d
+    ``p``, ``g`` and the moments ``m`` and ``v`` (both of one type) are each
+    float32 or bfloat16, all of one shape, contiguous and on one CUDA
+    device. ``count`` is the int32 0-d
     step count on that device, already advanced for this step; the kernel
     reads it there, and reads the learning rate from ``lr_tensor`` (a
     float32 0-d tensor) when one is given, else takes ``lr``. ``pred``, a
@@ -110,10 +114,10 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         raise ValueError(f"adamw_cuda: shapes p {tuple(p.shape)}, g "
                          f"{tuple(g.shape)}, m {tuple(m.shape)}, v "
                          f"{tuple(v.shape)} differ")
-    if p.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(f"adamw_cuda takes float32 p and g, got {p.dtype} "
-                        f"and {g.dtype}")
-    if m.dtype not in _MOMENT_DTYPES or v.dtype != m.dtype:
+    if p.dtype not in _DTYPES or g.dtype not in _DTYPES:
+        raise TypeError(f"adamw_cuda takes float32 or bfloat16 p and g, got "
+                        f"{p.dtype} and {g.dtype}")
+    if m.dtype not in _DTYPES or v.dtype != m.dtype:
         raise TypeError(f"adamw_cuda takes float32 or bfloat16 moments of "
                         f"one type, got {m.dtype} and {v.dtype}")
     if count.dtype != torch.int32 or count.dim() != 0:
@@ -133,9 +137,7 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if n == 0:
         return torch.zeros((), dtype=torch.float64, device=device) \
             if norm else None
-    moment_bytes = 16 if m.dtype == torch.float32 else 8
-    vector = (_aligned(p, 16) and _aligned(g, 16)
-              and _aligned(m, moment_bytes) and _aligned(v, moment_bytes))
+    vector = all(_aligned(t, 4 * t.element_size()) for t in (p, g, m, v))
     plan = launch_plan(n, vector, _sm_count(device.index
                                             if device.index is not None
                                             else torch.cuda.current_device()))
@@ -146,7 +148,8 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.adamw_step(
             p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), n,
-            _MOMENT_DTYPES[m.dtype], int(plan.vector), b1, b2, 1.0 - b1,
+            _DTYPES[p.dtype], _DTYPES[g.dtype], _DTYPES[m.dtype],
+            int(plan.vector), b1, b2, 1.0 - b1,
             1.0 - b2, eps, weight_decay, lr, count.data_ptr(),
             None if lr_tensor is None else lr_tensor.data_ptr(),
             None if pred is None else pred.data_ptr(),

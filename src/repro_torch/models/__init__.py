@@ -1,2 +1,3 @@
-"""Model families beyond the click models (port of ``repro.models``): so
-far the recsys models (``models/gnn`` and ``models/lm`` wait)."""
+"""Model families beyond the click models (port of ``repro.models``): the
+recsys models, GraphSAGE (``models/gnn``) and the LM family
+(``models/lm``)."""

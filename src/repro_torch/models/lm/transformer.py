@@ -1,0 +1,550 @@
+"""Decoder-only transformer family (llama3 / phi3 / granite-MoE / llama4),
+port of ``repro.models.lm.transformer``, single-device forms.
+
+* **stacked layers**: each layer parameter is stored stacked over units,
+  ``(U, ...)``, under the JAX tree's paths (``dense.wq``, ``moe.we_gate``,
+  ``embed``, ``ln_f``, ``lm_head``). A forward unbinds each stack once,
+  outside the checkpointed unit, where JAX scans over it: indexing
+  ``stack[u]`` per unit would back up a zero gradient of the whole stack
+  for every unit.
+* **remat**: each unit is a non-reentrant ``torch.utils.checkpoint``, and
+  with ``scan_chunks`` a chunk of checkpointed units is checkpointed again
+  (JAX's two-level scan).
+* **attention**: the q-block-chunked softmax(QK^T)V in float32 that JAX runs
+  (``_chunked_attention``), so the (S, S) scores never materialize; GQA's
+  KV heads repeated with ``repeat_interleave``. No JAX code calls the Pallas
+  flash kernel, and this port calls no kernel here either.
+* **MoE**: the dense oracle JAX runs without a mesh (every expert over
+  every token, a one-hot combine, the shared expert).
+* **decode**: a KV cache stacked ``(U, sub, B, S, Hkv, Dh)``, written in
+  place at the decode index.
+* **microbatching**: the train step accumulates gradients over
+  ``microbatches`` in ``grad_accum_dtype``, in JAX's order.
+
+The train step updates the parameters in place (one fused ``adamw`` launch
+per tensor on the card, over bfloat16 parameters too). ``param_specs``,
+``cache_specs``, the flash-decoding and row-parallel ``shard_map`` forms and
+the sharded MoE wait for the distributed slice; the config keeps their
+fields so that it equals JAX's field by field.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import optim as optim_lib
+from repro_torch.nn.module import Module
+
+
+# ---------------------------------------------------------------------------
+# Config
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LMConfig:
+    name: str = "lm"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_ff: int = 1024
+    vocab: int = 1024
+    head_dim: Optional[int] = None
+    rope_theta: float = 500_000.0
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 1
+    d_ff_moe: int = 0
+    moe_layer_step: int = 1          # 1 = every layer MoE, 2 = alternate
+    n_shared_experts: int = 0        # llama4-style always-on shared expert
+    # numerics / memory
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.bfloat16
+    opt_dtype: Any = torch.float32    # AdamW moments (bf16 for 400B-class)
+    remat: bool = True
+    attn_chunk: int = 1024            # q-block size for chunked attention
+    scan_chunks: Optional[int] = None  # two-level remat factor
+    grad_accum_dtype: Any = torch.float32  # microbatch grad accumulator
+    microbatches: int = 1
+    max_seq: int = 8192               # decode cache capacity
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            self.head_dim = self.d_model // self.n_heads
+        if self.moe and self.d_ff_moe == 0:
+            self.d_ff_moe = self.d_ff
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 16; the padded logit columns are
+        masked to -inf in the loss and in decode outputs."""
+        return -(-self.vocab // 16) * 16
+
+    @property
+    def n_units(self) -> int:
+        return self.n_layers // self.moe_layer_step if self.moe else self.n_layers
+
+    @property
+    def layers_per_unit(self) -> int:
+        return self.moe_layer_step if self.moe else 1
+
+    def param_count(self) -> int:
+        D, Dh = self.d_model, self.head_dim
+        attn = D * self.n_heads * Dh * 2 + D * self.n_kv_heads * Dh * 2
+        dense_ffn = 3 * D * self.d_ff
+        total = 2 * self.vocab * D + self.n_layers * (attn + 2 * D) + D
+        if not self.moe:
+            return total + self.n_layers * dense_ffn
+        n_moe = self.n_layers // self.moe_layer_step
+        n_dense = self.n_layers - n_moe
+        total += n_dense * dense_ffn
+        total += n_moe * (self.n_experts * 3 * D * self.d_ff_moe + D * self.n_experts)
+        total += n_moe * self.n_shared_experts * 3 * D * self.d_ff_moe
+        return total
+
+    def active_param_count(self) -> int:
+        if not self.moe:
+            return self.param_count()
+        D = self.d_model
+        n_moe = self.n_layers // self.moe_layer_step
+        routed = self.n_experts * 3 * D * self.d_ff_moe
+        active_routed = self.top_k * 3 * D * self.d_ff_moe
+        return self.param_count() - n_moe * (routed - active_routed)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def _dense_layer_shapes(cfg: LMConfig) -> Dict[str, tuple]:
+    D, Dh = cfg.d_model, cfg.head_dim
+    return {
+        "ln1": (D,), "ln2": (D,),
+        "wq": (D, cfg.n_heads * Dh), "wk": (D, cfg.n_kv_heads * Dh),
+        "wv": (D, cfg.n_kv_heads * Dh), "wo": (cfg.n_heads * Dh, D),
+        "w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff), "w_down": (cfg.d_ff, D),
+    }
+
+
+def _moe_layer_shapes(cfg: LMConfig) -> Dict[str, tuple]:
+    D, Dh, E, F_ = cfg.d_model, cfg.head_dim, cfg.n_experts, cfg.d_ff_moe
+    shapes = {
+        "ln1": (D,), "ln2": (D,),
+        "wq": (D, cfg.n_heads * Dh), "wk": (D, cfg.n_kv_heads * Dh),
+        "wv": (D, cfg.n_kv_heads * Dh), "wo": (cfg.n_heads * Dh, D),
+        "router": (D, E),
+        "we_gate": (E, D, F_), "we_up": (E, D, F_), "we_down": (E, F_, D),
+    }
+    if cfg.n_shared_experts:
+        Fs = cfg.n_shared_experts * F_
+        shapes.update({"ws_gate": (D, Fs), "ws_up": (D, Fs), "ws_down": (Fs, D)})
+    return shapes
+
+
+def _stack_shapes(cfg: LMConfig) -> Dict[str, Dict[str, tuple]]:
+    out = {}
+    if cfg.moe:
+        out["moe"] = _moe_layer_shapes(cfg)
+        if cfg.moe_layer_step == 2:
+            out["dense"] = _dense_layer_shapes(cfg)
+    else:
+        out["dense"] = _dense_layer_shapes(cfg)
+    return out
+
+
+class LMParams(Module):
+    """The JAX tree ``{embed, ln_f, lm_head, dense: {...}, moe: {...}}`` as a
+    module; each layer leaf stacked ``(U, ...)``."""
+
+    def __init__(self, cfg: LMConfig, gen: Optional[torch.Generator],
+                 device):
+        super().__init__()
+        meta = torch.device(device).type == "meta"
+
+        def init_one(shape, scale=None):
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            scale = scale if scale is not None else (1.0 / max(fan_in, 1)) ** 0.5
+            if meta:
+                return torch.empty(shape, dtype=cfg.param_dtype, device=device)
+            return (torch.randn(shape, generator=gen, device=device)
+                    * scale).to(cfg.param_dtype)
+
+        def ones(shape):
+            return torch.ones(shape, dtype=cfg.param_dtype, device=device)
+
+        self.embed = torch.nn.Parameter(
+            init_one((cfg.padded_vocab, cfg.d_model), scale=0.02))
+        self.ln_f = torch.nn.Parameter(ones((cfg.d_model,)))
+        self.lm_head = torch.nn.Parameter(
+            init_one((cfg.d_model, cfg.padded_vocab)))
+        U = cfg.n_units
+        for stack, shapes in _stack_shapes(cfg).items():
+            self.add_module(stack, torch.nn.ParameterDict({
+                name: ones((U,) + shape) if name.startswith("ln")
+                else init_one((U,) + shape)
+                for name, shape in shapes.items()}))
+
+    def stacks(self) -> Dict[str, torch.nn.ParameterDict]:
+        return {k: getattr(self, k) for k in ("dense", "moe")
+                if hasattr(self, k)}
+
+
+def init_params(cfg: LMConfig, gen: Optional[torch.Generator] = None, *,
+                device="cuda", seed: int = 0) -> LMParams:
+    """JAX's init: N(0, 1 / fan_in) weights (0.02 for ``embed``), ones for
+    the norms, in ``param_dtype``, drawn from ``gen`` (default: a generator
+    on ``device`` seeded with ``seed``). On ``device="meta"`` the tensors
+    have shapes and types only (llama3-405b and Maverick, as JAX's
+    ``eval_shape``)."""
+    if gen is None and torch.device(device).type != "meta":
+        gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    return LMParams(cfg, gen, device)
+
+
+def _units(cfg: LMConfig, params: LMParams
+           ) -> List[Dict[str, Dict[str, torch.Tensor]]]:
+    """The per-unit parameters ``[{stack: {name: tensor}}]``: each stack
+    unbound once."""
+    unbound = {stack: {name: t.unbind(0) for name, t in pd.items()}
+               for stack, pd in params.stacks().items()}
+    return [{stack: {name: ts[u] for name, ts in names.items()}
+             for stack, names in unbound.items()}
+            for u in range(cfg.n_units)]
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(torch.square(xf), -1, keepdim=True) + 1e-6)
+    return (y * scale.float()).to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+          ) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (S,) or (B, S)."""
+    Dh = x.shape[-1]
+    half = Dh // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    if positions.dim() == 1:
+        angles = positions.float()[:, None] * freqs[None, :]   # (S, half)
+        angles = angles[None, :, None, :]
+    else:
+        angles = positions.float()[..., None] * freqs          # (B, S, half)
+        angles = angles[:, :, None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool, chunk: int, kv_offset: int = 0
+                       ) -> torch.Tensor:
+    """softmax(QK^T)V in float32 a block of ``chunk`` queries at a time, so
+    the (Sq, Skv) scores never materialize.
+
+    q, k, v: (B, H, S, Dh) with matching head counts (GQA's KV repeated by
+    the caller). kv_offset: absolute position of q[0] minus kv[0]."""
+    B, Hq, Sq, Dh = q.shape
+    Skv = k.shape[2]
+    scale = Dh ** -0.5
+    chunk = min(chunk, Sq)
+    pad = (-Sq) % chunk
+    qp = F.pad(q, (0, 0, 0, pad)) if pad else q
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(Skv, device=q.device)
+    blocks = []
+    for qi in range((Sq + pad) // chunk):
+        q_blk = qp[:, :, qi * chunk:(qi + 1) * chunk]
+        s = torch.einsum("bhqd,bhkd->bhqk", q_blk.float(), kf) * scale
+        if causal:
+            q_pos = qi * chunk + torch.arange(chunk, device=q.device) + kv_offset
+            mask = q_pos[:, None] >= k_pos[None, :]
+            s = s.masked_fill(~mask[None, None], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+        blocks.append(o.to(q.dtype))
+    return torch.cat(blocks, dim=2)[:, :, :Sq]
+
+
+def _attention_block(cfg: LMConfig, lp: Dict[str, torch.Tensor],
+                     h: torch.Tensor, positions: torch.Tensor,
+                     cache: Optional[Dict[str, torch.Tensor]] = None,
+                     cache_index: Optional[int] = None):
+    """Self-attention sublayer. Returns (out, cache entry): without a cache
+    the prefill entry (B, S, Hkv, Dh); with one, the decode path writes the
+    new keys and values into it in place at ``cache_index`` and returns
+    it."""
+    B, S, D = h.shape
+    Dh = cfg.head_dim
+    x = _rmsnorm(h, lp["ln1"])
+    q = (x @ lp["wq"].to(cfg.dtype)).reshape(B, S, cfg.n_heads, Dh)
+    k = (x @ lp["wk"].to(cfg.dtype)).reshape(B, S, cfg.n_kv_heads, Dh)
+    v = (x @ lp["wv"].to(cfg.dtype)).reshape(B, S, cfg.n_kv_heads, Dh)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
+    group = cfg.n_heads // cfg.n_kv_heads
+
+    def rep(t):
+        return t if group == 1 else t.repeat_interleave(group, dim=2)
+
+    if cache is None:
+        out = _chunked_attention(q.transpose(1, 2), rep(k).transpose(1, 2),
+                                 rep(v).transpose(1, 2), causal=True,
+                                 chunk=cfg.attn_chunk)
+        new_entry = {"k": k, "v": v}
+    else:
+        # decode: write S (=1) new kv at cache_index (dynamic_update_slice,
+        # its start clamped as JAX's), attend over the prefix
+        k_cache, v_cache = cache["k"], cache["v"]
+        S_max = k_cache.shape[1]
+        start = max(0, min(int(cache_index), S_max - S))
+        k_cache[:, start:start + S] = k.to(k_cache.dtype)
+        v_cache[:, start:start + S] = v.to(v_cache.dtype)
+        qt = q.transpose(1, 2)                                # (B, H, S, Dh)
+        kt = rep(k_cache).transpose(1, 2)                     # (B, H, S_max, Dh)
+        vt = rep(v_cache).transpose(1, 2)
+        s = torch.einsum("bhqd,bhkd->bhqk", qt.float(), kt.float()) * (Dh ** -0.5)
+        valid = (torch.arange(S_max, device=h.device)[None, :]
+                 <= (int(cache_index)
+                     + torch.arange(S, device=h.device)[:, None]))
+        s = s.masked_fill(~valid[None, None], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", p, vt.float()).to(cfg.dtype)
+        new_entry = {"k": k_cache, "v": v_cache}
+    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * Dh)
+    return h + out @ lp["wo"].to(cfg.dtype), new_entry
+
+
+def _dense_ffn(cfg: LMConfig, lp, h):
+    x = _rmsnorm(h, lp["ln2"])
+    gate = F.silu(x @ lp["w_gate"].to(cfg.dtype))
+    up = x @ lp["w_up"].to(cfg.dtype)
+    return h + (gate * up) @ lp["w_down"].to(cfg.dtype)
+
+
+def _moe_ffn_dense(cfg: LMConfig, lp, h):
+    """Exact (lossless) MoE: every expert over every token, one-hot
+    combined, plus the shared expert (JAX's ``_moe_ffn`` without a mesh)."""
+    B, S, D = h.shape
+    x = _rmsnorm(h, lp["ln2"])
+    xt = x.reshape(B * S, D)
+    logits = xt.float() @ lp["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
+    top_p = top_p / torch.clamp(torch.sum(top_p, -1, keepdim=True), min=1e-9)
+    combine = torch.zeros_like(probs)
+    for k in range(cfg.top_k):
+        combine = combine + (F.one_hot(top_i[:, k], cfg.n_experts).float()
+                             * top_p[:, k:k + 1])
+    y = torch.zeros(B * S, D, dtype=torch.float32, device=h.device)
+    experts = zip(lp["we_gate"].unbind(0), lp["we_up"].unbind(0),
+                  lp["we_down"].unbind(0))
+    for e, (wg, wu, wd) in enumerate(experts):
+        hid = F.silu(xt @ wg.to(cfg.dtype)) * (xt @ wu.to(cfg.dtype))
+        ye = (hid @ wd.to(cfg.dtype)).float()
+        y = y + ye * combine[:, e:e + 1]
+    y = y.reshape(B, S, D).to(cfg.dtype)
+    if cfg.n_shared_experts:
+        gate = F.silu(x @ lp["ws_gate"].to(cfg.dtype))
+        up = x @ lp["ws_up"].to(cfg.dtype)
+        y = y + (gate * up) @ lp["ws_down"].to(cfg.dtype)
+    return h + y
+
+
+def _sub_kinds(cfg: LMConfig) -> List[str]:
+    """The stack each layer of a unit reads, in order."""
+    if cfg.moe and cfg.moe_layer_step == 2:
+        return ["dense", "moe"]
+    return ["moe" if cfg.moe else "dense"]
+
+
+def _ffn(cfg: LMConfig, kind: str, lp, h):
+    return _moe_ffn_dense(cfg, lp, h) if kind == "moe" else _dense_ffn(cfg, lp, h)
+
+
+def _unit_body(cfg: LMConfig, h, positions, unit_params, collect_kv=False):
+    """One unit: (step-1) dense layers then the MoE/dense layer."""
+    entries = []
+    for kind in _sub_kinds(cfg):
+        h, e = _attention_block(cfg, unit_params[kind], h, positions)
+        entries.append(e)
+        h = _ffn(cfg, kind, unit_params[kind], h)
+    return (h, entries) if collect_kv else h
+
+
+def _run_units(cfg: LMConfig, units, h, positions):
+    """The unit stack, with JAX's remat: each unit checkpointed, and with
+    ``scan_chunks`` a chunk of checkpointed units checkpointed again."""
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def body(h, up):
+        if remat:
+            return checkpoint(functools.partial(_unit_body, cfg,
+                                                positions=positions,
+                                                unit_params=up), h,
+                              use_reentrant=False)
+        return _unit_body(cfg, h, positions, up)
+
+    def run(h, chunk_units):
+        for up in chunk_units:
+            h = body(h, up)
+        return h
+
+    u1 = cfg.scan_chunks
+    if u1 and u1 > 1 and cfg.n_units % u1 == 0:
+        u2 = cfg.n_units // u1
+        for c in range(u1):
+            chunk_units = units[c * u2:(c + 1) * u2]
+            if remat:
+                h = checkpoint(functools.partial(run, chunk_units=chunk_units),
+                               h, use_reentrant=False)
+            else:
+                h = run(h, chunk_units)
+        return h
+    return run(h, units)
+
+
+def _embed(cfg: LMConfig, params: LMParams, tokens: torch.Tensor):
+    return F.embedding(tokens.long(), params.embed).to(cfg.dtype)
+
+
+def forward(cfg: LMConfig, params: LMParams, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab)."""
+    S = tokens.shape[1]
+    h = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=h.device)
+    h = _run_units(cfg, _units(cfg, params), h, positions)
+    h = _rmsnorm(h, params.ln_f)
+    return h @ params.lm_head.to(cfg.dtype)
+
+
+def _mask_padded_vocab(cfg: LMConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.padded_vocab == cfg.vocab:
+        return logits
+    valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+    return logits.masked_fill(~valid, float("-inf"))
+
+
+def lm_loss(cfg: LMConfig, params: LMParams, batch) -> torch.Tensor:
+    logits = forward(cfg, params, batch["tokens"])
+    logits = _mask_padded_vocab(cfg, logits.float())
+    targets = batch["targets"]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(targets, min=0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (targets >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def make_train_step(cfg: LMConfig, optimizer=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state, loss)``.
+
+    With ``cfg.microbatches`` M > 1 the batch is split into M row blocks
+    and their gradients summed in ``grad_accum_dtype`` (each sum in
+    float32, as JAX's scan), then divided by M. The parameters are updated
+    in place and returned; the loss is a device tensor."""
+    optimizer = optimizer or optim_lib.adamw(3e-4)
+
+    def train_step(params, opt_state, batch):
+        plist = list(params.parameters())
+        M = cfg.microbatches
+        if M == 1:
+            loss = lm_loss(cfg, params, batch)
+            grads = list(torch.autograd.grad(loss, plist))
+            loss = loss.detach()
+        else:
+            micro = {k: v.reshape(M, v.shape[0] // M, *v.shape[1:])
+                     for k, v in batch.items()}
+            grads = [torch.zeros(p.shape, dtype=cfg.grad_accum_dtype,
+                                 device=p.device) for p in plist]
+            loss = torch.zeros((), dtype=torch.float32, device=plist[0].device)
+            for i in range(M):
+                mb_loss = lm_loss(cfg, params, {k: v[i] for k, v in micro.items()})
+                for acc, g in zip(grads, torch.autograd.grad(mb_loss, plist)):
+                    if acc.dtype == torch.float32:
+                        acc.add_(g)
+                    else:
+                        acc.copy_(acc.float() + g.float())
+                loss = loss + mb_loss.detach()
+            loss = loss / M
+            for acc in grads:
+                acc.div_(M)
+        opt_state = optim_lib.step(optimizer, grads, opt_state, plist)
+        return params, opt_state, loss
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Decode (serving)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: Optional[int] = None,
+               dtype=None, device="cuda") -> Dict[str, torch.Tensor]:
+    S = max_seq or cfg.max_seq
+    dtype = dtype or cfg.dtype
+    shape = (cfg.n_units, cfg.layers_per_unit, batch, S, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def make_prefill_step(cfg: LMConfig):
+    """prefill(params, tokens (B, S)) -> (last-position logits (B, 1, V),
+    cache (U, sub, B, S, Hkv, Dh)): the layer stack once over the prompt,
+    without a gradient; the (B, S, V) logits never materialize."""
+
+    @torch.no_grad()
+    def prefill(params, tokens):
+        B, S = tokens.shape
+        h = _embed(cfg, params, tokens)
+        positions = torch.arange(S, device=h.device)
+        cache = init_cache(cfg, B, S, device=h.device)
+        for u, up in enumerate(_units(cfg, params)):
+            h, entries = _unit_body(cfg, h, positions, up, collect_kv=True)
+            for sub, e in enumerate(entries):
+                cache["k"][u, sub] = e["k"]
+                cache["v"][u, sub] = e["v"]
+        h_last = _rmsnorm(h[:, -1:], params.ln_f)
+        logits = h_last @ params.lm_head.to(cfg.dtype)
+        return _mask_padded_vocab(cfg, logits), cache
+
+    return prefill
+
+
+def make_decode_step(cfg: LMConfig):
+    """decode_step(params, cache, tokens (B, 1), index) -> (logits (B, 1, V),
+    cache): one token per row at position ``index``, whose keys and values
+    are written into ``cache`` in place (the same dict comes back)."""
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens, index):
+        B = tokens.shape[0]
+        index = int(index)
+        h = _embed(cfg, params, tokens)
+        positions = torch.full((B, 1), index, dtype=torch.int32,
+                               device=h.device)
+        for u, up in enumerate(_units(cfg, params)):
+            for sub, kind in enumerate(_sub_kinds(cfg)):
+                entry = {"k": cache["k"][u, sub], "v": cache["v"][u, sub]}
+                h, _ = _attention_block(cfg, up[kind], h, positions,
+                                        cache=entry, cache_index=index)
+                h = _ffn(cfg, kind, up[kind], h)
+        h = _rmsnorm(h, params.ln_f)
+        logits = h @ params.lm_head.to(cfg.dtype)
+        return _mask_padded_vocab(cfg, logits), cache
+
+    return decode_step

@@ -251,8 +251,10 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     def update(grads, state, params=None):
         if weight_decay == 0.0 or params is None:
             return grads, state
+        # JAX's p.astype(g.dtype): a bfloat16 parameter decays in float32
         return torch._foreach_add(list(grads), torch._foreach_mul(
-            list(params), weight_decay)), state
+            [p.to(g.dtype) for p, g in zip(params, grads)],
+            weight_decay)), state
 
     return GradientTransformation(init, update)
 

@@ -290,3 +290,93 @@ def test_adamw_kernel_arithmetic_in_numpy_matches_the_cpu_chain(
         np.testing.assert_allclose(tp[0].numpy(), p, rtol=1e-6, atol=1e-7)
         np.testing.assert_array_equal(state[0].mu[0].float().numpy(), m)
         np.testing.assert_array_equal(state[0].nu[0].float().numpy(), v)
+
+
+#: bfloat16 gradients with bfloat16 moments: elements of the parameters
+#: (of 4,099, after ten steps) that differ from JAX's, and by how much.
+#: JAX computes ``b1 m + (1 - b1) g`` with float32 kept between the fused
+#: operations, the port (and the kernel) rounds each product, so a moment
+#: can round to another bfloat16 and move the parameter by one bfloat16
+#: step. Measured with jax 0.9.0 and torch 2.13.
+BF16_CHAIN_GAP = {"elements": 41, "max_abs": 2.0 ** -9}
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+@pytest.mark.parametrize("grads", ["float32", "bfloat16"])
+def test_adamw_on_bfloat16_parameters_matches_jax(grads, moments):
+    """The LM family's case: bfloat16 parameters (float32 or bfloat16
+    gradients, float32 or bfloat16 moments) through ``optim.step`` on the
+    CPU against JAX's adamw + apply_updates over ten steps: the update
+    rounded to bfloat16 and added in bfloat16, the parameters staying
+    bfloat16. Equal to the bit, but for the pinned gap of bfloat16
+    gradients with bfloat16 moments."""
+    rng = np.random.default_rng(0)
+    p0 = (rng.normal(size=4099) * 0.05).astype(np.float32)
+    jp = [jnp.asarray(p0, jnp.bfloat16)]
+    tp = [torch.tensor(p0).to(torch.bfloat16)]
+    jo = jopt.adamw(3e-2, weight_decay=0.1,
+                    moment_dtype=getattr(jnp, moments))
+    to = topt.adamw(3e-2, weight_decay=0.1,
+                    moment_dtype=getattr(torch, moments))
+    jstate, tstate = jo.init(jp), to.init(tp)
+    jupdate = jax.jit(jo.update)
+    for _ in range(10):
+        g = (rng.normal(size=4099)
+             * rng.choice([1e-3, 1.0, 30.0])).astype(np.float32)
+        updates, jstate = jupdate([jnp.asarray(g).astype(getattr(jnp, grads))],
+                                  jstate, jp)
+        jp = jopt.apply_updates(jp, updates)
+        tstate = topt.step(to, [torch.tensor(g).to(getattr(torch, grads))],
+                           tstate, tp)
+    assert jp[0].dtype == jnp.bfloat16 and tp[0].dtype == torch.bfloat16
+    want = np.asarray(jp[0].astype(jnp.float32))
+    got = tp[0].float().numpy()
+    apart = want != got
+    if grads == moments == "bfloat16":
+        assert 0 < apart.sum() <= BF16_CHAIN_GAP["elements"]
+        assert np.abs(want - got).max() <= BF16_CHAIN_GAP["max_abs"]
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("grads", ["float32", "bfloat16"])
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_adamw_kernel_bfloat16_parameter_arithmetic_matches_the_cpu_chain(
+        moments, grads):
+    """csrc/adamw.cu's form for a bfloat16 parameter, one correctly rounded
+    float32 operation at a time in numpy: the gradient read into float32,
+    the update rounded to bfloat16, then p + u in float32 rounded to
+    bfloat16; against the CPU chain over ten steps, the moments equal to
+    the bit, and the parameters too (the float32 form's one-ulp sqrt
+    differences round away in bfloat16 here)."""
+    f32 = np.float32
+    b1, b2, eps, lr, wd = 0.9, 0.999, 1e-8, 3e-2, 0.1
+
+    def to_bf16(x):
+        return torch.from_numpy(np.asarray(x, f32)).to(
+            torch.bfloat16).float().numpy()
+
+    rng = np.random.default_rng(8)
+    p = to_bf16(rng.normal(size=4099) * 0.05)
+    m, v = np.zeros_like(p), np.zeros_like(p)
+    tp = [torch.from_numpy(p.copy()).to(torch.bfloat16)]
+    opt = topt.adamw(lr, weight_decay=wd, moment_dtype=getattr(torch, moments))
+    state = opt.init(tp)
+    for count in range(1, 11):
+        g = (rng.normal(size=4099)
+             * rng.choice([1e-3, 1.0, 30.0])).astype(f32)
+        if grads == "bfloat16":
+            g = to_bf16(g)
+        m = f32(b1) * m + f32(1 - b1) * g
+        v = f32(b2) * v + (g * g) * f32(1 - b2)
+        if moments == "bfloat16":
+            m, v = to_bf16(m), to_bf16(v)
+        c1 = f32(1) - f32(float(f32(b1)) ** count)
+        c2 = f32(1) - f32(float(f32(b2)) ** count)
+        u = (m / c1) / (np.sqrt(v / c2) + f32(eps)) + f32(wd) * p
+        p = to_bf16(p + to_bf16(u * f32(-lr)))
+        state = topt.step(opt, [torch.from_numpy(g).to(getattr(torch, grads))],
+                          state, tp)
+        np.testing.assert_array_equal(state[0].mu[0].float().numpy(), m)
+        np.testing.assert_array_equal(state[0].nu[0].float().numpy(), v)
+        np.testing.assert_array_equal(tp[0].float().numpy(), p)

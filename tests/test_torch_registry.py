@@ -1,8 +1,9 @@
-"""The port's arch registry and recsys configs against repro.configs, on
-the CPU: ``get_arch``, ``arch_shapes`` and ``list_cells`` over the ported
-archs; each ported config's ``FULL`` and ``reduced()`` field by field and
-its FLOP count; the batch factories' keys, shapes and dtypes against JAX's
-``ShapeDtypeStruct``s; a waiting arch raises ``KeyError``.
+"""The port's arch registry and configs against repro.configs, on the CPU:
+``get_arch``, ``arch_shapes`` and ``list_cells`` over JAX's ten archs
+(nothing waits: the registry has no ``WAITING`` left); each recsys config's ``FULL`` and ``reduced()`` field
+by field and its FLOP count; the batch factories' keys, shapes and dtypes
+against JAX's ``ShapeDtypeStruct``s; an unknown arch raises ``KeyError``;
+``convert`` round-trips the GNN and LM trees.
 """
 import dataclasses
 
@@ -15,7 +16,7 @@ from repro.configs import recsys_common as jcommon
 from repro_torch.configs import registry as treg
 from repro_torch.configs import recsys_common as tcommon
 
-PORTED = ["deepfm", "mind", "bst", "autoint"]
+PORTED = ["deepfm", "mind", "bst", "autoint"]  # the recsys archs
 
 
 def _fields(cfg):
@@ -23,10 +24,13 @@ def _fields(cfg):
 
 
 def test_ported_archs_are_jax_recsys_archs_in_order():
-    assert list(treg.ARCHS) == PORTED == list(jreg.RECSYS_ARCHS)
+    """All ten of JAX's archs, in JAX's order; nothing waits."""
+    assert list(treg.ARCHS) == list(jreg.ARCHS)
+    assert PORTED == list(jreg.RECSYS_ARCHS)
+    assert [a for a in treg.ARCHS if a in PORTED] == PORTED
     assert treg.RECSYS_ARCHS == jreg.RECSYS_ARCHS
-    assert set(treg.ARCHS) | set(treg.WAITING) == set(jreg.ARCHS)
-    assert not set(treg.ARCHS) & set(treg.WAITING)
+    assert treg.LM_ARCHS == jreg.LM_ARCHS
+    assert not hasattr(treg, "WAITING")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -41,17 +45,16 @@ def test_configs_equal_jax_field_by_field(arch):
     assert tmod.SHAPES == jmod.SHAPES
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", list(jreg.ARCHS))
 def test_arch_shapes_match_jax(arch):
     assert treg.arch_shapes(arch) == jreg.arch_shapes(arch)
 
 
 @pytest.mark.parametrize("include_extra", [False, True])
 def test_list_cells_is_jax_over_the_ported_archs(include_extra):
-    want = [(a, s) for a, s in jreg.list_cells(include_extra)
-            if a in treg.ARCHS or a.startswith("clax-")]
+    want = [(a, s) for a, s in jreg.list_cells(include_extra)]
     assert treg.list_cells(include_extra) == want
-    assert len(treg.list_cells()) == 16
+    assert len(treg.list_cells()) == 40
     extras = [(a, s) for a, s, _ in jreg.EXTRA_CELLS]
     assert treg.EXTRA_CELLS == extras
 
@@ -59,12 +62,18 @@ def test_list_cells_is_jax_over_the_ported_archs(include_extra):
 @pytest.mark.parametrize("arch", sorted(jreg.LM_ARCHS) + ["graphsage-reddit",
                                                          "no-such-arch"])
 def test_waiting_or_unknown_arch_raises_key_error(arch):
-    """JAX's KeyError, never a module that silently does less; a waiting
-    arch's message names the module it waits for."""
-    with pytest.raises(KeyError, match=repr(arch)) as err:
+    """JAX's KeyError on an unknown arch, never a module that silently does
+    less. No arch waits any more: the LM archs and GraphSAGE, which waited
+    for their modules until this slice, resolve to the port's config
+    module of JAX's name."""
+    if arch in jreg.ARCHS:
+        mod = treg.get_arch(arch)
+        assert mod.__name__ == "repro_torch.configs." + \
+            jreg.get_arch(arch).__name__.rsplit(".", 1)[1]
+        assert treg.arch_shapes(arch) == jreg.arch_shapes(arch)
+        return
+    with pytest.raises(KeyError, match=repr(arch)):
         treg.get_arch(arch)
-    if arch in treg.WAITING:
-        assert treg.WAITING[arch] in str(err.value)
     with pytest.raises(KeyError):
         treg.arch_shapes(arch)
     with pytest.raises(KeyError):
@@ -112,3 +121,36 @@ def test_factories_draw_from_their_generator():
     c = factory(info, 100, torch.Generator().manual_seed(4))
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["history_ids"], c["history_ids"])
+
+
+@pytest.mark.parametrize("arch", list(jreg.LM_ARCHS) + ["graphsage-reddit"])
+def test_convert_round_trips_gnn_and_lm_trees(arch):
+    """``export_params`` writes JAX's tree (every path and shape of JAX's
+    init at the reduced width: ``("layer_0", "w_self")``, ``("embed",)``,
+    a stacked ``("dense", "wq")``, ``("moe", "we_gate")``), and
+    ``load_jax_params`` reads it back into a fresh model to the bit,
+    bfloat16 parameters included."""
+    import jax
+
+    from repro_torch import convert
+
+    jmod, tmod = jreg.get_arch(arch), treg.get_arch(arch)
+    if arch == "graphsage-reddit":
+        from repro.models.gnn import init_params as jinit
+        from repro_torch.models.gnn import init_params as tinit
+    else:
+        from repro.models.lm import init_params as jinit
+        from repro_torch.models.lm import init_params as tinit
+    jcfg, tcfg = jmod.reduced(), tmod.reduced()
+    want = jax.eval_shape(lambda: jinit(jcfg, jax.random.PRNGKey(0)))
+    a = tinit(tcfg, device="cpu", seed=1)
+    tree = convert.export_params(a)
+    got_paths = {path: leaf.shape for path, leaf in
+                 jax.tree_util.tree_flatten_with_path(tree)[0]}
+    want_paths = {path: leaf.shape for path, leaf in
+                  jax.tree_util.tree_flatten_with_path(want)[0]}
+    assert got_paths == want_paths
+    b = tinit(tcfg, device="cpu", seed=2)
+    convert.load_jax_params(b, tree)
+    for (name, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
