@@ -286,6 +286,29 @@ Phases, each printing JSON lines:
                   logits, loss, gradients, AdamW steps with 1 and 2
                   microbatches, prefill and two decode steps at 1e-5
                   (lm_cpu_vs_gpu).
+18. Slice 14, after every earlier path:
+   distrib        a world of one under NCCL (make_data_parallel_mesh()):
+                  the paper-width DBN (dense and sparse tables) and DCTR
+                  through Trainer.train(mesh=...), two epochs of 8 steps,
+                  each equal to the bit (parameters, losses) to the same
+                  run without a mesh, the launch counts exact in both
+                  (NCCL's kernel nodes in the replayed graphs counted
+                  apart, nccl_nodes); the warm step, peak memory, and one
+                  replay's device us (NCCL's apart) with and without the
+                  mesh, the replay under sync debug "error"; then
+                  masked_psum_lookup (value to the bit, gradient at 1e-5)
+                  and compressed_psum (to the bit) against their plain
+                  forms, timed; GraphSAGE's edge-sharded and
+                  dst-partitioned forms against the unsharded one at
+                  full_graph_sm (logits, 8 steps' losses at 1e-5) and the
+                  edge-sharded step at ogb_products on the graph the gnn
+                  phase built (ms, peak, losses against the gnn phase's);
+                  and, with several cards, a world over all of them (the
+                  DBN's parameters against the world of one at 1e-5, the
+                  all-reduce of its tables' gradients timed); with one
+                  card a line says that part did not run. Between them,
+                  the launcher with --data-parallel (a world of one) and
+                  without, at once in two processes: records to the bit.
 
 Every phase that drives a path sets every kernel's launch count to 0 just
 before it and reads the counts just after; they must be exact (where
@@ -913,6 +936,8 @@ def replayed_launches(fn):
         replayed = capture.replayed_kernels
     finally:
         capture.replayed_kernels = None
+    _LAST_REPLAYED.clear()
+    _LAST_REPLAYED.update(replayed)
     return out, port_kernels(replayed), sum(replayed.values())
 
 
@@ -5972,6 +5997,7 @@ def phase_gnn(card):
     cfg = conf.shape_config("ogb_products")
     _free_card()
     graph = _to_device(g_ogb, device)
+    _KEPT["ogb_products_graph"] = g_ogb  # for the distrib phase
     del g_ogb
     params = gnn.init_params(cfg, device=device, seed=LM_SEED)
     state = opt.init(list(params.parameters()))
@@ -5981,6 +6007,7 @@ def phase_gnn(card):
                                  params, state, graph, 2)
     counts = check_counts("gnn ogb_products", {"adamw": 6 * 2})
     _falls("gnn ogb_products", losses)
+    _KEPT["ogb_products_losses"] = losses
     dims = [info["d_feat"], cfg.d_hidden]
     out["ogb_products"] = {
         "nodes": info["n_nodes"], "edges": info["n_edges"],
@@ -6397,6 +6424,436 @@ def phase_lm(card):
     return counts["llama3.2-1b"]
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the distributed layer
+# ---------------------------------------------------------------------------
+
+# every kernel node the last measured_run's replays launched, by name
+_LAST_REPLAYED: Counter = Counter()
+# what an earlier phase leaves for the distrib phase (the ogb_products graph
+# on the host and its unsharded losses)
+_KEPT: dict = {}
+
+
+def _nccl_nodes(counter) -> dict:
+    return {name: n for name, n in counter.items() if "nccl" in name.lower()}
+
+
+def _dist_run(kind, make_loader, steps, mesh):
+    """Two epochs of ``steps`` steps each of the paper-width ``kind``
+    through ``Trainer.train`` (chunks of 4), with or without ``mesh``, as a
+    :func:`measured_run` (the first chunk eager and captured, the rest
+    replays): the model, the history, the parameters (device copies), the
+    counts, the NCCL kernel nodes replayed, the warm step (epoch 2: replays
+    only) and the peak memory."""
+    import torch
+
+    from repro_torch.train import TrainEngine, Trainer
+
+    _free_card()
+    model, make_optimizer, sparse, per_step, _ = _train_spec(kind)
+    per_opt = _optimizer_launches(TrainEngine(model, make_optimizer(),
+                                              **sparse), 1)
+    trainer = Trainer(make_optimizer(), epochs=2, chunk_batches=4,
+                      device="cuda", log_fn=_quiet, mesh=mesh, **sparse)
+    total = {k: n * 2 * steps for k, n in {**per_step, **per_opt}.items()}
+    eager = {k: n * 4 for k, n in {**per_step, **per_opt}.items()}
+    what = f"distrib_{kind}" + ("_mesh" if mesh is not None else "")
+    loader = make_loader()  # a loader's cursor moves: one each run
+    history, counted = measured_run(what, lambda: trainer.train(model,
+                                                                loader),
+                                    total, eager)
+    params = [p.detach().clone() for p in model.parameters()]
+    return {"model": model, "history": history, "params": params,
+            "launches": counted["launches"],
+            "replayed_kernel_nodes": counted["replayed_kernels"],
+            "nccl_nodes": _nccl_nodes(_LAST_REPLAYED),
+            "warm_step_ms": history[1]["seconds"] / steps * 1e3,
+            **_peak_gb()}
+
+
+def _replay_profile(model, kind, mesh, batch):
+    """One chunk of 4 through a fresh engine on ``model`` (with or without
+    ``mesh``): captured, then replayed under torch.profiler: device us of
+    the NCCL kernels and of all kernels per replay; then one replay, its
+    copies included, under sync debug "error"."""
+    import torch
+
+    from repro_torch.train import TrainEngine
+
+    _, make_optimizer, sparse, _, _ = _train_spec(kind)
+    engine = TrainEngine(model, make_optimizer(), chunk_batches=4,
+                         mesh=mesh, **sparse)
+    state = engine.init_opt_state()
+    chunk = _chunk_of(batch)
+    for _ in range(2):  # capture, then a replay
+        state, _ = engine.step(state, chunk)
+    lines, total = profile_kernels(lambda: engine.step(state, chunk),
+                                   calls=3)
+    nccl = [x for x in lines if "nccl" in x["kernel"].lower()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.step(state, chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out = {"device_us_per_replay": total["device_us_per_call"],
+           "kernels_per_replay": total["launches_per_call"],
+           "nccl_device_us_per_replay": sum(x["device_us_per_call"]
+                                            for x in nccl),
+           "nccl_kernels": nccl, "captures": engine.graphs.captures,
+           "no_host_sync_in_replay": True}
+    del engine, state
+    return out
+
+
+def _lookup_and_compression(mesh, card):
+    """masked_psum_lookup (value, gradient) and compressed_psum on the
+    card at a world of one against their plain forms, timed."""
+    import torch
+
+    from repro_torch.distrib import masked_psum_lookup
+    from repro_torch.distrib.compression import (CompressedAllReduce,
+                                                 compressed_psum,
+                                                 dequantize_int8,
+                                                 quantize_int8)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    table = torch.randn(1 << 20, 16, generator=gen, device="cuda")
+    ids = torch.randint(0, 1 << 20, (B_MAIN, K_MAIN), generator=gen,
+                        device="cuda")
+    weight = torch.randn(B_MAIN, K_MAIN, 16, generator=gen, device="cuda")
+    lookup = masked_psum_lookup(mesh)
+    got, want = lookup(table, ids), table[ids]
+    t = table.clone().requires_grad_(True)
+    (lookup(t, ids) * weight).sum().backward()
+    grad_want = torch.zeros_like(table).index_put_(
+        (ids.reshape(-1),), weight.reshape(-1, 16), accumulate=True)
+    grads = torch.randn(B_MAIN * K_MAIN, generator=gen, device="cuda")
+    state = CompressedAllReduce.init(grads)
+    group = mesh.get_group("data")
+    reduced, _ = compressed_psum(grads, group, state)
+    plain = dequantize_int8(*quantize_int8(grads))
+    out = {
+        "lookup_bits_equal": bool(torch.equal(got, want)),
+        "lookup_grad_max_abs_err": _hold_close(
+            "masked_psum_lookup grad", t.grad, grad_want, tol=1e-5),
+        "lookup_ms": time_ms(lambda: lookup(table, ids), iters=50),
+        "plain_gather_ms": time_ms(lambda: table[ids], iters=50),
+        "compressed_psum_bits_equal": bool(torch.equal(reduced, plain)),
+        "compressed_psum_ms": time_ms(
+            lambda: compressed_psum(grads, group, state), iters=50),
+        "plain_quantize_ms": time_ms(
+            lambda: dequantize_int8(*quantize_int8(grads)), iters=50)}
+    if not (out["lookup_bits_equal"] and out["compressed_psum_bits_equal"]):
+        raise AssertionError(f"distrib collectives on the card: {out}")
+    emit("distrib_collectives", card=card, **out)
+
+
+def _sage_mesh(card, mesh):
+    """GraphSAGE's two sharded forms at a world of one against the
+    unsharded form: full_graph_sm (logits and 8 train steps' losses at
+    1e-5), then ogb_products (the edge-sharded step, 2 steps, on the graph
+    the gnn phase built: ms, peak, losses against the gnn phase's)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import graphsage_reddit as conf
+    from repro_torch.models import gnn
+
+    device = torch.device("cuda")
+    out = {}
+    info = conf.SHAPES["full_graph_sm"]
+    cfg = conf.shape_config("full_graph_sm")
+    g = gnn.random_graph(info["n_nodes"], info["n_edges"], info["d_feat"],
+                         info["n_classes"], seed=LM_SEED)
+    graph = _to_device(g, device)
+    params = gnn.init_params(cfg, device=device, seed=LM_SEED)
+    with torch.no_grad():
+        dense = gnn.full_graph_forward(cfg, params, graph)
+        errs = {}
+        for form, c in (("edge_sharded", cfg), ("dst_partitioned",
+                        dataclasses.replace(cfg, partitioned_edges=True))):
+            errs[form] = _hold_close(
+                f"sage {form}", gnn.full_graph_forward(c, params, graph,
+                                                       mesh), dense)
+    losses = {}
+    for form, m in (("unsharded", None), ("edge_sharded", mesh)):
+        p = gnn.init_params(cfg, device=device, seed=LM_SEED)
+        opt = optim.adam(1e-2)
+        losses[form], _ = _sage_step_loop(
+            gnn.make_full_graph_train_step(cfg, opt, m), p,
+            opt.init(list(p.parameters())), graph, 8)
+    for a, b in zip(losses["unsharded"], losses["edge_sharded"]):
+        if abs(a - b) > 1e-5 * (1 + abs(a)):
+            raise AssertionError(f"sage full_graph_sm losses: {losses}")
+    out["full_graph_sm"] = {"logits_max_abs_err": errs, "losses": losses}
+    del graph, params
+    g_ogb = _KEPT.pop("ogb_products_graph", None)
+    if g_ogb is None:
+        info = conf.SHAPES["ogb_products"]
+        g_ogb = gnn.random_graph(info["n_nodes"], info["n_edges"],
+                                 info["d_feat"], info["n_classes"],
+                                 seed=LM_SEED)
+    cfg = conf.shape_config("ogb_products")
+    _free_card()
+    graph = _to_device(g_ogb, device)
+    del g_ogb
+    p = gnn.init_params(cfg, device=device, seed=LM_SEED)
+    opt = optim.adam(1e-2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, ms = _sage_step_loop(gnn.make_full_graph_train_step(cfg, opt,
+                                                                mesh),
+                                 p, opt.init(list(p.parameters())), graph, 2)
+    counts = check_counts("distrib sage ogb_products", {"adamw": 6 * 2})
+    unsharded = _KEPT.pop("ogb_products_losses", None)
+    if unsharded is not None:
+        for a, b in zip(unsharded, losses):
+            if abs(a - b) > 1e-5 * (1 + abs(a)):
+                raise AssertionError(f"sage ogb_products: edge-sharded "
+                                     f"{losses} vs unsharded {unsharded}")
+    out["ogb_products"] = {"step_ms": ms, "losses": losses,
+                           "unsharded_losses": unsharded,
+                           "launches": counts, **_peak_gb()}
+    del graph, p
+    _free_card()
+    emit("distrib_sage", card=card, **out)
+
+
+def _world_worker(rank, world, port, path, steps, result):
+    """A rank of the world over every card: the paper-width DBN (dense
+    tables) for ``steps`` steps of the global batch on a data-parallel
+    mesh; rank 0 holds its parameters against the world of one's (``path``)
+    at 1e-5, and every rank times the all-reduce of the two tables'
+    gradients."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data import ClickLogLoader
+    from repro_torch.launch.mesh import make_data_parallel_mesh
+    from repro_torch.train import Trainer
+
+    mesh = make_data_parallel_mesh()
+    with np.load(os.path.join(os.path.dirname(path), "data.npz")) as f:
+        data = {k: f[k] for k in f.files}
+    model, make_optimizer, _, _, _ = _train_spec("dbn")
+    trainer = Trainer(make_optimizer(), epochs=1, chunk_batches=4,
+                      device="cuda", log_fn=_quiet, mesh=mesh)
+    history = trainer.train(model, ClickLogLoader(data, batch_size=B_MAIN,
+                                                  seed=0))
+    grads = [torch.ones_like(p) for p in model.parameters()
+             if p.numel() > 1_000_000]
+    for g in grads:
+        dist.all_reduce(g)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        for g in grads:
+            dist.all_reduce(g)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 5
+    if rank == 0:
+        want = torch.load(path)
+        err = max(float((p.detach() - w.cuda()).abs().max())
+                  for p, w in zip(model.parameters(), want["params"]))
+        loss_err = abs(history[0]["train_loss"] - want["train_loss"])
+        with open(result, "w") as f:
+            json.dump({"world": world, "params_max_abs_err": err,
+                       "train_loss": history[0]["train_loss"],
+                       "train_loss_err": loss_err,
+                       "allreduce_ms_per_step": ms,
+                       "allreduce_bytes": sum(g.numel() * 4 for g in grads),
+                       "warm_seconds": history[0]["seconds"]}, f)
+    dist.destroy_process_group()
+
+
+def _multi_card(card, data, steps):
+    """The world over every card when there are several: the DBN's
+    parameters against the world of one's at 1e-5, and the all-reduce's
+    time. One card: a line saying it did not run."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.data import ClickLogLoader
+    from repro_torch.launch.mesh import make_data_parallel_mesh
+    from repro_torch.train import Trainer
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        emit("distrib_world", card=card, ran=False,
+             reason="one card: the world over several cards did not run "
+                    "(neither a pass nor a failure)")
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        # the world of one's run of the same steps, kept for rank 0
+        _free_card()
+        model, make_optimizer, _, _, _ = _train_spec("dbn")
+        trainer = Trainer(make_optimizer(), epochs=1, chunk_batches=4,
+                          device="cuda", log_fn=_quiet,
+                          mesh=make_data_parallel_mesh())
+        history = trainer.train(model, ClickLogLoader(
+            {k: v[:steps * B_MAIN] for k, v in data.items()},
+            batch_size=B_MAIN, seed=0))
+        np.savez(os.path.join(tmp, "data.npz"),
+                 **{k: v[:steps * B_MAIN] for k, v in data.items()})
+        path = os.path.join(tmp, "one.pt")
+        torch.save({"params": [p.detach().cpu() for p in model.parameters()],
+                    "train_loss": history[0]["train_loss"]}, path)
+        del model, trainer
+        _free_card()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        result = os.path.join(tmp, "world.json")
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_world_worker,
+                             args=(r, world, port, path, steps, result))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+        codes = [p.exitcode for p in procs]
+        if alive or any(codes):
+            raise AssertionError(f"distrib world of {world}: exit codes "
+                                 f"{codes}")
+        with open(result) as f:
+            found = json.load(f)
+    if found["params_max_abs_err"] > 1e-5 or found["train_loss_err"] > 1e-5:
+        raise AssertionError(f"distrib world of {world}: {found}")
+    emit("distrib_world", card=card, ran=True, **found)
+
+
+def _launcher_data_parallel(card):
+    """``python -m repro_torch.launch.train --data-parallel`` on the card
+    (a world of one under NCCL; UBM, 200,000 sessions, hashed 10x, two
+    epochs) beside the same launcher without the flag, both at once: exit
+    0, the mesh printed once, and the epoch records and test metrics of
+    the two equal to the bit."""
+    import ast
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--sessions",
+            "200000", "--epochs", "2", "--batch", "8192", "--compression",
+            "hash", "--ratio", "10"]
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(argv + extra, env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+             for name, extra in (("plain", []),
+                                 ("data_parallel", ["--data-parallel"]))}
+    out = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"launcher {name} exited {proc.returncode}"
+                                 f": {stderr[-3000:]}")
+        records = [ast.literal_eval(line.split("] ", 1)[1])
+                   for line in stdout.splitlines()
+                   if line.startswith("[trainer] {")]
+        out[name] = {"records": [{k: v for k, v in r.items()
+                                  if k != "seconds"} for r in records],
+                     "test": [line for line in stdout.splitlines()
+                              if line.startswith("[train] test")],
+                     "mesh_lines": [line for line in stdout.splitlines()
+                                    if "data-parallel mesh" in line]}
+    seconds = time.perf_counter() - t0
+    dp, plain = out["data_parallel"], out["plain"]
+    if (len(dp["mesh_lines"]) != 1 or len(dp["records"]) != 2
+            or dp["records"] != plain["records"]
+            or dp["test"] != plain["test"]):
+        raise AssertionError(f"launcher --data-parallel: {out}")
+    emit("distrib_launcher", card=card, seconds=seconds,
+         mesh=dp["mesh_lines"][0], records_bits_equal=True,
+         records=dp["records"], test=dp["test"][0])
+
+
+def phase_distrib(card, data, steps=8):
+    """Slice 14: a world of one under NCCL (``make_data_parallel_mesh()``)
+    through ``Trainer.train(mesh=...)``: the paper-width DBN (dense and
+    sparse tables) and DCTR, ``steps`` steps an epoch for two epochs, each
+    equal to the bit (parameters and losses) to the same run without a
+    mesh, with exact launch counts (NCCL's kernel nodes counted apart);
+    the warm step, peak memory, and one replay's collectives' device time,
+    with and without the mesh. Then masked_psum_lookup and compressed_psum
+    against their plain forms, GraphSAGE's sharded forms against the
+    unsharded one, and the world over every card where there are
+    several."""
+    import torch
+
+    from repro_torch.data import ClickLogLoader
+    from repro_torch.launch.mesh import make_data_parallel_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_data_parallel_mesh()
+    emit("distrib_mesh", card=card,
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         backend=torch.distributed.get_backend(),
+         torch=torch.__version__, nccl=".".join(
+             str(v) for v in torch.cuda.nccl.version()))
+    train = {k: v[:steps * B_MAIN] for k, v in data.items()}
+
+    def make_loader():
+        return ClickLogLoader(train, batch_size=B_MAIN, seed=0)
+
+    held_lo = len(data["clicks"]) - B_MAIN
+    held_out = _device_batch(data, held_lo, held_lo + B_MAIN)
+    for kind in ("dbn", "dbn_sparse", "dctr"):
+        runs, profiles = {}, {}
+        for name, m in (("no_mesh", None), ("mesh", mesh)):
+            run = _dist_run(kind, make_loader, steps, m)
+            profiles[name] = _replay_profile(run.pop("model"), kind, m,
+                                             held_out)
+            runs[name] = run
+        a, b = runs["no_mesh"], runs["mesh"]
+        params_equal = all(torch.equal(x, y) for x, y in zip(a["params"],
+                                                             b["params"]))
+        losses = [[r["train_loss"] for r in run["history"]]
+                  for run in (a, b)]
+        if not params_equal or losses[0] != losses[1] or \
+                a["launches"] != b["launches"]:
+            raise AssertionError(f"distrib {kind}: the world of one is not "
+                                 f"the run without a mesh: losses {losses}, "
+                                 f"launches {a['launches']} "
+                                 f"{b['launches']}")
+        for run in (a, b):
+            del run["params"], run["history"]
+        emit("distrib_train", kind=kind, card=card, steps=2 * steps,
+             batch=B_MAIN, params_bits_equal=True, losses_bits_equal=True,
+             train_loss=losses[1], no_mesh=a, mesh=b, replay=profiles)
+        del runs
+        _free_card()
+    del held_out
+    _lookup_and_compression(mesh, card)
+    _sage_mesh(card, mesh)
+    _launcher_data_parallel(card)
+    _multi_card(card, data, steps)
+    torch.distributed.destroy_process_group()
+    emit("distrib_done", card=card, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -6439,7 +6896,6 @@ def main() -> int:
     # earlier path.
     phase_store(data, smi)
     phase_telemetry(data, smi)
-    del data
     # The serving engine, after every earlier path.
     phase_serve_engine(smi)
     # Slice 12, after every earlier path: the conformance sweep forward and
@@ -6452,6 +6908,10 @@ def main() -> int:
     kernels.update(phase_adamw_bf16(smi))
     phase_gnn(smi)
     lm = phase_lm(smi)
+    # Slice 14, after every earlier path: a world of one under NCCL, and
+    # a world over every card where there are several.
+    phase_distrib(smi, data)
+    del data
     # Each kernel's launches in the training run of its path; BST's
     # retrieval bag in its serve phase.
     for name, counts in (("examination_nll", dbn), ("session_nll", dctr),

@@ -14,7 +14,9 @@ over the query-document features, and the naive DCTR with the same tower.
 
 ``SHAPES`` are JAX's two cells of this config: a training batch of 65,536
 sessions and a bulk serving batch of 262,144; :func:`serve_bulk` runs the
-latter through ``predict_clicks``.
+latter through ``predict_clicks``. :func:`_param_specs` is JAX's sharding
+of the config: tables of 1,000,000 rows or more row-sharded over
+``model``, everything else replicated.
 """
 from __future__ import annotations
 
@@ -69,6 +71,27 @@ def make_two_tower(kind: str = "pbm", features: int = TOWER_FEATURES,
         return DocumentCTR(positions=POSITIONS, attraction=tower,
                            device=device, seed=seed)
     raise ValueError(f"no two-tower {kind!r} in the port (pbm, dctr)")
+
+
+def _param_specs(model):
+    """``(specs, like)``: the model's JAX-shaped tree of
+    :class:`~repro_torch.distrib.shardings.PartitionSpec` (huge hashed
+    tables row-sharded over ``model``, everything else replicated) and the
+    tree of its parameters' shapes. A model built on the ``meta`` device
+    gives both without allocating its tables."""
+    from repro_torch.convert import param_path
+    from repro_torch.distrib.shardings import P
+    from repro_torch.tree import nest
+
+    def rule(shape):
+        if len(shape) >= 1 and shape[0] >= 1_000_000:
+            return P("model", *([None] * (len(shape) - 1)))
+        return P(*([None] * len(shape)))
+
+    named = list(model.named_parameters())
+    paths = [param_path(n) for n, _ in named]
+    shapes = [tuple(p.shape) for _, p in named]
+    return nest(paths, [rule(s) for s in shapes]), nest(paths, shapes)
 
 
 @torch.no_grad()

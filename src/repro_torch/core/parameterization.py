@@ -133,9 +133,18 @@ class EmbeddingParameter(Module):
     dequantize-then-gather ``(q.float() * scale)[rows]`` to the bit (the
     product is elementwise). The serving registry's int8 tier reads the
     tables so, and never makes a float32 table.
+
+    ``shards`` (None unless :meth:`shard_rows_` sets it) maps a table's
+    name to its :class:`~repro_torch.distrib.shardings.NamedSharding` on a
+    mesh: the parameter then holds this rank's rows of the table, and a
+    lookup goes through
+    :func:`~repro_torch.distrib.collectives.masked_psum_lookup` over the
+    ``model`` axis (every model rank gets the full rows, and each table
+    gradient lands in the rows its rank owns).
     """
 
     int8: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+    shards: Optional[Dict[str, object]] = None
 
     def __init__(self, config: EmbeddingParameterConfig, device=None):
         super().__init__()
@@ -178,9 +187,25 @@ class EmbeddingParameter(Module):
         raise NotImplementedError(
             "quotient-remainder compression has no single row-id stream")
 
+    @torch.no_grad()
+    def shard_rows_(self, name: str, sharding) -> None:
+        """Replace the table ``name`` by this rank's block of its rows under
+        ``sharding`` (a ``NamedSharding`` that splits dim 0 over
+        ``model``); later lookups go through the masked all-reduce."""
+        from repro_torch.distrib.collectives import masked_psum_lookup
+
+        full = getattr(self, name)
+        setattr(self, name, torch.nn.Parameter(
+            sharding.local(full.detach()).clone()))
+        self.shards = {**(self.shards or {}), name: sharding}
+        self._sharded_lookup = masked_psum_lookup(sharding.mesh)
+
     def _rows(self, name: str, rows: torch.Tensor) -> torch.Tensor:
         """Rows ``rows`` of the table ``name``, gathered from its int8 copy
-        and widened where :attr:`int8` holds one."""
+        and widened where :attr:`int8` holds one, or from its row shards
+        over the mesh where :attr:`shards` holds it."""
+        if self.shards and name in self.shards:
+            return self._sharded_lookup(getattr(self, name), rows)
         quantized = (self.int8 or {}).get(name)
         if quantized is None:
             return getattr(self, name)[rows]

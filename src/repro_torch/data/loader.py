@@ -5,7 +5,8 @@
 loader gathers a batch's rows with ``np.take``, which gives the bytes of
 the reference's fancy indexing. ``DevicePrefetcher``
 is the port of the reference's, with both of its modes: a staging thread
-(``overlap=True``, the default) or the consumer's own thread.
+(``overlap=True``, the default) or the consumer's own thread. On a mesh it
+stages one rank's rows of each batch (``shard=``).
 """
 from __future__ import annotations
 
@@ -91,6 +92,16 @@ class ClickLogLoader:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         """Resumes from self.state; advances it as batches are consumed."""
+        return self.iter_rows(0, 1)
+
+    def iter_rows(self, index: int, count: int
+                  ) -> Iterator[Dict[str, np.ndarray]]:
+        """One epoch for rank ``index`` of ``count`` data-parallel ranks:
+        every rank draws the same global batches in the same order, and
+        only rows ``[index * B / count, (index + 1) * B / count)`` of each
+        are gathered (:func:`shard_rows`: a batch that ``count`` does not
+        divide, the ``drop_last=False`` tail, goes whole to rank 0 and
+        empty to the others). ``(0, 1)`` is the whole batch."""
         while True:
             order = self._epoch_order(self.state.epoch)
             nb = self.batches_per_epoch
@@ -98,10 +109,10 @@ class ClickLogLoader:
                 i = self.state.step
                 idx = order[i * self.batch_size:(i + 1) * self.batch_size]
                 self.state.step += 1
-                yield {k: np.take(v, idx, axis=0)
+                yield {k: np.take(v, shard_rows(idx, index, count), axis=0)
                        for k, v in self.data.items()}
             self.state = LoaderState(epoch=self.state.epoch + 1, step=0)
-            return  # one epoch per __iter__ call
+            return  # one epoch per call
 
     def epochs(self, n_epochs: int):
         start = self.state.epoch
@@ -114,6 +125,18 @@ class ClickLogLoader:
 
     def load_state_dict(self, d):
         self.state = LoaderState.from_dict(d)
+
+
+def shard_rows(rows, index: int, count: int):
+    """Rank ``index``'s part of a batch's ``rows`` (an array or a
+    sequence) among ``count`` data-parallel ranks: the ``index``-th of
+    ``count`` equal blocks, or, where ``count`` does not divide them, all
+    of them on rank 0 and none elsewhere."""
+    n = len(rows)
+    if n % count:
+        return rows if index == 0 else rows[:0]
+    step = n // count
+    return rows[index * step:(index + 1) * step]
 
 
 class _PinnedRing:
@@ -177,10 +200,18 @@ class DevicePrefetcher:
     each tensor is marked as used there (``record_stream``), so the caching
     allocator does not hand its memory out again before the consumer's work
     on it has run.
+
+    ``shard=(index, count)`` stages rank ``index``'s rows of every batch
+    among ``count`` data-parallel ranks (:func:`shard_rows`: JAX's ``P(None,
+    'data')`` block): every rank draws the same global batches, and the
+    staging thread gathers and copies only its own rows (through the
+    loader's ``iter_rows`` where its class has one, else by slicing each
+    batch).
     """
 
     def __init__(self, loader, size: int = 2, device="cuda",
-                 chunk_batches: Optional[int] = None, overlap: bool = True):
+                 chunk_batches: Optional[int] = None, overlap: bool = True,
+                 shard: Optional[Tuple[int, int]] = None):
         if size < 1:
             raise ValueError(f"prefetch size must be >= 1, got {size}")
         if chunk_batches is not None and chunk_batches < 1:
@@ -189,8 +220,13 @@ class DevicePrefetcher:
         self.loader = loader
         self.size = size
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda" names the caller's current card; the staging thread's
+            # own current card is card 0, whichever the process uses
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.chunk_batches = chunk_batches
         self.overlap = overlap
+        self.shard = None if shard is None or shard[1] == 1 else tuple(shard)
 
     # -- host-side item stream (shared by both modes) ------------------------
     def _groups(self):
@@ -198,7 +234,15 @@ class DevicePrefetcher:
         n)`` with ``n`` None outside chunk mode. The loader's generator is
         created at the first ``next()``: on the staging thread in overlap
         mode, which therefore also closes it."""
-        it = iter(self.loader)
+        if self.shard is None:
+            it = iter(self.loader)
+        elif hasattr(type(self.loader), "iter_rows"):
+            # the loader's own (a proxy that forwards attributes, such as
+            # a fault injector, is iterated and sliced instead)
+            it = self.loader.iter_rows(*self.shard)
+        else:
+            it = ({k: shard_rows(v, *self.shard) for k, v in batch.items()}
+                  for batch in self.loader)
         get_state = getattr(self.loader, "state_dict", lambda: None)
         if self.chunk_batches is None:
             for batch in it:

@@ -1,11 +1,41 @@
-"""Distributed training support (port of part of ``repro.distrib``): so far
-the int8 quantization of :mod:`repro_torch.distrib.compression`, which the
-serving registry's int8 tier uses. The compressed all-reduce and the mesh
-wait for the distributed slice."""
-from repro_torch.distrib.compression import (QuantizedTensor,
-                                             dequantize_int8,
-                                             dequantize_tree, quantize_int8,
-                                             quantize_tree, tree_nbytes)
+"""Distribution layer (port of ``repro.distrib``): sharding rules, the
+sharded lookups' collectives, and gradient compression."""
+from repro_torch.distrib.shardings import (
+    batch_spec,
+    table_spec,
+    replicated_spec,
+    make_shardings,
+    DATA_AXES,
+    MODEL_AXIS,
+)
+from repro_torch.distrib.compression import (
+    quantize_int8,
+    dequantize_int8,
+    quantize_tree,
+    dequantize_tree,
+    tree_nbytes,
+    QuantizedTensor,
+    CompressedAllReduce,
+)
+from repro_torch.distrib.collectives import (
+    sharded_embedding_lookup,
+    masked_psum_lookup,
+)
 
-__all__ = ["QuantizedTensor", "quantize_int8", "dequantize_int8",
-           "quantize_tree", "dequantize_tree", "tree_nbytes"]
+__all__ = [
+    "batch_spec",
+    "table_spec",
+    "replicated_spec",
+    "make_shardings",
+    "DATA_AXES",
+    "MODEL_AXIS",
+    "quantize_int8",
+    "dequantize_int8",
+    "quantize_tree",
+    "dequantize_tree",
+    "tree_nbytes",
+    "QuantizedTensor",
+    "CompressedAllReduce",
+    "sharded_embedding_lookup",
+    "masked_psum_lookup",
+]

@@ -1,5 +1,5 @@
-"""int8 quantization of parameter trees, port of the int8 part of
-``repro.distrib.compression`` (``quantize_int8`` .. ``tree_nbytes``).
+"""Gradient compression for the slow all-reduce, and int8 quantization of
+parameter trees (port of ``repro.distrib.compression``).
 
 Per-tensor symmetric quantization: ``scale = max(max|x|, 1e-12) / 127``
 and ``q = clip(round(x / scale), -127, 127)`` as int8, in JAX's order of
@@ -11,7 +11,14 @@ operations. ``torch.round`` rounds half to even, as ``jnp.round`` does, so
 A tree is nested dicts, lists and tuples whose leaves are tensors or numpy
 arrays (``convert.export_params`` gives the JAX-shaped one); a quantized
 leaf becomes a :class:`QuantizedTensor`, which the walks here treat as a
-leaf. The error-feedback all-reduce waits for the distributed slice.
+leaf.
+
+:class:`CompressedAllReduce` is the error-feedback state (EF-SGD,
+Karimireddy et al. 2019): the quantization residual is added back into the
+next step's gradient, so the compression's bias vanishes over the steps.
+:func:`compressed_psum` all-reduces a gradient tree over a process group
+as JAX's ``compressed_psum`` does over a mesh axis: int8 payloads on one
+shared scale, summed exactly as int32.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from typing import Any, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -105,3 +113,91 @@ def tree_nbytes(tree) -> int:
             t = _as_tensor(leaf)
             total += int(t.numel() * t.element_size())
     return total
+
+
+class _Pair:
+    """Two results of one leaf, kept apart from the tree's own tuples."""
+
+    def __init__(self, payload, residual):
+        self.payload, self.residual = payload, residual
+
+
+def _is_payload(x) -> bool:
+    return (isinstance(x, tuple) and len(x) == 2
+            and all(isinstance(t, torch.Tensor) for t in x)
+            and x[0].dtype == torch.int8)
+
+
+def _map_payloads(fn, tree):
+    """``fn`` over the ``(int8 q, scale)`` payloads of ``tree``."""
+    if _is_payload(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_payloads(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_payloads(fn, v) for v in tree)
+    return tree
+
+
+def _map2(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map2(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
+
+
+class CompressedAllReduce(NamedTuple):
+    """Error-feedback state and its quantize step for compressed gradient
+    aggregation."""
+
+    error: Any  # the residual tree, float32
+
+    @staticmethod
+    def init(params) -> "CompressedAllReduce":
+        return CompressedAllReduce(error=_map(
+            lambda p: torch.zeros_like(_as_tensor(p), dtype=torch.float32),
+            params))
+
+    def compress_correct(self, grads):
+        """Returns (payloads, new_state): per leaf the ``(int8 q, float32
+        scale)`` of the gradient plus the carried residual, and the
+        residual this quantization leaves."""
+        def one(g, e):
+            corrected = _as_tensor(g).float() + e
+            q, scale = quantize_int8(corrected)
+            return _Pair((q, scale), corrected - dequantize_int8(q, scale))
+
+        pairs = _map2(one, grads, self.error)
+        payloads = _map(lambda p: p.payload if isinstance(p, _Pair) else p,
+                        pairs)
+        residual = _map(lambda p: p.residual if isinstance(p, _Pair) else p,
+                        pairs)
+        return payloads, CompressedAllReduce(residual)
+
+    @staticmethod
+    def decompress(payloads):
+        return _map_payloads(lambda qs: dequantize_int8(*qs), payloads)
+
+
+def compressed_psum(grads, group, state: CompressedAllReduce):
+    """Compressed all-reduce of ``grads`` over ``group``: quantize (with
+    error feedback), agree on the largest scale (an all-reduce max),
+    re-quantize to it, sum the int32 payloads (exact), widen with the
+    shared scale and average over the group. Returns ``(mean grads,
+    new_state)``. ``torch.round`` rounds half to even as ``jnp.round``
+    does, so the result is JAX's to the bit on the same gradients."""
+    payloads, new_state = state.compress_correct(grads)
+    n = float(dist.get_world_size(group))
+
+    def reduce_one(payload):
+        q, scale = payload
+        shared = scale.clone()
+        dist.all_reduce(shared, op=dist.ReduceOp.MAX, group=group)
+        requant = torch.clamp(torch.round(dequantize_int8(q, scale) / shared),
+                              -127, 127).to(torch.int32)
+        dist.all_reduce(requant, group=group)
+        return requant.float() * shared / n
+
+    return _map_payloads(reduce_one, payloads), new_state

@@ -48,8 +48,19 @@ Observability: ``--metrics-out`` writes telemetry events as JSONL (and
 turns on the engine's per-step grad and parameter norms), ``--trace-out``
 exports the host spans as a Chrome trace at the end, ``--obs-every`` thins
 per-step events, and ``--profile-steps A:B`` opens a ``torch.profiler``
-window into ``--profile-dir``. ``--data-parallel``, ``--kernel-impl`` and
-``--emit-roofline`` wait for later slices.
+window into ``--profile-dir``. ``--kernel-impl`` and ``--emit-roofline``
+wait for later slices.
+
+Data parallelism: ``--data-parallel`` trains on a ``(n, 1)`` mesh over
+every rank of the world (``launch.mesh.make_data_parallel_mesh``; NCCL on
+the card, gloo with ``--device cpu``): each rank trains on its rows of
+every batch (``--batch`` must divide by n). Run alone it starts a world
+of one; over several cards, one process each:
+
+    torchrun --nproc-per-node=N -m repro_torch.launch.train \
+        --data-parallel [--sparse-tables] ...
+
+Only rank 0 prints and writes checkpoints.
 """
 from __future__ import annotations
 
@@ -165,6 +176,10 @@ def main(argv=None):
     ap.add_argument("--chunk-batches", type=int, default=8,
                     help="optimizer steps per engine chunk (losses are read "
                          "once per chunk)")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="shard the batch axis over every rank of the world "
+                         "(a world of one when run alone; requires --batch "
+                         "divisible by the world's size)")
     ap.add_argument("--sparse-tables", action="store_true",
                     help="lazy-AdamW updates of the embedding tables: "
                          "optimizer state traffic O(unique batch rows) "
@@ -288,6 +303,16 @@ def main(argv=None):
         recorder = obs.configure(sinks=[obs.JsonlSink(args.metrics_out)])
         print(f"[train] telemetry -> {args.metrics_out}", flush=True)
 
+    mesh, lead = None, True
+    if args.data_parallel:
+        from repro_torch.launch.mesh import make_data_parallel_mesh
+
+        mesh = make_data_parallel_mesh(device=args.device)
+        lead = mesh.get_rank() == 0
+        if lead:
+            print(f"[train] data-parallel mesh: "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
+
     train_loader, val_loader, test_loader, cfg = make_loaders(args)
     if args.fault_kill_at_step is not None:
         from repro_torch.testing import KillSwitch
@@ -333,7 +358,7 @@ def main(argv=None):
                       telemetry=bool(args.metrics_out),
                       obs_every=args.obs_every,
                       profile_steps=args.profile_steps,
-                      profile_dir=args.profile_dir)
+                      profile_dir=args.profile_dir, mesh=mesh)
     try:
         trainer.train(model, train_loader, val_loader,
                       resume=bool(args.ckpt_dir))
@@ -346,7 +371,13 @@ def main(argv=None):
         recorder.flush_counters()
         recorder.close()
         obs.set_recorder(previous)
-    if args.replicas is None:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    if not lead:
+        pass
+    elif args.replicas is None:
         print("[train] test:", {k: round(v, 4) for k, v in results.items()
                                 if k != "per_rank"}, flush=True)
     else:

@@ -1,8 +1,9 @@
-"""GraphSAGE, single-device forms (port of ``repro.models.gnn``;
-``param_specs`` waits for the distributed slice)."""
+"""GraphSAGE (port of ``repro.models.gnn``): full-graph (also split over
+a mesh) and sampled forms."""
 from repro_torch.models.gnn.graphsage import (
     SAGEConfig,
     init_params,
+    param_specs,
     full_graph_forward,
     sampled_forward,
     node_classification_loss,
@@ -14,6 +15,7 @@ from repro_torch.models.gnn.sampler import NeighborSampler, random_graph
 __all__ = [
     "SAGEConfig",
     "init_params",
+    "param_specs",
     "full_graph_forward",
     "sampled_forward",
     "node_classification_loss",

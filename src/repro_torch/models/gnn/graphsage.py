@@ -1,5 +1,5 @@
 """GraphSAGE [Hamilton et al. 2017, arXiv:1706.02216], mean aggregator (port
-of ``repro.models.gnn.graphsage``, single-device forms).
+of ``repro.models.gnn.graphsage``).
 
 Two execution regimes:
 
@@ -10,15 +10,36 @@ Two execution regimes:
   ``EDGE_CHUNK_BYTES`` is ever live: ogb_products' 61.9M edges would
   otherwise materialize 24.7 GB of messages at layer 0 and 31.7 GB at
   layer 1, saved again for the backward where edges carry weights. The
-  sums are JAX's, in another order.
+  sums are JAX's, in another order. On a mesh
+  (``full_graph_forward(..., mesh)``, every rank holding the whole graph
+  and the same node states) the edges are split over every rank, two
+  ways:
+
+  - edge-sharded (:func:`_aggregate_sharded`): rank s sums its slice of
+    the edges (padded to a multiple of the ranks with weight-0 edges) into
+    all the nodes, and one all-reduce merges the partial sums: wire bytes
+    = nodes x features x 4 a layer, whatever the edge count;
+  - dst-partitioned (``SAGEConfig.partitioned_edges``,
+    :func:`_aggregate_dst_partitioned`): the edges arrive grouped so that
+    rank s's slice only targets nodes ``[s * N / n, (s + 1) * N / n)``;
+    its local sum is that block's final aggregate, and one all-gather a
+    layer assembles it (half an all-reduce's wire).
+
+  Everything after an aggregation is replicated, so its collective's
+  backward is JAX's transpose under a replicated consumer: the identity
+  for the all-reduce, the rank's own block for the all-gather (a
+  reduce-scatter would add up n equal copies); the node states' gradient,
+  of which each rank computes only its edges' share, is summed over the
+  ranks where the states enter the aggregation
+  (:class:`~repro_torch.distrib.collectives.SumGradients`).
 * **sampled minibatch**: fixed-fanout neighbor tensors from the host-side
   :class:`~repro_torch.models.gnn.sampler.NeighborSampler`, a masked mean
   over each hop's fanout.
 
 Parameters are named as in the JAX tree: ``layer_l.{w_self, w_neigh,
 bias}``. The train steps update the parameters in place (one fused
-``adamw`` launch per tensor on the card) and return them. The sharded
-aggregations and ``param_specs`` wait for the distributed slice.
+``adamw`` launch per tensor on the card) and return them. The weights are
+tiny and replicated (:func:`param_specs`).
 """
 from __future__ import annotations
 
@@ -43,6 +64,11 @@ class SAGEConfig:
     n_classes: int = 41
     sample_sizes: Sequence[int] = (25, 10)
     dtype: Any = torch.float32
+    # edges pre-partitioned by dst range: each rank owns a disjoint node
+    # block, its aggregation needs no reduction and one all-gather of the
+    # block a layer. Input contract: edge i lives in the slice of the rank
+    # owning dst[i].
+    partitioned_edges: bool = False
 
 
 def _dims(cfg: SAGEConfig):
@@ -70,6 +96,16 @@ class SAGEParams(Module):
 
     def layer(self, l: int) -> torch.nn.ParameterDict:
         return getattr(self, f"layer_{l}")
+
+
+def param_specs(cfg: SAGEConfig, mesh=None):
+    """Weights are tiny: every leaf replicated, ``P()`` in the JAX-shaped
+    tree."""
+    from repro_torch.distrib.shardings import P
+
+    del mesh
+    return {f"layer_{l}": {"w_self": P(), "w_neigh": P(), "bias": P()}
+            for l in range(cfg.n_layers)}
 
 
 def init_params(cfg: SAGEConfig, gen: Optional[torch.Generator] = None, *,
@@ -120,21 +156,102 @@ def _scatter(h, src, dst, weight, n_out, chunk):
 
 
 def _aggregate_dense(h, src, dst, n_nodes, degree_inv, edge_weight=None):
-    chunk = max(1, EDGE_CHUNK_BYTES // (h.shape[1] * h.element_size()))
-    agg = _EdgeSum.apply(h, src, dst, edge_weight, n_nodes, chunk)
+    agg = _EdgeSum.apply(h, src, dst, edge_weight, n_nodes, _edge_chunk(h))
     return agg * degree_inv[:, None]
 
 
+def _edge_chunk(h) -> int:
+    return max(1, EDGE_CHUNK_BYTES // (h.shape[1] * h.element_size()))
+
+
+def _mesh_shards(mesh):
+    """(the world group, this rank's row-major index over every mesh axis,
+    the number of ranks)."""
+    import torch.distributed as dist
+
+    from repro_torch.distrib.shardings import (axis_index, axis_names,
+                                               axis_size)
+
+    index, count = 0, 1
+    for axis in axis_names(mesh):
+        n = axis_size(mesh, axis)
+        index, count = index * n + axis_index(mesh, axis), count * n
+    return dist.group.WORLD, index, count
+
+
+def _edge_slice(t, index, count, fill):
+    """Rank ``index``'s slice of ``count`` of the edge tensor ``t``, padded
+    with ``fill`` to a multiple of ``count``."""
+    pad = -t.shape[0] % count
+    if pad:
+        t = torch.cat([t, t.new_full((pad,), fill)])
+    step = t.shape[0] // count
+    return t[index * step:(index + 1) * step]
+
+
+def _aggregate_sharded(mesh, h, src, dst, n_nodes, degree_inv,
+                       edge_weight=None):
+    """Edge-sharded mean aggregation: the rank's slice of the edges summed
+    into every node, then one all-reduce over the ranks. Padded edges carry
+    weight 0 (without padding or weights, no weight is multiplied in)."""
+    from repro_torch.distrib.collectives import AllReduceSum, SumGradients
+
+    group, index, count = _mesh_shards(mesh)
+    if edge_weight is None and src.shape[0] % count:
+        edge_weight = torch.ones(src.shape, dtype=h.dtype, device=h.device)
+    src_loc = _edge_slice(src, index, count, 0)
+    dst_loc = _edge_slice(dst, index, count, 0)
+    w_loc = (None if edge_weight is None
+             else _edge_slice(edge_weight, index, count, 0.0))
+    partial = _EdgeSum.apply(SumGradients.apply(h, group), src_loc, dst_loc,
+                             w_loc, n_nodes, _edge_chunk(h))
+    return AllReduceSum.apply(partial, group) * degree_inv[:, None]
+
+
+def _aggregate_dst_partitioned(mesh, h, src, dst, n_nodes, degree_inv,
+                               edge_weight=None):
+    """Aggregation with dst-partitioned edges: rank s's edge slice only
+    targets nodes ``[s * Nl, (s + 1) * Nl)``, so its local sum is that
+    block's final aggregate; one all-gather assembles the nodes."""
+    from repro_torch.distrib.collectives import AllGatherRows, SumGradients
+
+    group, index, count = _mesh_shards(mesh)
+    if n_nodes % count or src.shape[0] % count:
+        raise ValueError(f"dst-partitioned edges: {n_nodes} nodes and "
+                         f"{src.shape[0]} edges must split {count} ways")
+    n_local = n_nodes // count
+    src_loc = _edge_slice(src, index, count, 0)
+    dst_loc = _edge_slice(dst, index, count, 0) - index * n_local
+    w_loc = (None if edge_weight is None
+             else _edge_slice(edge_weight, index, count, 0.0))
+    deg_loc = degree_inv[index * n_local:(index + 1) * n_local]
+    local = _EdgeSum.apply(SumGradients.apply(h, group), src_loc, dst_loc,
+                           w_loc, n_local, _edge_chunk(h))
+    return AllGatherRows.apply(local * deg_loc[:, None], group)
+
+
 def full_graph_forward(cfg: SAGEConfig, params: SAGEParams,
-                       graph: Dict[str, torch.Tensor]) -> torch.Tensor:
+                       graph: Dict[str, torch.Tensor],
+                       mesh=None) -> torch.Tensor:
     """graph: features (N, F), src (E,), dst (E,), degree_inv (N,), optional
-    edge_weight (E,) -> (N, n_classes) logits."""
+    edge_weight (E,) -> (N, n_classes) logits. With a ``mesh`` every rank
+    holds the whole graph and the aggregations are split over its ranks
+    (edge-sharded, or dst-partitioned with ``cfg.partitioned_edges``)."""
     h = graph["features"].to(cfg.dtype)
     n_nodes = h.shape[0]
+    ew = graph.get("edge_weight")
     for l in range(cfg.n_layers):
         lp = params.layer(l)
-        neigh = _aggregate_dense(h, graph["src"], graph["dst"], n_nodes,
-                                 graph["degree_inv"], graph.get("edge_weight"))
+        if mesh is None:
+            neigh = _aggregate_dense(h, graph["src"], graph["dst"], n_nodes,
+                                     graph["degree_inv"], ew)
+        elif cfg.partitioned_edges:
+            neigh = _aggregate_dst_partitioned(
+                mesh, h, graph["src"], graph["dst"], n_nodes,
+                graph["degree_inv"], ew)
+        else:
+            neigh = _aggregate_sharded(mesh, h, graph["src"], graph["dst"],
+                                       n_nodes, graph["degree_inv"], ew)
         h = (h @ lp["w_self"].to(cfg.dtype)
              + neigh @ lp["w_neigh"].to(cfg.dtype) + lp["bias"])
         if l < cfg.n_layers - 1:
@@ -210,11 +327,11 @@ def make_loss_step(loss_fn, optimizer):
     return step
 
 
-def make_full_graph_train_step(cfg: SAGEConfig, optimizer=None):
+def make_full_graph_train_step(cfg: SAGEConfig, optimizer=None, mesh=None):
     optimizer = optimizer or optim_lib.adam(1e-2)
     return make_loss_step(
         lambda p, graph: node_classification_loss(
-            full_graph_forward(cfg, p, graph), graph["labels"],
+            full_graph_forward(cfg, p, graph, mesh), graph["labels"],
             graph.get("label_mask")), optimizer)
 
 

@@ -1,7 +1,6 @@
 """Shared huge-table embedding substrate for the recsys models.
 
-Port of ``repro.models.recsys.embedding`` (``table_spec``, the row-sharding
-rule, waits for the distributed slice): one unified table that fields
+Port of ``repro.models.recsys.embedding``: one unified table that fields
 reach through disjoint id ranges, with optional hashing-trick or
 quotient-remainder compression. A table's parameters are a mapping of
 tensors keyed as in the JAX tree (``table``, or ``quotient`` and
@@ -125,3 +124,12 @@ def bag_lookup(cfg: TableConfig, params: Mapping[str, torch.Tensor],
         ids = torch.where(ids >= 0, hash_ids(ids.long(), cfg.stored_rows), -1)
     return embedding_bag(params["table"], ids, weights, combiner=combiner,
                          clip_ids=True)
+
+
+def table_spec(cfg: TableConfig) -> Dict:
+    """Row-sharded over 'model' (both QR components too)."""
+    from repro_torch.distrib.shardings import P
+
+    if cfg.compression == "qr":
+        return {"quotient": P("model", None), "remainder": P("model", None)}
+    return {"table": P("model", None)}

@@ -32,8 +32,13 @@ as it goes. An explicitly requested step that fails validation raises
 :class:`CheckpointCorruptionError`.
 
 bfloat16 tensors are written as float32 (numpy has no bfloat16) and come
-back as bfloat16, which loses nothing. The mesh and its ``shardings`` wait
-for the distributed slice.
+back as bfloat16, which loses nothing.
+
+Elastic restore: a checkpoint holds full tensors (a mesh's row shards are
+gathered to rank 0, which alone writes), so it is mesh-agnostic.
+``restore(like=..., shardings=...)`` cuts each leaf to this rank's block
+of its :class:`~repro_torch.distrib.shardings.NamedSharding`, so a
+checkpoint written by a world of N restores onto a world of M.
 """
 from __future__ import annotations
 
@@ -166,11 +171,14 @@ class CheckpointManager:
         steps = self._committed_steps()
         return max(steps) if steps else None
 
-    def restore(self, step: Optional[int] = None, like: Any = None):
+    def restore(self, step: Optional[int] = None, like: Any = None,
+                shardings: Any = None):
         """Restore (tree, aux, step). ``like`` provides the tree structure,
         and each leaf's kind: a tensor leaf comes back as a new tensor of
         its dtype on its device. Without ``like``, the flat ``{path: numpy
-        array}`` dict.
+        array}`` dict. ``shardings`` (a tree like ``like`` of
+        ``NamedSharding``) cuts each leaf to this rank's block: the elastic
+        restore onto another mesh.
 
         With ``step=None`` the newest committed checkpoint that passes
         validation wins; invalid ones (torn archive, crc mismatch) are
@@ -198,6 +206,10 @@ class CheckpointManager:
         for key, _ in flatten_with_paths(like):
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
+        if shardings is not None:
+            blocks = dict(flatten_with_paths(shardings))
+            arrays = {k: blocks[k].local(v) if k in blocks else v
+                      for k, v in arrays.items()}
         return (map_with_paths(lambda key, leaf: _like(arrays[key], leaf),
                                like), meta["aux"], meta["step"])
 

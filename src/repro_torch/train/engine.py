@@ -2,8 +2,7 @@
 embedding tables, replica sweeps, the non-finite guard and on-device
 telemetry.
 
-Port of ``repro.train.engine.TrainEngine`` (the mesh waits for the
-distributed slice).
+Port of ``repro.train.engine.TrainEngine``.
 ``DevicePrefetcher(chunk_batches=N)`` stacks N host batches into one
 ``(N, B, ...)`` device tensor per key; :meth:`TrainEngine.step` runs the N
 optimizer steps over it and returns the per-step losses as one ``(N,)``
@@ -25,6 +24,42 @@ sweep's stacked parameters and active mask): the kernels update them in
 place, so their addresses stay fixed, and a call with another state object
 captures anew. A CPU chunk runs the loop. Nothing chooses between the two
 but the device, and a capture that fails raises.
+
+**Data parallelism and row-sharded tables.** ``TrainEngine(mesh=mesh)``
+(a mesh of :mod:`repro_torch.launch.mesh`, one process per rank) places
+the model at construction, as JAX's ``place``: every table that
+:func:`~repro_torch.distrib.shardings.clax_param_rule` row-shards over
+``model`` becomes this rank's rows
+(:meth:`EmbeddingParameter.shard_rows_`, looked up through the masked
+all-reduce), every other parameter is broadcast from rank 0. A sweep
+stacks the placed parameters, so its tables split on dim 1 (JAX's
+``leading_axes=1``). The chunk's
+tensors are this rank's rows of each batch (:meth:`batch_shard`, for
+``DevicePrefetcher(shard=...)``). The step computes what JAX's SPMD step
+does, with explicit collectives on local tensors (no DTensor):
+
+* the loss is a masked mean over the *global* batch, ``sum / max(count,
+  1)``: each rank's loss is weighted by ``max(count_r, 1) / max(count, 1)``
+  (the mask's counts; the global one all-reduced over ``data`` before the
+  backward), and the weighted losses and every gradient are summed over
+  ``data`` (row shards' gradients too: each model rank sums its own rows).
+  Averaging by ``1 / dp`` would be wrong wherever the ranks' masks hold
+  different counts. At a world of one the weight is 1.0 and every sum is
+  the tensor itself, so a mesh of one is the run without one, to the bit;
+* the guard's flag is taken on the summed loss and gradients, so every
+  rank skips the same step;
+* telemetry's norms are the global ones: row shards' sums of squares are
+  summed over ``model``;
+* sparse tables (``model`` of one): every rank applies one update to the
+  same rows, the union of the ranks' rows. Each rank's ids are gathered
+  over ``data`` at the fixed length ``dp x`` its own (so the chunk stays
+  capturable) and deduped; each rank gathers its table gradient at those
+  rows and the row gradients are summed over ``data``. The full table
+  gradient never crosses the wire.
+
+On the card the collectives run inside the chunk's one replay: the
+communicators are made by the first collective of each group, which runs
+in the eager warm-up (and the placement's broadcast), never in a capture.
 
 **Sparse tables.** With ``sparse_tables=True`` every
 :class:`~repro_torch.core.parameterization.EmbeddingParameter` table is
@@ -85,17 +120,21 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import optim as optim_lib
 from repro_torch.convert import param_path
 from repro_torch.core.parameterization import (CONSTANT_START, Compression,
                                                EmbeddingParameter,
                                                FeatureParameter)
+from repro_torch.distrib.collectives import axes_group, gather_rows
+from repro_torch.distrib.shardings import DATA_AXES
 from repro_torch.optim.sparse import (init_sparse_table_state,
                                       sparse_adamw_update,
                                       unique_rows_with_sentinel)
 from repro_torch.train.capture import ChunkGraphs
-from repro_torch.tree import nest, tree_copy_, tree_leaves, tree_map
+from repro_torch.tree import (map_with_paths, nest, tree_copy_, tree_leaves,
+                              tree_map)
 
 SPARSE_PATH_SEP = "/"
 
@@ -181,7 +220,7 @@ class TrainEngine:
     """
 
     def __init__(self, model, optimizer, *, chunk_batches: int = 1,
-                 sparse_tables: bool = False,
+                 mesh=None, sparse_tables: bool = False,
                  sparse_table_kwargs: Optional[Dict[str, Any]] = None,
                  replicas: Optional[int] = None,
                  nonfinite_guard: bool = False, telemetry: bool = False):
@@ -192,9 +231,12 @@ class TrainEngine:
         self.model = model
         self.optimizer = optimizer
         self.chunk_batches = int(chunk_batches)
+        self.mesh = mesh
         self.replicas = None if replicas is None else int(replicas)
         self.nonfinite_guard = bool(nonfinite_guard)
         self.telemetry = bool(telemetry)
+        if mesh is not None:
+            self._place(sparse_tables)
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.paths = [param_path(n) for n in self.names]
@@ -223,6 +265,9 @@ class TrainEngine:
         self._dense_at = [i for i in range(len(self.params))
                           if i not in tables_at]
         self.dense_params = [self.params[i] for i in self._dense_at]
+        # indices of the parameters that are row shards over 'model'
+        self._sharded_at = [i for i, p in enumerate(self.params)
+                            if id(p) in self._shard_ids()]
         # a sweep's stacked parameters, their per-replica views and the
         # device-resident active mask (made by init_replica_params)
         self.replica_params: Optional[List[torch.Tensor]] = None
@@ -231,6 +276,193 @@ class TrainEngine:
         self._active_host: Optional[np.ndarray] = None
         # made at the first CUDA chunk
         self.graphs: Optional[ChunkGraphs] = None
+
+    # -- the mesh -------------------------------------------------------------
+    def _place(self, sparse_tables: bool) -> None:
+        """JAX's ``place``: row-shard the tables ``clax_param_rule`` picks
+        (this rank keeps its rows), broadcast every other parameter from
+        rank 0. A model stays placed on its mesh: placing it again on the
+        same mesh does nothing, on another raises."""
+        from repro_torch.distrib.shardings import (MODEL_AXIS, NamedSharding,
+                                                   axis_size,
+                                                   clax_param_rule)
+
+        mesh, model = self.mesh, self.model
+        self._data_group = axes_group(mesh, DATA_AXES(mesh))
+        self._model_group = mesh.get_group(MODEL_AXIS)
+        self.model_size = axis_size(mesh, MODEL_AXIS)
+        if sparse_tables and self.model_size > 1:
+            raise NotImplementedError(
+                "sparse tables on a mesh whose 'model' axis is larger than "
+                "one (row-sharded sparse tables) are not supported yet")
+        placed = getattr(model, "_mesh", None)
+        if placed is not None:
+            if placed is not mesh:
+                raise ValueError("the model is placed on another mesh")
+            return
+        rule = clax_param_rule(mesh)
+        owners = {}
+        for module in model.modules():
+            if isinstance(module, EmbeddingParameter):
+                for name in ("table", "quotient", "remainder"):
+                    if hasattr(module, name):
+                        owners[id(getattr(module, name))] = (module, name)
+        for name, p in list(model.named_parameters()):
+            spec = rule(name, p)
+            if MODEL_AXIS in spec:
+                if id(p) not in owners:
+                    raise NotImplementedError(
+                        f"{name} {tuple(p.shape)} is row-sharded by the rule, "
+                        "but only an EmbeddingParameter table has a sharded "
+                        "lookup")
+                part, attr = owners[id(p)]
+                part.shard_rows_(attr, NamedSharding(mesh, spec))
+            else:
+                with torch.no_grad():
+                    dist.broadcast(p.data, src=0)
+        model._mesh = mesh
+
+    def _shard_ids(self) -> set:
+        return {id(getattr(part, name))
+                for part in self.model.modules()
+                if isinstance(part, EmbeddingParameter) and part.shards
+                for name in part.shards}
+
+    def data_parallel_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        from repro_torch.distrib.shardings import data_parallel_size
+
+        return data_parallel_size(self.mesh)
+
+    def batch_shard(self) -> Optional[Tuple[int, int]]:
+        """``(index, count)``: the block of every batch this rank trains on
+        (``DevicePrefetcher(shard=...)``), or None without a mesh."""
+        if self.mesh is None:
+            return None
+        from repro_torch.distrib.shardings import data_parallel_index
+
+        return data_parallel_index(self.mesh), self.data_parallel_size()
+
+    def shardings(self, tree):
+        """The :class:`NamedSharding` of every leaf of a live tree (the
+        parameters, the optimizer state, or both): a leaf shaped like a row
+        shard of a table (after a sweep's leading replica axis) is split
+        over ``model`` on that dim, every other leaf is replicated. None
+        without a mesh."""
+        if self.mesh is None:
+            return None
+        from repro_torch.distrib.shardings import (MODEL_AXIS, NamedSharding,
+                                                   P)
+
+        shard_shapes = {tuple(self.params[i].shape)
+                        for i in self._sharded_at}
+
+        def one(path, leaf):
+            del path
+            shape = tuple(getattr(leaf, "shape", ()))
+            lead = 0 if self.replicas is None else 1
+            if self._sharded_at and shape[lead:] in shard_shapes:
+                return NamedSharding(self.mesh, P(*([None] * lead),
+                                                  MODEL_AXIS))
+            return NamedSharding(self.mesh, P())
+
+        return map_with_paths(one, tree)
+
+    def gathered(self, tree):
+        """``tree`` with every row-shard leaf gathered over ``model`` into
+        the full tensor (a collective: every rank calls it); the tree
+        itself where nothing is sharded."""
+        if self.mesh is None or not self._sharded_at:
+            return tree
+        from repro_torch.distrib.shardings import MODEL_AXIS
+
+        def one(leaf, sharding):
+            if not isinstance(leaf, torch.Tensor) or MODEL_AXIS not in \
+                    sharding.spec:
+                return leaf
+            return gather_rows(leaf, self._model_group,
+                               list(sharding.spec).index(MODEL_AXIS))
+
+        return tree_map(one, tree, self.shardings(tree))
+
+    def _psum(self, t: torch.Tensor, group=None) -> torch.Tensor:
+        """``t`` summed over the data axes (or ``group``), in place."""
+        dist.all_reduce(t, group=self._data_group if group is None
+                        else group)
+        return t
+
+    def _loss_weight(self, batch) -> torch.Tensor:
+        """``max(count_r, 1) / max(count, 1)``: the weight that turns this
+        rank's masked mean into its share of the global batch's."""
+        count = batch["mask"].sum(dtype=torch.float32)
+        total = self._psum(count.clone())
+        return torch.clamp_min(count, 1.0) / torch.clamp_min(total, 1.0)
+
+    def _union_rows(self, batch) -> Dict[str, torch.Tensor]:
+        """Each sparse table's distinct rows over every data rank's batch
+        rows, padded with the sentinel: the ids gathered over ``data`` at
+        ``dp x`` this rank's length, then deduped (the same list, in the
+        same order, on every rank)."""
+        out = {}
+        for key, part in self.sparse_parts.items():
+            ids = part.row_ids(batch).reshape(-1).contiguous()
+            every = ids.new_empty((self.data_parallel_size() * ids.numel(),))
+            dist.all_gather_into_tensor(every, ids, group=self._data_group)
+            out[key] = unique_rows_with_sentinel(
+                every, self.params[self._table_at[key]].shape[0])
+        return out
+
+    def _reduce(self, loss, grads, rows):
+        """Off a mesh: ``(loss, None, grads)``. On one: the loss and the
+        gradients summed over ``data`` in place (a sparse table's full
+        gradient stays local: its rows at ``rows`` are gathered and summed
+        instead), as ``(loss, d_rows, checked)``: ``checked`` are the
+        summed gradients the guard and the telemetry read."""
+        if self.mesh is None:
+            return loss, None, grads
+        self._psum(loss)
+        tables = set(self._table_at.values())
+        checked = []
+        for i, g in enumerate(grads):
+            if i not in tables:
+                checked.append(self._psum(g))
+        d_rows = {}
+        for key, at in self._table_at.items():
+            n_rows = self.params[at].shape[0]
+            d_rows[key] = self._psum(torch.index_select(
+                grads[at], 0, torch.clamp(rows[key], max=n_rows - 1)))
+            # the sentinel pads read the last row: not part of the gradient
+            checked.append(torch.where((rows[key] < n_rows)[:, None],
+                                       d_rows[key], 0.0))
+        return loss, d_rows, checked
+
+    def _grad_norm(self, grads, checked) -> torch.Tensor:
+        """The global gradient norm: off a mesh, and on one with no row
+        shards, :func:`optim.global_norm` of the (summed) gradients; with
+        row shards, their sums of squares are summed over ``model``."""
+        if self.mesh is None:
+            return optim_lib.global_norm(grads)
+        if not self._sharded_at:
+            return optim_lib.global_norm(checked)
+        shards = {id(grads[i]) for i in self._sharded_at}
+        ss = [torch.sum(torch.square(g.float())) for g in checked
+              if id(g) not in shards]
+        local = sum((torch.sum(torch.square(grads[i].float()))
+                     for i in self._sharded_at),
+                    torch.zeros((), device=grads[0].device))
+        return torch.sqrt(sum(ss, self._psum(local, self._model_group)))
+
+    def _param_sumsq(self, sumsq, params) -> torch.Tensor:
+        """The update's float64 sum of squares made global: row shards'
+        own (after the step) summed over ``model``."""
+        if self.mesh is None or not self._sharded_at:
+            return sumsq
+        local = sum((torch.sum(torch.square(params[i].detach().double()))
+                     for i in self._sharded_at),
+                    torch.zeros((), dtype=torch.float64,
+                                device=sumsq.device))
+        return sumsq - local + self._psum(local.clone(), self._model_group)
 
     # -- optimizer state -------------------------------------------------------
     def _init_single(self, params):
@@ -371,13 +603,14 @@ class TrainEngine:
                 for key, part in self.sparse_parts.items()}
 
     def _update(self, opt_state, params, grads, rows, pred, norm=False,
-                apply=None):
+                apply=None, d_rows=None):
         """The optimizer half of a step over ``params`` (the model's, or a
         replica's views) and their ``grads``, under the predicate ``pred``
         (None: always). Returns the new state; with ``norm`` also the
         float64 sum of squares of the parameters the step would write under
         ``apply`` alone (see ``optim.step``: the telemetry's
-        ``param_norm``)."""
+        ``param_norm``). ``d_rows`` are the sparse tables' row gradients
+        at ``rows`` where the caller has them (summed over a mesh)."""
         if not self.sparse_parts:
             return optim_lib.step(self.optimizer, grads, opt_state, params,
                                   pred, norm=norm, apply=apply)
@@ -392,10 +625,10 @@ class TrainEngine:
             table, d_table = params[at], grads[at]
             n_rows = table.shape[0]
             # the sentinel pads read the last row, and are skipped
-            d_rows = torch.index_select(
-                d_table, 0, torch.clamp(rows[key], max=n_rows - 1))
+            d = (d_rows[key] if d_rows is not None else torch.index_select(
+                d_table, 0, torch.clamp(rows[key], max=n_rows - 1)))
             done = sparse_adamw_update(
-                table, opt_state["sparse"][key], rows[key], d_rows,
+                table, opt_state["sparse"][key], rows[key], d,
                 pred=pred, norm=norm, apply=apply, **self.sparse_kwargs)
             sparse[key] = done[1]
             if norm:
@@ -410,15 +643,18 @@ class TrainEngine:
         return self._update(opt_state, self.params, _grads(self.params),
                             self._sparse_rows(batch), None)
 
-    def _telemetry_out(self, out, grads, opt_state, sumsq) -> None:
+    def _telemetry_out(self, out, grads, checked, opt_state, sumsq,
+                       params) -> None:
         """Add the step's telemetry to ``out``: ``grad_norm`` of ``grads``
-        (which the update reads and leaves), ``param_norm``, the root of
-        ``sumsq`` (the update's own sum of squares of the parameters it
-        would write under the guard), and the injected ``lr`` (a copy)
-        where the state has one (the update leaves it as it is)."""
+        (which the update reads and leaves; on a mesh the summed
+        ``checked``), ``param_norm``, the root of ``sumsq`` (the update's
+        own sum of squares of the parameters it would write under the
+        guard, made global over ``model``), and the injected ``lr`` (a
+        copy) where the state has one (the update leaves it as it is)."""
         with torch.no_grad():
-            out["grad_norm"] = optim_lib.global_norm(grads)
-            out["param_norm"] = torch.sqrt(sumsq).float()
+            out["grad_norm"] = self._grad_norm(grads, checked)
+            out["param_norm"] = torch.sqrt(
+                self._param_sumsq(sumsq, params)).float()
             lr = optim_lib.get_injected_lr(opt_state)
             if lr is not None:
                 out["lr"] = lr.clone()
@@ -430,20 +666,26 @@ class TrainEngine:
         for p in self.params:
             p.grad = None
         loss = self.model.compute_loss(batch)
+        if self.mesh is not None:
+            loss = loss * self._loss_weight(batch)
         loss.backward()
         grads = _grads(self.params)
-        rows = self._sparse_rows(batch)
-        out = {"loss": loss.detach()}
+        rows = (self._sparse_rows(batch) if self.mesh is None
+                else self._union_rows(batch))
+        loss, d_rows, checked = self._reduce(loss.detach(), grads, rows)
+        out = {"loss": loss}
         ok = None
         if self.nonfinite_guard:
-            ok = all_finite(out["loss"], grads)
+            ok = all_finite(out["loss"], checked)
             out["skipped"] = ~ok
         new = self._update(opt_state, self.params, grads, rows, ok,
                            norm=self.telemetry,
-                           apply=ok if self.telemetry else None)
+                           apply=ok if self.telemetry else None,
+                           d_rows=d_rows)
         if self.telemetry:
             new, sumsq = new
-            self._telemetry_out(out, grads, new, sumsq)
+            self._telemetry_out(out, grads, checked, new, sumsq,
+                                self.params)
         if ok is None:
             opt_state = new
         else:
@@ -465,29 +707,36 @@ class TrainEngine:
         frozen replica reports its would-be update while its parameters,
         moments and count stay as they were (``optim.step``'s norm
         mode)."""
-        rows = self._sparse_rows(batch)
+        if self.mesh is None:
+            rows, weight = self._sparse_rows(batch), None
+        else:
+            rows, weight = self._union_rows(batch), self._loss_weight(batch)
         outs = []
         for r, views in enumerate(self._views):
             for v in views:
                 v.grad = None
             loss = call_with(self.model, self.names, views, "compute_loss",
                              batch)
+            if weight is not None:
+                loss = loss * weight
             loss.backward()
             grads = _grads(views)
-            out = {"loss": loss.detach()}
+            loss, d_rows, checked = self._reduce(loss.detach(), grads, rows)
+            out = {"loss": loss}
             pred, ok = self.active[r], None
             if self.nonfinite_guard:
-                ok = all_finite(out["loss"], grads)
+                ok = all_finite(out["loss"], checked)
                 # a frozen replica attempted no update: not skipped
                 out["skipped"] = ~ok & pred
                 pred = pred & ok
             state_r = tree_map(lambda t, r=r: t[r], opt_state)
             new = self._update(state_r, views, grads, rows, pred,
                                norm=self.telemetry,
-                               apply=ok if self.telemetry else None)
+                               apply=ok if self.telemetry else None,
+                               d_rows=d_rows)
             if self.telemetry:
                 new, sumsq = new
-                self._telemetry_out(out, grads, new, sumsq)
+                self._telemetry_out(out, grads, checked, new, sumsq, views)
             tree_copy_(state_r, new)
             for v in views:
                 v.grad = None

@@ -36,8 +36,10 @@ class PreemptionHandler:
     """
 
     def __init__(self,
-                 signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT)):
+                 signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT),
+                 group=None):
         self.should_stop = False
+        self.group = group
         self._prev = {}
         for sig in signals:
             self._prev[sig] = signal.signal(sig, self._handle)
@@ -45,6 +47,22 @@ class PreemptionHandler:
     def _handle(self, signum, frame):
         del signum, frame
         self.should_stop = True
+
+    def stop_requested(self) -> bool:
+        """Whether any rank was signalled: ``should_stop`` reduced with a
+        max over ``group`` (a host-side gloo group; every rank calls this
+        at the same step, so all of them stop at that step and none waits
+        in a collective the others left). Without a group, this process's
+        own flag."""
+        if self.group is None:
+            return self.should_stop
+        import torch
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(self.should_stop)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        self.should_stop = bool(flag.item())
+        return self.should_stop
 
     def restore(self):
         for sig, prev in self._prev.items():

@@ -1,5 +1,5 @@
 """Trainer: the paper's Listing-1 entry point, port of
-``repro.train.trainer`` (the mesh waits for the distributed slice).
+``repro.train.trainer``.
 
     trainer = Trainer(optimizer=adamw(0.003), epochs=50)
     history = trainer.train(model, train_loader, val_loader)
@@ -41,6 +41,19 @@ The run contract of a long run:
   finished replica freezes in place through the engine's active mask while
   the others train on), records carry per-replica lists, and checkpoints
   hold the R-stacked trees (``select_replica`` extracts any run).
+* **Meshes** (``mesh``, one process per rank, see
+  :mod:`repro_torch.launch.mesh`): the engine places the model on the
+  mesh and each rank trains on its rows of every global batch (the batch
+  size must divide by the data-parallel size, and ``drop_last=False`` is
+  refused, as in JAX). Validation runs each rank on its rows; a batch the
+  data axes do not divide (the ``drop_last=False`` tail) goes whole to
+  data rank 0, and the metric sums are all-reduced over ``data`` once at
+  the end. Every host decision (early stopping from the reduced metrics,
+  checkpoint steps, the preemption flag, reduced with a max over the
+  world's gloo group) is the same on every rank; only rank 0 logs, writes
+  checkpoints (the row shards gathered to it) and profiles. A checkpoint
+  holds full tensors, so one written by a world of N restores onto a world
+  of M, each leaf cut to its rank's block (elastic restore).
 
 Observability (:mod:`repro_torch.obs`): the epoch's losses go through one
 :class:`~repro_torch.obs.TelemetryDrain`, fed each chunk's staged payload
@@ -69,6 +82,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.metrics import (ConditionalPerplexity, LogLikelihood,
                                       MultiMetric, Perplexity)
@@ -81,7 +95,8 @@ from repro_torch.train.checkpoints import CheckpointManager
 from repro_torch.convert import param_path
 from repro_torch.train.engine import TrainEngine, call_with
 from repro_torch.train.fault_tolerance import PreemptionHandler, StepWatchdog
-from repro_torch.tree import flatten_with_paths, nest, tree_copy_, unnest
+from repro_torch.tree import (flatten_with_paths, nest, tree_copy_,
+                              tree_leaves, unnest)
 
 #: Models whose evaluation graphs a Trainer keeps (least recently used
 #: first out), as the JAX Trainer bounds its cache of compiled eval steps.
@@ -189,8 +204,14 @@ class Trainer:
                  nonfinite_guard: bool = False,
                  step_budget_seconds: Optional[float] = None,
                  telemetry: bool = False, recorder=None, obs_every: int = 1,
-                 profile_steps=None, profile_dir: Optional[str] = None):
+                 profile_steps=None, profile_dir: Optional[str] = None,
+                 mesh=None):
         self.optimizer = optimizer
+        self.mesh = mesh
+        # only rank 0 of a mesh logs, writes checkpoints and profiles
+        self.lead = mesh is None or dist.get_rank() == 0
+        if not self.lead:
+            log_fn = _silent
         self.epochs = epochs
         self.patience = patience
         self.seed = seed
@@ -244,10 +265,14 @@ class Trainer:
         if where != {self.device.type}:
             raise ValueError(f"model parameters on {sorted(where)}, trainer "
                              f"runs on {self.device}")
+        if self.mesh is not None and self.mesh.device_type != \
+                self.device.type:
+            raise ValueError(f"a {self.mesh.device_type} mesh for a trainer "
+                             f"on {self.device}")
 
     def _make_engine(self, model) -> TrainEngine:
         return TrainEngine(model, self.optimizer,
-                           chunk_batches=self.chunk_batches,
+                           chunk_batches=self.chunk_batches, mesh=self.mesh,
                            sparse_tables=self.sparse_tables,
                            sparse_table_kwargs=self.sparse_table_kwargs,
                            replicas=self.replicas,
@@ -292,9 +317,9 @@ class Trainer:
         resume_accum = None
         history: List[Dict[str, Any]] = []
         if resume and self.ckpt and self.ckpt.latest_step() is not None:
+            live_tree = {"params": state.params, "opt_state": state.opt_state}
             arrays, aux, _ = self.ckpt.restore()
-            _load_arrays({"params": state.params,
-                          "opt_state": state.opt_state}, arrays)
+            _load_arrays(live_tree, arrays, engine.shardings(live_tree))
             state.epoch = int(aux["epoch"])
             state.global_step = int(aux["global_step"])
             resumed_early_stop = aux.get("early_stop")
@@ -309,8 +334,20 @@ class Trainer:
                 train_loader.load_state_dict(aux["loader"])
             self.log_fn(f"[trainer] resumed at epoch={state.epoch} "
                         f"step={state.global_step}")
+        dp = engine.data_parallel_size()
+        batch_size = getattr(train_loader, "batch_size", None)
+        if dp > 1 and batch_size is not None and batch_size % dp:
+            raise ValueError(
+                f"batch_size {batch_size} is not divisible by the "
+                f"{dp}-way data-parallel mesh")
+        if dp > 1 and getattr(train_loader, "drop_last", True) is False:
+            raise ValueError(
+                "data-parallel training requires drop_last=True: the "
+                "tail batch generally cannot be split across the "
+                f"{dp}-way data axis (same rule as multi-host streaming)")
 
-        preempt = PreemptionHandler() if self.handle_preemption else None
+        preempt = (PreemptionHandler(group=self._host_group())
+                   if self.handle_preemption else None)
         watchdog = (StepWatchdog(
             self.step_budget_seconds,
             on_violation=lambda step, sec: self.log_fn(
@@ -322,7 +359,7 @@ class Trainer:
         profile = (ProfileWindow(*self.profile_steps,
                                  log_dir=self.profile_dir or "profile",
                                  recorder=self.recorder)
-                   if self.profile_steps else None)
+                   if self.profile_steps and self.lead else None)
         if R is None:
             best_val, bad_epochs = float("inf"), 0
         else:
@@ -383,7 +420,8 @@ class Trainer:
                 # batch (the staging thread itself has run ahead).
                 items = iter(DevicePrefetcher(
                     train_loader, device=self.device,
-                    chunk_batches=engine.chunk_batches))
+                    chunk_batches=engine.chunk_batches,
+                    shard=engine.batch_shard()))
                 try:
                     with rec.span("epoch", epoch=state.epoch):
                         for chunk, loader_state, n in items:
@@ -412,7 +450,7 @@ class Trainer:
                                             and prev_step // every
                                             < state.global_step // every)
                             preempted = (preempt is not None
-                                         and preempt.should_stop)
+                                         and preempt.stop_requested())
                             if save_now or (preempted and self.ckpt):
                                 # A mid-epoch checkpoint's accumulators must
                                 # cover exactly the batches its loader cursor
@@ -422,7 +460,7 @@ class Trainer:
                                 pending = None
                                 with rec.span("checkpoint",
                                               step=state.global_step):
-                                    self._save(state, train_loader,
+                                    self._save(engine, state, train_loader,
                                                loader_state,
                                                epoch_accum=acc.aux(),
                                                history=history)
@@ -515,7 +553,8 @@ class Trainer:
                     # End of epoch: the loader's cursor is at the next
                     # epoch's start, and a fresh epoch has no accumulators.
                     with rec.span("checkpoint", step=state.global_step):
-                        self._save(state, train_loader, history=history)
+                        self._save(engine, state, train_loader,
+                                   history=history)
                 if stop_now:
                     self.log_fn(f"[trainer] early stop at epoch {state.epoch}"
                                 if R is None else
@@ -531,6 +570,15 @@ class Trainer:
                 profile.close(state.global_step)
             if preempt is not None:
                 preempt.restore()
+
+    def _host_group(self):
+        """The world's gloo group when a mesh spans more than one rank
+        (the host's flags are reduced there), else None."""
+        if self.mesh is None or dist.get_world_size() == 1:
+            return None
+        from repro_torch.launch.mesh import host_group
+
+        return host_group()
 
     def _eval_step(self, model) -> "_EvalStep":
         """The cached :class:`_EvalStep` of ``model``; the entry goes when
@@ -567,6 +615,11 @@ class Trainer:
         ``params`` (a JAX-shaped tree of tensors) evaluates other
         parameters than the model's own; with ``replicas=R`` it is a
         sweep's R-stacked tree, and every metric comes back as an R-list.
+
+        On a mesh each rank runs its rows of every batch (the whole of a
+        batch the data axes do not divide on data rank 0, and nothing on
+        the others), and the metric sums are all-reduced over ``data``
+        once, before they are read.
         """
         self._check_device(model)
         step = self._eval_step(model)
@@ -578,19 +631,35 @@ class Trainer:
         else:
             runs = None if params is None else [unnest(paths, params)]
         metrics, state = step.metrics, None
+        shard = None
+        if self.mesh is not None:
+            from repro_torch.distrib.shardings import (data_parallel_index,
+                                                       data_parallel_size)
+
+            shard = (data_parallel_index(self.mesh),
+                     data_parallel_size(self.mesh))
         for chunk, _, _ in DevicePrefetcher(loader, device=self.device,
-                                            chunk_batches=self.chunk_batches):
+                                            chunk_batches=self.chunk_batches,
+                                            shard=shard):
             if state is None:
                 positions = chunk["positions"].shape[2]
                 state = (metrics.init_state(positions, self.device)
                          if runs is None else
                          [metrics.init_state(positions, self.device)
                           for _ in runs])
-            state = update(model, state, chunk, runs)
+            if chunk["positions"].shape[1]:  # this rank's rows: maybe none
+                state = update(model, state, chunk, runs)
         if state is None:
             raise ValueError(
                 "evaluation loader produced no batches — dataset smaller than "
                 "batch_size with drop_last=True? Pass drop_last=False.")
+        if self.mesh is not None:
+            from repro_torch.distrib.collectives import axes_group
+            from repro_torch.distrib.shardings import DATA_AXES
+
+            group = axes_group(self.mesh, DATA_AXES(self.mesh))
+            for t in tree_leaves(state):
+                dist.all_reduce(t, group=group)
         states = [state] if runs is None else state
         names = list(metrics.metrics)
         tensors = [metrics.compute(st)[k] for st in states for k in names]
@@ -633,13 +702,17 @@ class Trainer:
                              params=params, replicas=replicas)
 
     # -- internals -------------------------------------------------------------------
-    def _save(self, state: TrainState, loader, loader_state=None,
+    def _save(self, engine, state: TrainState, loader, loader_state=None,
               epoch_accum=None, history=None):
         if loader_state is None:
             get_state = getattr(loader, "state_dict", lambda: None)
             loader_state = get_state()
-        self.ckpt.save(state.global_step,
-                       {"params": state.params, "opt_state": state.opt_state},
+        # row shards gathered to full tensors (every rank takes part)
+        tree = engine.gathered({"params": state.params,
+                                "opt_state": state.opt_state})
+        if not self.lead:
+            return
+        self.ckpt.save(state.global_step, tree,
                        aux={"epoch": state.epoch,
                             "global_step": state.global_step,
                             "loader": loader_state,
@@ -649,12 +722,22 @@ class Trainer:
                             "history": history or []})
 
 
+def _silent(*_args, **_kwargs) -> None:
+    return None
+
+
 @torch.no_grad()
-def _load_arrays(live, arrays: Dict[str, np.ndarray]) -> None:
+def _load_arrays(live, arrays: Dict[str, np.ndarray],
+                 shardings=None) -> None:
     """Copy a checkpoint's flat ``{path: array}`` into the tensors of
-    ``live`` in place (the graphs keep their addresses). Raises on a leaf
-    the checkpoint lacks."""
+    ``live`` in place (the graphs keep their addresses), each cut to this
+    rank's block by its sharding where ``shardings`` (a tree like
+    ``live``) is given. Raises on a leaf the checkpoint lacks."""
+    blocks = dict(flatten_with_paths(shardings)) if shardings else {}
     for key, dst in flatten_with_paths(live):
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        dst.copy_(torch.from_numpy(np.asarray(arrays[key])))
+        arr = np.asarray(arrays[key])
+        if key in blocks:
+            arr = blocks[key].local(arr)
+        dst.copy_(torch.from_numpy(np.array(arr)))
