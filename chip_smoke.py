@@ -309,6 +309,29 @@ Phases, each printing JSON lines:
                   card a line says that part did not run. Between them,
                   the launcher with --data-parallel (a world of one) and
                   without, at once in two processes: records to the bit.
+                  Since slice 15 the sparse tables run the route of any
+                  model size (each model rank's block of the union's
+                  rows), and a world of one must replay no NCCL kernel
+                  node.
+19. Slice 15, after every earlier path:
+   lm_mesh        the LM family's sharded forms on a (1, 1) mesh: the
+                  reduced llama3.2-1b and granite-moe configs in float32
+                  through the mesh forms on the CPU port (a gloo world of
+                  one) and on the card (NCCL), logits, loss, gradients, a
+                  step, prefill, plain and flash decode at 1e-5
+                  (lm_mesh_cpu_vs_gpu); llama3.2-1b at FULL width, 4 steps
+                  with explicit_row_parallel off and on against the lm
+                  phase's run without a mesh (losses within 2e-2,
+                  tokens/s, peak, what the FSDP gathers copy);
+                  granite-moe's capacity-bounded MoE (its losses fall) and
+                  at capacity factor 32 against the dense oracle (within
+                  2e-2); llama's decode against a seeded cache of the most
+                  rows that fit, without a mesh, plain and with flash
+                  decoding (ms a token, logits within 2e-2 relative L2);
+                  and, with several cards, a (1, N) world (llama's step
+                  and flash decode with tensor parallelism, the DBN's
+                  sparse tables on model = N) against the world of one;
+                  with one card a line says that part did not run.
 
 Every phase that drives a path sets every kernel's launch count to 0 just
 before it and reads the counts just after; they must be exact (where
@@ -6206,6 +6229,11 @@ def _lm_run(arch, card):
         losses.append(float(loss))
     counts = check_counts(f"lm {arch} train", {"adamw": n_tensors * steps})
     _falls(f"lm {arch}", losses)
+    # the no-mesh run the lm_mesh phase holds its mesh forms against
+    _KEPT[f"lm_{arch}"] = {"losses": losses, "step_ms": ms,
+                           "tokens_per_s": batch * LM_TRAIN_SEQ
+                           / (float(np.median(ms[1:])) / 1e3),
+                           **_peak_gb()}
     # one profiled step (llama3.2-1b's: processing a larger trace costs
     # the smoke tens of seconds)
     profiled = (_step_profile(lambda: step(params, state, data))
@@ -6833,7 +6861,7 @@ def phase_distrib(card, data, steps=8):
         losses = [[r["train_loss"] for r in run["history"]]
                   for run in (a, b)]
         if not params_equal or losses[0] != losses[1] or \
-                a["launches"] != b["launches"]:
+                a["launches"] != b["launches"] or b["nccl_nodes"]:
             raise AssertionError(f"distrib {kind}: the world of one is not "
                                  f"the run without a mesh: losses {losses}, "
                                  f"launches {a['launches']} "
@@ -6852,6 +6880,538 @@ def phase_distrib(card, data, steps=8):
     _multi_card(card, data, steps)
     torch.distributed.destroy_process_group()
     emit("distrib_done", card=card, seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
+# slice 15: the LM family's sharded forms, sparse tables over 'model'
+# ---------------------------------------------------------------------------
+
+#: lm_mesh's runs at FULL width: train steps (llama3.2-1b and granite at
+#: the lm phase's global batch), decode steps against a random cache
+LM_MESH_STEPS, LM_MESH_DECODE_STEPS = 4, 4
+#: JAX's own bfloat16 bound on the sharded forms (tests/test_archs.py):
+#: losses apart, and the decode logits' relative L2
+LM_MESH_TOL = 2e-2
+
+
+def _rows_of(mesh, tensors):
+    """This rank's rows of each global tensor (split over the data axes)."""
+    from repro_torch.distrib.shardings import DATA_AXES, NamedSharding, P
+
+    return {k: NamedSharding(mesh, P(DATA_AXES(mesh))).local(v).contiguous()
+            for k, v in tensors.items()}
+
+
+def _lm_mesh_train(arch, mesh, **changes):
+    """``LM_MESH_STEPS`` train steps of ``arch`` at FULL width (``changes``
+    on its config) from the lm phase's parameters and batch (LM_SEED), on
+    ``mesh``'s shards and rows (None: no mesh): losses, ms a step,
+    tokens/s, peak memory and the adamw launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(registry.get_arch(arch).FULL, **changes)
+    batch = LM_RUNS[arch][1]
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    _free_card()
+    params = lm.init_params(cfg, device=device, seed=LM_SEED)
+    data = _lm_batch(cfg, batch, LM_TRAIN_SEQ, gen)
+    if mesh is not None:
+        params = lm.place_params(cfg, params, mesh)
+        data = _rows_of(mesh, data)
+    n_tensors = len(list(params.parameters()))
+    opt = optim.adamw(3e-4, moment_dtype=cfg.opt_dtype)
+    state = opt.init(list(params.parameters()))
+    step = lm.make_train_step(cfg, opt, mesh)
+    _free_card()
+    reset_counts()
+    losses, ms = [], []
+    for _ in range(LM_MESH_STEPS):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, data)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = check_counts(f"lm_mesh {arch} {changes}",
+                          {"adamw": n_tensors * LM_MESH_STEPS})
+    out = {"losses": losses, "step_ms": ms,
+           "tokens_per_s": batch * LM_TRAIN_SEQ
+           / (float(np.median(ms[1:])) / 1e3), "launches": counts,
+           **_peak_gb()}
+    del params, state, data, step, opt
+    _free_card()
+    return out
+
+
+def _losses_apart(what, got, want, tol=LM_MESH_TOL):
+    """The largest |got - want| over the common steps, held to ``tol``."""
+    n = min(len(got), len(want))
+    apart = max(abs(a - b) for a, b in zip(got[:n], want[:n]))
+    if not apart <= tol:
+        raise AssertionError(f"{what}: losses {got} vs {want}")
+    return apart
+
+
+def _unit_gathers(cfg):
+    """What one rank's FSDP gathers copy in a train step: a unit's weights
+    (in ``param_dtype``), gathered in the forward and again in its
+    recomputed forward, every microbatch, and reduce-scattered as much
+    back in the backward; plus ``embed`` and ``lm_head`` once a
+    microbatch."""
+    import torch
+
+    from repro_torch.models.lm.transformer import _stack_shapes
+
+    item = torch.empty((), dtype=cfg.param_dtype).element_size()
+    unit = sum(int(np.prod(shape)) for stack in _stack_shapes(cfg).values()
+               for shape in stack.values())
+    head = 2 * cfg.padded_vocab * cfg.d_model
+    per_step = cfg.microbatches * (2 * cfg.n_units * unit + head) * item
+    return {"unit_weights_gb": unit * item / 1e9,
+            "gathered_gb_per_step": per_step / 1e9,
+            "reduce_scattered_gb_per_step": per_step / 1e9}
+
+
+def _rel_l2(got, want):
+    import torch
+
+    got, want = got.detach().float(), want.detach().float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want).clamp_min(1e-30))
+
+
+#: what the mesh decode forms' logits are held to against no mesh
+#: (relative L2 over the real vocabulary), by the run's type. At a world of
+#: one the plain form runs no mesh's operations on tensors laid out as no
+#: mesh's, so it is held to the bit in both types. Flash decoding divides
+#: its partial sums instead of taking a softmax: in float32 that is
+#: rounding apart (2.1e-6 to 2.9e-6 on the H100), held at 1e-4, the gate.
+#: In bfloat16 any float32 rounding apart flips some of the attention's
+#: bfloat16 outputs and the flips grow over 16 layers: 2.1e-2 to 2.2e-2
+#: (an H100 80GB HBM3 at 700 W, 34 rows x 32,772), past JAX's 2e-2
+#: (tests/test_archs.py:177). So the bfloat16 flash line is a smoke, not a
+#: hold on the function: 5e-2, JAX's bound for flash decoding in bfloat16
+#: (tests/test_archs.py:223), catches a gross fault only.
+LM_MESH_DECODE_TOL = {"float32": {"plain": 0.0, "flash": 1e-4},
+                      "bfloat16": {"plain": 0.0, "flash": 5e-2}}
+
+
+def _lm_mesh_decode(mesh, card, dtype="bfloat16", rows=None,
+                    prefix=LM_PREFILL_SEQ):
+    """llama3.2-1b at FULL width in ``dtype``: a cache of ``rows`` (default
+    the most that fit, ``_lm_serve_rows``) at ``prefix`` +
+    ``LM_MESH_DECODE_STEPS`` positions, filled with seeded values up to
+    ``prefix``, decoded ``LM_MESH_DECODE_STEPS`` tokens without a mesh, on
+    the mesh plain and with flash decoding: ms a token each, and each mesh
+    form's logits against no mesh (relative L2 over the real vocabulary,
+    held to ``LM_MESH_DECODE_TOL``). The line is printed before the
+    hold."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    kind = getattr(torch, dtype)
+    cfg = dataclasses.replace(registry.get_arch("llama3.2-1b").FULL,
+                              dtype=kind, param_dtype=kind)
+    device = torch.device("cuda")
+    _free_card()
+    full = lm.init_params(cfg, device=device, seed=LM_SEED)
+    placed = lm.place_params(cfg, full, mesh)
+    reckoning = None
+    if rows is None:
+        _, rows, reckoning = _lm_serve_rows(cfg)
+    seq = prefix + LM_MESH_DECODE_STEPS
+    cache = lm.init_cache(cfg, rows, seq, device=device, mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    for k in cache:  # seeded keys and values, layer by layer
+        for u in range(cfg.n_units):
+            cache[k][u, :, :, :prefix].normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (LM_MESH_DECODE_STEPS, rows, 1),
+                           generator=gen, device=device, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    out, logits = {}, {}
+    for form, params, m, c in (
+            ("no_mesh", full, None, cfg), ("plain", placed, mesh, cfg),
+            ("flash", placed, mesh,
+             dataclasses.replace(cfg, flash_decode=True))):
+        step = lm.make_decode_step(c, m)
+        reset_counts()
+        ms, got = [], []
+        for i in range(LM_MESH_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = step(params, cache, tokens[i], prefix + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got.append(lg[..., :cfg.vocab].float().clone())
+        check_counts(f"lm_mesh decode {form}", {})
+        _check_lm_logits(f"lm_mesh decode {form}", cfg, lg, rows)
+        logits[form] = got
+        out[form] = {"decode_ms": ms,
+                     "decode_ms_per_token": float(np.median(ms[1:]))}
+    for form in ("plain", "flash"):
+        out[form].update(
+            rel_l2_vs_no_mesh=[_rel_l2(a, b) for a, b in zip(
+                logits[form], logits["no_mesh"])],
+            logits_bits_equal_no_mesh=all(torch.equal(a, b) for a, b in zip(
+                logits[form], logits["no_mesh"])),
+            tol=LM_MESH_DECODE_TOL[dtype][form])
+    out.update(dtype=dtype, rows=rows, cache_tokens=seq, peak=_peak_gb(),
+               cache_gb=2 * cache["k"].numel() * cache["k"].element_size()
+               / 1e9, reckoning=reckoning)
+    del full, placed, cache, logits
+    _free_card()
+    emit("lm_mesh", run="decode", arch="llama3.2-1b", card=card, **out)
+    for form in ("plain", "flash"):
+        if not max(out[form]["rel_l2_vs_no_mesh"]) <= out[form]["tol"]:
+            raise AssertionError(f"lm_mesh decode {dtype} {form}: "
+                                 f"{out[form]} against no mesh")
+
+
+def _row_parallel_gemm(card):
+    """The partial product of the row-parallel ``wo`` and ``w_down`` at
+    llama3.2-1b's FULL width, one train microbatch's tokens, the whole
+    contraction (a model axis of N takes 1/N of it): ``sharded._MatmulF32``
+    (bfloat16 operands, float32 result) against the float32 GEMM of the
+    upcast operands and the bfloat16 GEMM of the explicit form, ms each
+    (CUDA events, TF32 off), forward and backward against the upcast
+    form's autograd, by relative L2. The forward is held at 1e-4: two
+    float32 sums of 8,192 products in different orders (9.2e-6 apart on
+    an H100), where a bfloat16 result would be ~2e-3 apart; the
+    gradients, bfloat16 GEMMs against the float32 GEMM cast down, at
+    1e-2, one bfloat16 rounding."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import sharded
+
+    cfg = registry.get_arch("llama3.2-1b").FULL
+    batch, M = LM_RUNS["llama3.2-1b"][1], cfg.microbatches
+    tokens = batch * LM_TRAIN_SEQ // M
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    out = {"tokens": tokens}
+    for name, K in (("wo", cfg.n_heads * cfg.head_dim), ("w_down", cfg.d_ff)):
+        x = torch.randn(tokens, K, device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        w = (torch.randn(K, cfg.d_model, device="cuda", generator=gen)
+             * K ** -0.5).to(torch.bfloat16)
+        x.requires_grad_(True)
+        w.requires_grad_(True)
+        got = sharded._MatmulF32.apply(x, w)
+        gy = torch.randn_like(got).to(torch.bfloat16).float()
+        gx, gw = torch.autograd.grad(got, (x, w), gy)
+        want = x.float() @ w.float()
+        wx, ww = torch.autograd.grad(want, (x, w), gy)
+        errs = {"forward": _rel_l2(got, want), "grad_x": _rel_l2(gx, wx),
+                "grad_w": _rel_l2(gw, ww)}
+        with torch.no_grad():
+            ms = {"f32_out": time_ms(lambda: sharded._MatmulF32.apply(x, w),
+                                     iters=20, warmup=3),
+                  "upcast": time_ms(lambda: x.float() @ w.float(), iters=20,
+                                    warmup=3),
+                  "bf16": time_ms(lambda: x @ w, iters=20, warmup=3)}
+        out[name] = {"shape": [tokens, K, cfg.d_model], "ms": ms,
+                     "rel_l2": errs}
+        del x, w, got, gy, gx, gw, want, wx, ww
+        if not (errs["forward"] <= 1e-4 and errs["grad_x"] <= 1e-2
+                and errs["grad_w"] <= 1e-2):
+            raise AssertionError(f"lm_mesh row-parallel GEMM {name}: {out}")
+    _free_card()
+    emit("lm_mesh", run="row_parallel_gemm", arch="llama3.2-1b", card=card,
+         **out)
+
+
+#: the reduced configs the card holds to the CPU port's mesh forms, float32
+LM_MESH_REDUCED = ("llama3.2-1b", "granite-moe-1b-a400m")
+
+
+def _lm_mesh_forms(mesh, device):
+    """The reduced configs in float32 through the mesh forms on ``device``
+    (a world of one): logits, loss, every gradient, one AdamW step, the
+    prefill's logits and cache, two plain decode steps and a flash one.
+    The MoE at capacity factor n_experts, where no cut is left to
+    rounding. Returns ``{arch: [tensors on the CPU]}``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.convert import export_params, load_jax_params
+    from repro_torch.models import lm
+
+    out = {}
+    dev = torch.device(device)
+    for arch in LM_MESH_REDUCED:
+        cfg = registry.get_arch(arch).reduced()
+        cfg = dataclasses.replace(
+            cfg, dtype=torch.float32, param_dtype=torch.float32,
+            capacity_factor=float(max(cfg.n_experts, 1)))
+        tree = export_params(lm.init_params(cfg, device="cpu", seed=7))
+        rng = np.random.default_rng(7)
+        data = {"tokens": torch.from_numpy(rng.integers(
+                    0, cfg.vocab, (4, 24)).astype(np.int32)).to(dev),
+                "targets": torch.from_numpy(rng.integers(
+                    -1, cfg.vocab, (4, 24)).astype(np.int32)).to(dev)}
+
+        def fresh():
+            p = lm.init_params(cfg, device=dev, seed=8)
+            load_jax_params(p, tree)
+            return lm.place_params(cfg, p, mesh)
+
+        params = fresh()
+        res = [lm.forward(cfg, params, data["tokens"], mesh)]
+        loss = lm.lm_loss(cfg, params, data, mesh)
+        res += [loss, *torch.autograd.grad(loss, list(params.parameters()))]
+        stepped = fresh()
+        opt = optim.adamw(1e-3, eps=1e-2)
+        _, _, sl = lm.make_train_step(cfg, opt, mesh)(
+            stepped, opt.init(list(stepped.parameters())), data)
+        res += [sl, *stepped.parameters()]
+        pl, cache = lm.make_prefill_step(cfg, mesh)(params,
+                                                    data["tokens"][:2])
+        res += [pl[..., :cfg.vocab], cache["k"], cache["v"]]
+        full = lm.init_cache(cfg, 2, 32, device=dev, mesh=mesh)
+        for k in full:
+            full[k][:, :, :, :24] = cache[k]
+        for i, c in enumerate((cfg, cfg, dataclasses.replace(
+                cfg, flash_decode=True))):
+            dl, full = lm.make_decode_step(c, mesh)(
+                params, full, data["tokens"][2:, i:i + 1], 24 + i)
+            res += [dl[..., :cfg.vocab], full["k"].clone(),
+                    full["v"].clone()]
+        out[arch] = [t.detach().cpu() for t in res]
+    return out
+
+
+
+#: the world over several cards, and the world of one it is held to:
+#: llama3.2-1b's train steps at the lm phase's batch (its microbatches) with
+#: tensor parallelism over ``model``, one flash decoding step against a
+#: seeded cache of these rows and positions, and the paper-width DBN with
+#: sparse tables row-sharded over ``model``, one epoch of these steps
+LM_TP = {"steps": 2, "decode_rows": 8, "decode_seq": 4096, "dbn_steps": 8}
+
+
+def _lm_tp_forms(mesh, log):
+    """``LM_TP``'s runs on ``mesh`` (a world of one, or ``(1, N)`` over N
+    cards): llama3.2-1b's losses, the flash decoding step's logits over
+    the real vocabulary, and the DBN's parameters after its epoch (row
+    shards gathered), on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.data import ClickLogLoader
+    from repro_torch.distrib.shardings import DATA_AXES, NamedSharding, P
+    from repro_torch.models import lm
+    from repro_torch.train import TrainEngine, Trainer
+
+    cfg = registry.get_arch("llama3.2-1b").FULL
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    params = lm.place_params(cfg, lm.init_params(cfg, device=device,
+                                                 seed=LM_SEED), mesh)
+    data = _rows_of(mesh, _lm_batch(cfg, LM_RUNS["llama3.2-1b"][1],
+                                    LM_TRAIN_SEQ, gen))
+    opt = optim.adamw(3e-4, moment_dtype=cfg.opt_dtype)
+    state = opt.init(list(params.parameters()))
+    step = lm.make_train_step(cfg, opt, mesh)
+    losses = []
+    for _ in range(LM_TP["steps"]):
+        params, state, loss = step(params, state, data)
+        losses.append(float(loss))
+    del state, opt, step, data
+    flash = dataclasses.replace(cfg, flash_decode=True)
+    rows, seq = LM_TP["decode_rows"], LM_TP["decode_seq"]
+    whole = lm.init_cache(flash, rows, seq, device=device)
+    for k in whole:
+        whole[k][:, :, :, :seq - 1].normal_(generator=gen)
+    block = NamedSharding(mesh, P(None, None, DATA_AXES(mesh), "model"))
+    cache = {k: block.local(v).clone() for k, v in whole.items()}
+    del whole
+    tokens = torch.randint(0, cfg.vocab, (rows, 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    logits, _ = lm.make_decode_step(flash, mesh)(
+        params, cache, _rows_of(mesh, {"t": tokens})["t"], seq - 1)
+    logits = logits[..., :cfg.vocab].float().cpu()
+    del params, cache
+    _free_card()
+    model, make_optimizer, sparse, _, _ = _train_spec("dbn_sparse")
+    trainer = Trainer(make_optimizer(), epochs=1, chunk_batches=4,
+                      device="cuda", log_fn=_quiet, mesh=mesh, **sparse)
+    trainer.train(model, ClickLogLoader(log, batch_size=B_MAIN, seed=0))
+    engine = TrainEngine(model, make_optimizer(), mesh=mesh, **sparse)
+    dbn = engine.gathered(dict(zip(engine.names, engine.params)))
+    out = {"llama_losses": losses, "decode_logits": logits,
+           "dbn_params": {n: p.detach().cpu() for n, p in dbn.items()}}
+    del model, trainer, engine, dbn
+    _free_card()
+    return out
+
+
+def _lm_tp_worker(rank, world, port, path, result):
+    """A rank of the ``(1, world)`` mesh over every card: ``_lm_tp_forms``;
+    rank 0 holds them against the world of one's (``path``): llama's
+    losses within ``LM_MESH_TOL``, the decode logits' relative L2 within
+    it, the DBN's parameters at 1e-5."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, world), ("data", "model"))
+    with np.load(os.path.join(os.path.dirname(path), "log.npz")) as f:
+        log = {k: f[k] for k in f.files}
+    got = _lm_tp_forms(mesh, log)
+    if rank == 0:
+        want = torch.load(path)
+        found = {
+            "world": world, "llama_losses": got["llama_losses"],
+            "llama_losses_apart": max(abs(a - b) for a, b in zip(
+                got["llama_losses"], want["llama_losses"])),
+            "decode_rel_l2": _rel_l2(got["decode_logits"],
+                                     want["decode_logits"]),
+            "dbn_params_max_abs_err": max(
+                float((got["dbn_params"][n] - w).abs().max())
+                for n, w in want["dbn_params"].items())}
+        with open(result, "w") as f:
+            json.dump(found, f)
+    dist.destroy_process_group()
+
+
+def _lm_mesh_multi_card(card, mesh, data):
+    """With several cards, a ``(1, N)`` world over all of them against the
+    world of one (``mesh``): llama3.2-1b's step and decode with tensor
+    parallelism, the DBN's sparse tables on ``model`` = N. One card: a
+    line saying it did not run."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        emit("lm_mesh_world", card=card, ran=False,
+             reason="one card: the (1, N) world over several cards did not "
+                    "run (neither a pass nor a failure)")
+        return
+    log = {k: v[:LM_TP["dbn_steps"] * B_MAIN] for k, v in data.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "one.pt")
+        torch.save(_lm_tp_forms(mesh, log), path)
+        np.savez(os.path.join(tmp, "log.npz"), **log)
+        _free_card()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        result = os.path.join(tmp, "world.json")
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_lm_tp_worker,
+                             args=(r, world, port, path, result))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 400
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+        codes = [p.exitcode for p in procs]
+        if alive or any(codes):
+            raise AssertionError(f"lm_mesh world of {world}: exit codes "
+                                 f"{codes}")
+        with open(result) as f:
+            found = json.load(f)
+    if (found["llama_losses_apart"] > LM_MESH_TOL
+            or found["decode_rel_l2"] > LM_MESH_DECODE_TOL["bfloat16"]["flash"]
+            or found["dbn_params_max_abs_err"] > 1e-5):
+        raise AssertionError(f"lm_mesh world of {world}: {found}")
+    emit("lm_mesh_world", card=card, ran=True, **found)
+
+
+def phase_lm_mesh(card, data):
+    """Slice 15, after every earlier path: the LM family's sharded forms
+    on a ``(1, 1)`` mesh under NCCL. The reduced llama and granite configs
+    in float32 through the mesh forms on the CPU port (a gloo world of
+    one, first) and on the card, at 1e-5; llama3.2-1b at FULL width,
+    ``LM_MESH_STEPS`` steps with ``explicit_row_parallel`` off and on
+    against the lm phase's run without a mesh (losses within
+    ``LM_MESH_TOL``, tokens/s, peak, what the FSDP gathers copy);
+    granite-moe's capacity form (its losses fall) and at capacity factor
+    32 against the dense oracle; llama's decode against a seeded cache
+    without a mesh, plain and with flash decoding; the row-parallel
+    matmul's float32 partial products. With several cards, a ``(1, N)``
+    world against the world of one."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    cpu_mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    cpu = _lm_mesh_forms(cpu_mesh, "cpu")
+    dist.destroy_process_group()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    emit("lm_mesh_start", card=card,
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         backend=dist.get_backend())
+    arch = "llama3.2-1b"
+    cfg = registry.get_arch(arch).FULL
+    runs = {"no_mesh": _KEPT.pop(f"lm_{arch}", None)
+            or _lm_mesh_train(arch, None)}
+    want = runs["no_mesh"]["losses"]
+    for erp in (False, True):
+        run = _lm_mesh_train(arch, mesh, explicit_row_parallel=erp)
+        run.update(losses_apart=_losses_apart(
+            f"lm_mesh {arch} explicit_row_parallel={erp}", run["losses"],
+            want), losses_bits_equal=run["losses"] == want[:LM_MESH_STEPS])
+        runs[f"mesh_explicit_row_parallel_{erp}"] = run
+    emit("lm_mesh", run="train", arch=arch, card=card,
+         steps=LM_MESH_STEPS, gathers=_unit_gathers(cfg), **runs)
+    arch = "granite-moe-1b-a400m"
+    runs = {"dense_oracle": _KEPT.pop(f"lm_{arch}", None)
+            or _lm_mesh_train(arch, None)}
+    runs["capacity_1.25"] = _lm_mesh_train(arch, mesh)
+    _falls(f"lm_mesh {arch} capacity", runs["capacity_1.25"]["losses"])
+    lossless = _lm_mesh_train(arch, mesh, capacity_factor=32.0)
+    lossless["losses_apart"] = _losses_apart(
+        f"lm_mesh {arch} capacity 32", lossless["losses"],
+        runs["dense_oracle"]["losses"])
+    runs["capacity_32"] = lossless
+    emit("lm_mesh", run="train", arch=arch, card=card, steps=LM_MESH_STEPS,
+         capacity=registry.get_arch(arch).FULL.capacity_factor, **runs)
+    _lm_mesh_decode(mesh, card, "float32", rows=4, prefix=4096)
+    _lm_mesh_decode(mesh, card)
+    _row_parallel_gemm(card)
+    gpu = _lm_mesh_forms(mesh, "cuda")
+    emit("lm_mesh_cpu_vs_gpu", card=card, max_abs_err={
+        arch: max(_hold_close(f"lm_mesh cpu_vs_gpu {arch}", b, a)
+                  for a, b in zip(cpu[arch], gpu[arch])) for arch in cpu},
+        tensors={arch: len(v) for arch, v in cpu.items()})
+    del cpu, gpu
+    _free_card()
+    _lm_mesh_multi_card(card, mesh, data)
+    dist.destroy_process_group()
+    emit("lm_mesh_done", card=card, seconds=time.perf_counter() - t_phase)
+    torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -6911,6 +7471,9 @@ def main() -> int:
     # Slice 14, after every earlier path: a world of one under NCCL, and
     # a world over every card where there are several.
     phase_distrib(smi, data)
+    # Slice 15, after every earlier path: the LM family's sharded forms on
+    # a mesh (and, with several cards, a world over all of them).
+    phase_lm_mesh(smi, data)
     del data
     # Each kernel's launches in the training run of its path; BST's
     # retrieval bag in its serve phase.

@@ -18,6 +18,12 @@ scatters its full, equal gradient into the rows it owns), the all-gather's
 is the slice of the rank's own rows. ``torch.distributed.nn``'s
 differentiable ``all_reduce`` sums the gradients in its backward, which
 would multiply every table gradient by the model axis's size.
+
+FSDP's gather is the other case: a weight sharded over the data axes is
+gathered for a consumer that differs from data rank to data rank (each
+runs its own rows), so its backward must sum the ranks' gradients and
+cut this rank's block (:class:`AllGatherReduceScatter`); the slicing
+backward of :class:`AllGatherRows` would drop the other ranks' shares.
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ from repro_torch.distrib.shardings import (MODEL_AXIS, axis_index,
 #: fails after this long instead of waiting for ever.
 TIMEOUT = datetime.timedelta(seconds=300)
 
-# (id(mesh), axes) -> this rank's group over those axes
-_AXES_GROUPS: Dict[Tuple[int, Tuple[str, ...]], object] = {}
+# (id(mesh), axes) -> (the mesh, this rank's group over those axes); the
+# mesh kept so that a later mesh at a freed one's id is not taken for it
+_AXES_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple[object, object]] = {}
 
 
 def axes_group(mesh, axes: Sequence[str]):
@@ -47,8 +54,10 @@ def axes_group(mesh, axes: Sequence[str]):
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     key = (id(mesh), axes)
-    if key not in _AXES_GROUPS:
+    if key not in _AXES_GROUPS or _AXES_GROUPS[key][0] is not mesh:
         names = axis_names(mesh)
+        if sorted(axes, key=names.index) != list(axes):
+            raise ValueError(f"axes {axes} out of the mesh's order {names}")
         dims = [names.index(a) for a in axes]
         rest = [d for d in range(len(names)) if d not in dims]
         ranks = mesh.mesh.permute(*rest, *dims)
@@ -59,8 +68,8 @@ def axes_group(mesh, axes: Sequence[str]):
         for row in ranks.reshape(-1, size).tolist():
             group = dist.new_group(row, timeout=TIMEOUT)
             if me in row:
-                _AXES_GROUPS[key] = group
-    return _AXES_GROUPS[key]
+                _AXES_GROUPS[key] = (mesh, group)
+    return _AXES_GROUPS[key][1]
 
 
 class AllReduceSum(torch.autograd.Function):
@@ -96,6 +105,32 @@ class AllGatherRows(torch.autograd.Function):
     def backward(ctx, grad):
         lo, rows = ctx.block
         return grad[lo:lo + rows], None
+
+
+class AllGatherReduceScatter(torch.autograd.Function):
+    """Forward: the blocks of ``group``'s ranks concatenated along ``dim``
+    (rank order), laid out as the unsharded tensor. Backward: the gradient
+    summed over ``group`` and cut to this rank's block, a reduce-scatter
+    (FSDP: each rank's consumer is its own)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((dist.get_world_size(group) * x.shape[0],)
+                          + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        # a weight's layout decides the GEMM the card runs on it
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.movedim(ctx.dim, 0).contiguous()
+        out = grad.new_empty((grad.shape[0] // dist.get_world_size(
+            ctx.group),) + tuple(grad.shape[1:]))
+        dist.reduce_scatter_tensor(out, grad, group=ctx.group)
+        # a parameter's gradient, for kernels that take contiguous tensors
+        return out.movedim(0, ctx.dim).contiguous(), None, None
 
 
 def gather_rows(block: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

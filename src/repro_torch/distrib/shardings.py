@@ -42,6 +42,21 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+class AbstractMesh:
+    """A mesh's axis names and sizes without ranks (JAX's
+    ``AbstractMesh``): what a rule that reads only the mesh's shape takes
+    (``param_specs`` at a production shape, with no world behind it)."""
+
+    def __init__(self, shape, axis_names):
+        self.shape, self.mesh_dim_names = tuple(shape), tuple(axis_names)
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"mesh shape {self.shape} and axis names "
+                             f"{self.mesh_dim_names} differ in length")
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+
 def axis_names(mesh) -> Tuple[str, ...]:
     return tuple(mesh.mesh_dim_names)
 

@@ -1,5 +1,9 @@
 """Decoder-only transformer family (llama3 / phi3 / granite-MoE / llama4),
-port of ``repro.models.lm.transformer``, single-device forms.
+port of ``repro.models.lm.transformer``. This module holds the
+single-device forms; with ``mesh=`` every entry point runs the sharded
+form of :mod:`repro_torch.models.lm.sharded` (tensor parallelism over
+``model``, FSDP over the data axes, the capacity-bounded MoE, flash
+decoding) over this rank's shards.
 
 * **stacked layers**: each layer parameter is stored stacked over units,
   ``(U, ...)``, under the JAX tree's paths (``dense.wq``, ``moe.we_gate``,
@@ -22,16 +26,16 @@ port of ``repro.models.lm.transformer``, single-device forms.
   ``microbatches`` in ``grad_accum_dtype``, in JAX's order.
 
 The train step updates the parameters in place (one fused ``adamw`` launch
-per tensor on the card, over bfloat16 parameters too). ``param_specs``,
-``cache_specs``, the flash-decoding and row-parallel ``shard_map`` forms and
-the sharded MoE wait for the distributed slice; the config keeps their
-fields so that it equals JAX's field by field.
+per tensor on the card, over bfloat16 parameters too). ``LMConfig`` equals
+JAX's field by field, the sharded forms' ``capacity_factor``,
+``explicit_row_parallel``, ``flash_decode`` and ``decode_seq_axes``
+included; the single-device forms read none of the four.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +67,7 @@ class LMConfig:
     d_ff_moe: int = 0
     moe_layer_step: int = 1          # 1 = every layer MoE, 2 = alternate
     n_shared_experts: int = 0        # llama4-style always-on shared expert
+    capacity_factor: float = 1.25    # the sharded MoE's tokens per expert
     # numerics / memory
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.bfloat16
@@ -71,6 +76,9 @@ class LMConfig:
     attn_chunk: int = 1024            # q-block size for chunked attention
     scan_chunks: Optional[int] = None  # two-level remat factor
     grad_accum_dtype: Any = torch.float32  # microbatch grad accumulator
+    explicit_row_parallel: bool = False  # wo / w_down summed in dtype
+    flash_decode: bool = False        # partial-softmax decode on a mesh
+    decode_seq_axes: Tuple[str, ...] = ("model",)  # KV cache seq sharding
     microbatches: int = 1
     max_seq: int = 8192               # decode cache capacity
 
@@ -277,6 +285,30 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(blocks, dim=2)[:, :, :Sq]
 
 
+def _repeat_kv(cfg: LMConfig, t: torch.Tensor) -> torch.Tensor:
+    """(B, S, Hkv, Dh) -> (B, S, H, Dh): each KV head once per query head
+    of its group."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    return t if group == 1 else t.repeat_interleave(group, dim=2)
+
+
+def _decode_softmax(cfg: LMConfig, q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, index: int) -> torch.Tensor:
+    """q (B, S, H, Dh) over the whole cache (B, S_max, Hkv, Dh), query s
+    seeing positions up to ``index + s``: float32 scores, one softmax;
+    (B, H, S, Dh) in ``cfg.dtype``."""
+    S, S_max, Dh = q.shape[1], k_cache.shape[1], cfg.head_dim
+    qt = q.transpose(1, 2)                                # (B, H, S, Dh)
+    kt = _repeat_kv(cfg, k_cache).transpose(1, 2)         # (B, H, S_max, Dh)
+    vt = _repeat_kv(cfg, v_cache).transpose(1, 2)
+    s = torch.einsum("bhqd,bhkd->bhqk", qt.float(), kt.float()) * (Dh ** -0.5)
+    valid = (torch.arange(S_max, device=q.device)[None, :]
+             <= index + torch.arange(S, device=q.device)[:, None])
+    s = s.masked_fill(~valid[None, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vt.float()).to(cfg.dtype)
+
+
 def _attention_block(cfg: LMConfig, lp: Dict[str, torch.Tensor],
                      h: torch.Tensor, positions: torch.Tensor,
                      cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -293,15 +325,11 @@ def _attention_block(cfg: LMConfig, lp: Dict[str, torch.Tensor],
     v = (x @ lp["wv"].to(cfg.dtype)).reshape(B, S, cfg.n_kv_heads, Dh)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    group = cfg.n_heads // cfg.n_kv_heads
-
-    def rep(t):
-        return t if group == 1 else t.repeat_interleave(group, dim=2)
-
     if cache is None:
-        out = _chunked_attention(q.transpose(1, 2), rep(k).transpose(1, 2),
-                                 rep(v).transpose(1, 2), causal=True,
-                                 chunk=cfg.attn_chunk)
+        out = _chunked_attention(q.transpose(1, 2),
+                                 _repeat_kv(cfg, k).transpose(1, 2),
+                                 _repeat_kv(cfg, v).transpose(1, 2),
+                                 causal=True, chunk=cfg.attn_chunk)
         new_entry = {"k": k, "v": v}
     else:
         # decode: write S (=1) new kv at cache_index (dynamic_update_slice,
@@ -311,16 +339,7 @@ def _attention_block(cfg: LMConfig, lp: Dict[str, torch.Tensor],
         start = max(0, min(int(cache_index), S_max - S))
         k_cache[:, start:start + S] = k.to(k_cache.dtype)
         v_cache[:, start:start + S] = v.to(v_cache.dtype)
-        qt = q.transpose(1, 2)                                # (B, H, S, Dh)
-        kt = rep(k_cache).transpose(1, 2)                     # (B, H, S_max, Dh)
-        vt = rep(v_cache).transpose(1, 2)
-        s = torch.einsum("bhqd,bhkd->bhqk", qt.float(), kt.float()) * (Dh ** -0.5)
-        valid = (torch.arange(S_max, device=h.device)[None, :]
-                 <= (int(cache_index)
-                     + torch.arange(S, device=h.device)[:, None]))
-        s = s.masked_fill(~valid[None, None], float("-inf"))
-        p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhqk,bhkd->bhqd", p, vt.float()).to(cfg.dtype)
+        out = _decode_softmax(cfg, q, k_cache, v_cache, int(cache_index))
         new_entry = {"k": k_cache, "v": v_cache}
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * Dh)
     return h + out @ lp["wo"].to(cfg.dtype), new_entry
@@ -383,18 +402,19 @@ def _unit_body(cfg: LMConfig, h, positions, unit_params, collect_kv=False):
     return (h, entries) if collect_kv else h
 
 
-def _run_units(cfg: LMConfig, units, h, positions):
+def _run_units(cfg: LMConfig, units, h, positions, unit_body=None):
     """The unit stack, with JAX's remat: each unit checkpointed, and with
-    ``scan_chunks`` a chunk of checkpointed units checkpointed again."""
+    ``scan_chunks`` a chunk of checkpointed units checkpointed again.
+    ``unit_body(h, positions, unit_params)`` defaults to this module's."""
     remat = cfg.remat and torch.is_grad_enabled()
+    unit = unit_body or functools.partial(_unit_body, cfg)
 
     def body(h, up):
         if remat:
-            return checkpoint(functools.partial(_unit_body, cfg,
-                                                positions=positions,
+            return checkpoint(functools.partial(unit, positions=positions,
                                                 unit_params=up), h,
                               use_reentrant=False)
-        return _unit_body(cfg, h, positions, up)
+        return unit(h, positions=positions, unit_params=up)
 
     def run(h, chunk_units):
         for up in chunk_units:
@@ -419,9 +439,15 @@ def _embed(cfg: LMConfig, params: LMParams, tokens: torch.Tensor):
     return F.embedding(tokens.long(), params.embed).to(cfg.dtype)
 
 
-def forward(cfg: LMConfig, params: LMParams, tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab)."""
+def forward(cfg: LMConfig, params: LMParams, tokens: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab). With ``mesh``: this
+    rank's rows of the batch and of the logits, its vocabulary block where
+    ``lm_head`` is split over ``model`` (see :mod:`.sharded`)."""
+    if mesh is not None:
+        from repro_torch.models.lm import sharded
+
+        return sharded.forward(cfg, params, tokens, mesh)
     S = tokens.shape[1]
     h = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=h.device)
@@ -437,7 +463,14 @@ def _mask_padded_vocab(cfg: LMConfig, logits: torch.Tensor) -> torch.Tensor:
     return logits.masked_fill(~valid, float("-inf"))
 
 
-def lm_loss(cfg: LMConfig, params: LMParams, batch) -> torch.Tensor:
+def lm_loss(cfg: LMConfig, params: LMParams, batch, mesh=None
+            ) -> torch.Tensor:
+    """The masked mean next-token NLL (targets < 0 masked). With ``mesh``:
+    the global batch's, from this rank's rows, on every rank."""
+    if mesh is not None:
+        from repro_torch.models.lm import sharded
+
+        return sharded.lm_loss(cfg, params, batch, mesh)
     logits = forward(cfg, params, batch["tokens"])
     logits = _mask_padded_vocab(cfg, logits.float())
     targets = batch["targets"]
@@ -449,30 +482,48 @@ def lm_loss(cfg: LMConfig, params: LMParams, batch) -> torch.Tensor:
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def make_train_step(cfg: LMConfig, optimizer=None):
+def _row_blocks(batch, M: int):
+    """The batch's M row blocks, in order."""
+    micro = {k: v.reshape(M, v.shape[0] // M, *v.shape[1:])
+             for k, v in batch.items()}
+    return [{k: v[i] for k, v in micro.items()} for i in range(M)]
+
+
+def make_train_step(cfg: LMConfig, optimizer=None, mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state, loss)``.
 
     With ``cfg.microbatches`` M > 1 the batch is split into M row blocks
     and their gradients summed in ``grad_accum_dtype`` (each sum in
     float32, as JAX's scan), then divided by M. The parameters are updated
-    in place and returned; the loss is a device tensor."""
+    in place and returned; the loss is a device tensor. With ``mesh`` the
+    step takes this rank's shards (:func:`.sharded.place_params`) and rows
+    of the global batch, the loss is the global one and microbatch m is
+    the global rows ``[m B / M, (m + 1) B / M)`` (:mod:`.sharded`); every
+    gradient comes out of the backward already summed over the ranks."""
     optimizer = optimizer or optim_lib.adamw(3e-4)
+    if mesh is None:
+        loss_fn = functools.partial(lm_loss, cfg)
+        split = _row_blocks
+    else:
+        from repro_torch.models.lm import sharded
+
+        lay = sharded._Layout(cfg, mesh)
+        loss_fn = functools.partial(sharded._loss, lay)
+        split = functools.partial(sharded._microbatches, lay)
 
     def train_step(params, opt_state, batch):
         plist = list(params.parameters())
         M = cfg.microbatches
         if M == 1:
-            loss = lm_loss(cfg, params, batch)
+            loss = loss_fn(params, batch)
             grads = list(torch.autograd.grad(loss, plist))
             loss = loss.detach()
         else:
-            micro = {k: v.reshape(M, v.shape[0] // M, *v.shape[1:])
-                     for k, v in batch.items()}
             grads = [torch.zeros(p.shape, dtype=cfg.grad_accum_dtype,
                                  device=p.device) for p in plist]
             loss = torch.zeros((), dtype=torch.float32, device=plist[0].device)
-            for i in range(M):
-                mb_loss = lm_loss(cfg, params, {k: v[i] for k, v in micro.items()})
+            for mb in split(batch, M):
+                mb_loss = loss_fn(params, mb)
                 for acc, g in zip(grads, torch.autograd.grad(mb_loss, plist)):
                     if acc.dtype == torch.float32:
                         acc.add_(g)
@@ -493,19 +544,33 @@ def make_train_step(cfg: LMConfig, optimizer=None):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: Optional[int] = None,
-               dtype=None, device="cuda") -> Dict[str, torch.Tensor]:
+               dtype=None, device="cuda", mesh=None, dp_axes=None
+               ) -> Dict[str, torch.Tensor]:
+    """A zero cache ``(U, sub, batch, max_seq, Hkv, Dh)``; with ``mesh``
+    this rank's block of it: the batch over ``dp_axes`` (default the data
+    axes), the sequence over ``cfg.decode_seq_axes``."""
     S = max_seq or cfg.max_seq
     dtype = dtype or cfg.dtype
+    if mesh is not None:
+        from repro_torch.models.lm import sharded
+
+        batch, S = sharded.local_cache_dims(cfg, mesh, batch, S, dp_axes)
     shape = (cfg.n_units, cfg.layers_per_unit, batch, S, cfg.n_kv_heads,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def make_prefill_step(cfg: LMConfig):
+def make_prefill_step(cfg: LMConfig, mesh=None, dp_axes=None):
     """prefill(params, tokens (B, S)) -> (last-position logits (B, 1, V),
     cache (U, sub, B, S, Hkv, Dh)): the layer stack once over the prompt,
-    without a gradient; the (B, S, V) logits never materialize."""
+    without a gradient; the (B, S, V) logits never materialize. With
+    ``mesh``: this rank's rows, the cache in ``cache_specs``' placement
+    (:func:`.sharded.make_prefill_step`)."""
+    if mesh is not None:
+        from repro_torch.models.lm import sharded
+
+        return sharded.make_prefill_step(cfg, mesh, dp_axes)
 
     @torch.no_grad()
     def prefill(params, tokens):
@@ -525,10 +590,16 @@ def make_prefill_step(cfg: LMConfig):
     return prefill
 
 
-def make_decode_step(cfg: LMConfig):
+def make_decode_step(cfg: LMConfig, mesh=None, dp_axes=None):
     """decode_step(params, cache, tokens (B, 1), index) -> (logits (B, 1, V),
     cache): one token per row at position ``index``, whose keys and values
-    are written into ``cache`` in place (the same dict comes back)."""
+    are written into ``cache`` in place (the same dict comes back). With
+    ``mesh``: this rank's rows and cache block
+    (:func:`.sharded.make_decode_step`)."""
+    if mesh is not None:
+        from repro_torch.models.lm import sharded
+
+        return sharded.make_decode_step(cfg, mesh, dp_axes)
 
     @torch.no_grad()
     def decode_step(params, cache, tokens, index):

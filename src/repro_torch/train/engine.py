@@ -50,12 +50,22 @@ does, with explicit collectives on local tensors (no DTensor):
   rank skips the same step;
 * telemetry's norms are the global ones: row shards' sums of squares are
   summed over ``model``;
-* sparse tables (``model`` of one): every rank applies one update to the
-  same rows, the union of the ranks' rows. Each rank's ids are gathered
-  over ``data`` at the fixed length ``dp x`` its own (so the chunk stays
-  capturable) and deduped; each rank gathers its table gradient at those
-  rows and the row gradients are summed over ``data``. The full table
-  gradient never crosses the wire.
+* sparse tables, on any ``(data, model)`` mesh: each rank's ids are
+  gathered over ``data`` at the fixed length ``dp x`` its own (so the chunk
+  stays capturable) and deduped into the union of the global batch's rows;
+  each model rank keeps the rows of its block ``[m * R_loc, (m + 1) *
+  R_loc)`` shifted to local ids, the rest becoming the local sentinel
+  ``R_loc`` (the list keeps its length). Each rank gathers its shard's
+  gradient at those rows (the masked all-reduce's identity backward left
+  the shard's own rows there) and the row gradients are summed over
+  ``data``; ``sparse_adamw`` then updates the shard and its row-sharded
+  moments in place, the step count replicated. A table the rule leaves
+  whole is one block of ``R`` rows. The full table gradient never crosses
+  the wire.
+
+The guard's flag is reduced over ``model`` too, so a NaN in rows only one
+model rank owns skips the step on every rank, and the norms sum the row
+shards' and sparse rows' sums of squares over ``model``.
 
 On the card the collectives run inside the chunk's one replay: the
 communicators are made by the first collective of each group, which runs
@@ -268,6 +278,15 @@ class TrainEngine:
         # indices of the parameters that are row shards over 'model'
         self._sharded_at = [i for i, p in enumerate(self.params)
                             if id(p) in self._shard_ids()]
+        # sparse key -> (this rank's first row, its rows, the table's rows)
+        self._row_block = {}
+        for key, at in self._table_at.items():
+            rows = self.params[at].shape[0]
+            if at in self._sharded_at:
+                self._row_block[key] = (self._model_index * rows, rows,
+                                        self.model_size * rows)
+            else:
+                self._row_block[key] = (0, rows, rows)
         # a sweep's stacked parameters, their per-replica views and the
         # device-resident active mask (made by init_replica_params)
         self.replica_params: Optional[List[torch.Tensor]] = None
@@ -284,17 +303,14 @@ class TrainEngine:
         rank 0. A model stays placed on its mesh: placing it again on the
         same mesh does nothing, on another raises."""
         from repro_torch.distrib.shardings import (MODEL_AXIS, NamedSharding,
-                                                   axis_size,
+                                                   axis_index, axis_size,
                                                    clax_param_rule)
 
         mesh, model = self.mesh, self.model
         self._data_group = axes_group(mesh, DATA_AXES(mesh))
         self._model_group = mesh.get_group(MODEL_AXIS)
         self.model_size = axis_size(mesh, MODEL_AXIS)
-        if sparse_tables and self.model_size > 1:
-            raise NotImplementedError(
-                "sparse tables on a mesh whose 'model' axis is larger than "
-                "one (row-sharded sparse tables) are not supported yet")
+        self._model_index = axis_index(mesh, MODEL_AXIS)
         placed = getattr(model, "_mesh", None)
         if placed is not None:
             if placed is not mesh:
@@ -401,65 +417,85 @@ class TrainEngine:
 
     def _union_rows(self, batch) -> Dict[str, torch.Tensor]:
         """Each sparse table's distinct rows over every data rank's batch
-        rows, padded with the sentinel: the ids gathered over ``data`` at
-        ``dp x`` this rank's length, then deduped (the same list, in the
-        same order, on every rank)."""
+        rows, as this rank's local ids: the ids gathered over ``data`` at
+        ``dp x`` this rank's length and deduped (the same list, in the same
+        order, on every rank), then shifted into this model rank's block,
+        every row outside it (and every pad) the local sentinel."""
         out = {}
         for key, part in self.sparse_parts.items():
+            lo, rows, total = self._row_block[key]
             ids = part.row_ids(batch).reshape(-1).contiguous()
             every = ids.new_empty((self.data_parallel_size() * ids.numel(),))
             dist.all_gather_into_tensor(every, ids, group=self._data_group)
-            out[key] = unique_rows_with_sentinel(
-                every, self.params[self._table_at[key]].shape[0])
+            local = unique_rows_with_sentinel(every, total) - lo
+            out[key] = torch.where((local >= 0) & (local < rows), local,
+                                   rows)
         return out
 
     def _reduce(self, loss, grads, rows):
-        """Off a mesh: ``(loss, None, grads)``. On one: the loss and the
-        gradients summed over ``data`` in place (a sparse table's full
+        """Off a mesh: ``(loss, None, (grads, []))``. On one: the loss and
+        the gradients summed over ``data`` in place (a sparse table's full
         gradient stays local: its rows at ``rows`` are gathered and summed
-        instead), as ``(loss, d_rows, checked)``: ``checked`` are the
-        summed gradients the guard and the telemetry read."""
+        instead), as ``(loss, d_rows, (whole, local))``: the summed
+        gradients the guard and the telemetry read, ``local`` those that
+        hold only this model rank's rows (row shards, a sharded table's
+        rows)."""
         if self.mesh is None:
-            return loss, None, grads
+            return loss, None, (grads, [])
         self._psum(loss)
         tables = set(self._table_at.values())
-        checked = []
+        whole, local = [], []
         for i, g in enumerate(grads):
             if i not in tables:
-                checked.append(self._psum(g))
+                (local if i in self._sharded_at else whole).append(
+                    self._psum(g))
         d_rows = {}
         for key, at in self._table_at.items():
             n_rows = self.params[at].shape[0]
             d_rows[key] = self._psum(torch.index_select(
                 grads[at], 0, torch.clamp(rows[key], max=n_rows - 1)))
-            # the sentinel pads read the last row: not part of the gradient
-            checked.append(torch.where((rows[key] < n_rows)[:, None],
-                                       d_rows[key], 0.0))
-        return loss, d_rows, checked
+            # the sentinel slots read the last row: not part of the gradient
+            (local if at in self._sharded_at else whole).append(torch.where(
+                (rows[key] < n_rows)[:, None], d_rows[key], 0.0))
+        return loss, d_rows, (whole, local)
+
+    def _all_finite(self, loss, checked) -> torch.Tensor:
+        """The guard's flag over the loss and every checked gradient, the
+        same on every rank: on a mesh reduced over ``model`` (a NaN in rows
+        only one model rank holds skips the step everywhere)."""
+        whole, local = checked
+        ok = all_finite(loss, whole + local)
+        if self.mesh is None:
+            return ok
+        bad = (~ok).to(torch.int32)
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=self._model_group)
+        return bad == 0
 
     def _grad_norm(self, grads, checked) -> torch.Tensor:
-        """The global gradient norm: off a mesh, and on one with no row
-        shards, :func:`optim.global_norm` of the (summed) gradients; with
-        row shards, their sums of squares are summed over ``model``."""
+        """The global gradient norm: off a mesh, and on one with nothing
+        local to a model rank, :func:`optim.global_norm` of the (summed)
+        gradients; else the local ones' sums of squares are summed over
+        ``model``."""
         if self.mesh is None:
             return optim_lib.global_norm(grads)
-        if not self._sharded_at:
-            return optim_lib.global_norm(checked)
-        shards = {id(grads[i]) for i in self._sharded_at}
-        ss = [torch.sum(torch.square(g.float())) for g in checked
-              if id(g) not in shards]
-        local = sum((torch.sum(torch.square(grads[i].float()))
-                     for i in self._sharded_at),
-                    torch.zeros((), device=grads[0].device))
-        return torch.sqrt(sum(ss, self._psum(local, self._model_group)))
+        whole, local = checked
+        if not local:
+            return optim_lib.global_norm(whole)
+        ss = [torch.sum(torch.square(g.float())) for g in whole]
+        mine = sum((torch.sum(torch.square(g.float())) for g in local),
+                   torch.zeros((), device=grads[0].device))
+        return torch.sqrt(sum(ss, self._psum(mine, self._model_group)))
 
     def _param_sumsq(self, sumsq, params) -> torch.Tensor:
-        """The update's float64 sum of squares made global: row shards'
-        own (after the step) summed over ``model``."""
-        if self.mesh is None or not self._sharded_at:
+        """The update's float64 sum of squares made global: dense row
+        shards' own (after the step) summed over ``model`` (a sparse
+        table's share comes summed from :meth:`_update`)."""
+        shards = [i for i in self._sharded_at
+                  if i not in self._table_at.values()]
+        if self.mesh is None or not shards:
             return sumsq
         local = sum((torch.sum(torch.square(params[i].detach().double()))
-                     for i in self._sharded_at),
+                     for i in shards),
                     torch.zeros((), dtype=torch.float64,
                                 device=sumsq.device))
         return sumsq - local + self._psum(local.clone(), self._model_group)
@@ -632,7 +668,10 @@ class TrainEngine:
                 pred=pred, norm=norm, apply=apply, **self.sparse_kwargs)
             sparse[key] = done[1]
             if norm:
-                sumsq = sumsq + done[2]
+                share = done[2]
+                if self.mesh is not None and at in self._sharded_at:
+                    share = self._psum(share.clone(), self._model_group)
+                sumsq = sumsq + share
         state = {"dense": dense, "sparse": sparse}
         return (state, sumsq) if norm else state
 
@@ -676,7 +715,7 @@ class TrainEngine:
         out = {"loss": loss}
         ok = None
         if self.nonfinite_guard:
-            ok = all_finite(out["loss"], checked)
+            ok = self._all_finite(out["loss"], checked)
             out["skipped"] = ~ok
         new = self._update(opt_state, self.params, grads, rows, ok,
                            norm=self.telemetry,
@@ -725,7 +764,7 @@ class TrainEngine:
             out = {"loss": loss}
             pred, ok = self.active[r], None
             if self.nonfinite_guard:
-                ok = all_finite(out["loss"], checked)
+                ok = self._all_finite(out["loss"], checked)
                 # a frozen replica attempted no update: not skipped
                 out["skipped"] = ~ok & pred
                 pred = pred & ok

@@ -334,8 +334,15 @@ def dbn_data():
     return split_sessions(data, (0.8, 0.1, 0.1), seed=0)
 
 
-def dbn_run(mesh, train, val, epochs, ckpt=None, resume=False):
-    """The row-sharded DBN: adamw 0.01, batch 256, chunks of 4."""
+#: lazy AdamW on the DBN's tables, mirroring ``optim.adamw(0.01)``
+DBN_SPARSE = dict(sparse_tables=True,
+                  sparse_table_kwargs=dict(lr=0.01, weight_decay=1e-4))
+
+
+def dbn_run(mesh, train, val, epochs, ckpt=None, resume=False,
+            sparse=False):
+    """The row-sharded DBN: adamw 0.01, batch 256, chunks of 4 (with
+    ``sparse``, lazy AdamW on the tables)."""
     from repro_torch import optim
     from repro_torch.data import ClickLogLoader
     from repro_torch.train import Trainer
@@ -343,7 +350,8 @@ def dbn_run(mesh, train, val, epochs, ckpt=None, resume=False):
     model = dbn_model()
     trainer = Trainer(optim.adamw(0.01), epochs=epochs, patience=100,
                       log_fn=lambda *_: None, chunk_batches=4, mesh=mesh,
-                      device="cpu", checkpoint_dir=ckpt)
+                      device="cpu", checkpoint_dir=ckpt,
+                      **(DBN_SPARSE if sparse else {}))
     history = trainer.train(
         model, ClickLogLoader(train, batch_size=256, seed=5),
         ClickLogLoader(val, batch_size=128, shuffle=False, drop_last=False),
@@ -351,15 +359,17 @@ def dbn_run(mesh, train, val, epochs, ckpt=None, resume=False):
     return history, _named(model, lambda p: p)
 
 
-def dbn_chunk(train, index=0, count=1, n=4, batch=256):
-    """The first ``n`` batches of ``train`` in order, stacked ``(n, B,
-    K)``, rank ``index``'s block of rows of each among ``count``."""
+def dbn_chunk(train, index=0, count=1, n=4, batch=256, which=None):
+    """The first ``n`` batches of ``train`` in order (or the batches
+    ``which``), stacked ``(n, B, K)``, rank ``index``'s block of rows of
+    each among ``count``."""
     import torch
 
     rows = batch // count
+    which = range(n) if which is None else which
     return {k: torch.from_numpy(np.stack([
         v[i * batch + index * rows:i * batch + (index + 1) * rows]
-        for i in range(n)])) for k, v in train.items()
+        for i in which])) for k, v in train.items()
         if k in ("positions", "query_doc_ids", "clicks", "mask")}
 
 
@@ -374,6 +384,75 @@ def dbn_engine_step(mesh, train, index=0, count=1):
     state = engine.init_opt_state()
     _, out = engine.step(state, dbn_chunk(train, index, count))
     return {k: _np(v) for k, v in out.items()}
+
+
+def dbn_sparse_chunk(mesh, train, index=0, count=1, which=(0, 1, 2, 3),
+                     poison=None):
+    """One chunk of the DBN with sparse tables through ``TrainEngine(
+    telemetry=True, nonfinite_guard=True)``: the per-step series and the
+    parameters (row shards gathered over ``model``). ``poison=(m, step)``
+    makes the attraction table's gradient NaN on model rank ``m`` alone at
+    that step: rows only that rank owns."""
+    from repro_torch import optim
+    from repro_torch.train import TrainEngine
+
+    engine = TrainEngine(dbn_model(), optim.adamw(0.01),
+                         chunk_batches=len(which), mesh=mesh, telemetry=True,
+                         nonfinite_guard=True, **DBN_SPARSE)
+    if poison is not None and mesh.get_local_rank("model") == poison[0]:
+        calls = []
+
+        def hook(grad):
+            calls.append(None)
+            return grad * float("nan") if len(calls) == poison[1] + 1 \
+                else grad
+
+        engine.sparse_parts["attraction/table"].table.register_hook(hook)
+    state = engine.init_opt_state()
+    _, out = engine.step(state, dbn_chunk(train, index, count, which=which))
+    params = engine.gathered({n: p for n, p in zip(engine.names,
+                                                   engine.params)})
+    return {k: _np(v) for k, v in out.items()}, \
+        {n: _np(p) for n, p in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# sparse tables on meshes whose 'model' axis is larger than one: a world of 8
+# ---------------------------------------------------------------------------
+
+def task_sparse8(rank, world, ckpt):
+    import torch.distributed as dist
+
+    from repro_torch.distrib.collectives import gather_rows
+    from repro_torch.launch import mesh as meshes
+
+    train, val, _ = dbn_data()
+    out = {}
+
+    def full(params, mesh):  # row shards gathered, the rest as they are
+        group, rows = mesh.get_group("model"), params[
+            "attraction.table"].shape[0]
+        return {n: _np(gather_rows(p, group) if p.dim() == 2 and
+                       p.shape[0] == rows else p) for n, p in params.items()}
+
+    for shape in ((2, 4), (8, 1), (1, 8)):
+        mesh = meshes.make_mesh(shape, ("data", "model"), device="cpu")
+        history, params = dbn_run(mesh, train, val, epochs=2, sparse=True)
+        out[shape] = (history, full(params, mesh),
+                      int(params["attraction.table"].shape[0]))
+    mesh = meshes.make_mesh((2, 4), ("data", "model"), device="cpu")
+    d = mesh.get_local_rank("data")
+    out["telemetry"] = dbn_sparse_chunk(mesh, train, d, 2)
+    out["poisoned"] = dbn_sparse_chunk(mesh, train, d, 2, poison=(1, 1))
+    # elastic: epoch 1 on (2, 4) with a checkpoint, epoch 2 restored onto
+    # (1, 8) (the test process restores it onto one process)
+    dbn_run(mesh, train, val, epochs=1, ckpt=ckpt, sparse=True)
+    dist.barrier()  # rank 0 has written the checkpoint
+    wide = meshes.make_smoke_mesh(8, device="cpu")
+    history, params = dbn_run(wide, train, val, epochs=2, ckpt=ckpt,
+                              resume=True, sparse=True)
+    out["elastic"] = (history, full(params, wide))
+    return out
 
 
 def task_train8(rank, world, ckpt):
@@ -465,5 +544,193 @@ def task_train2(rank, world, ckpt, ckpt_preempt):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM family's sharded forms: a world of 8
+# ---------------------------------------------------------------------------
+
+#: The float32 LM configs of the mesh tests (``LMConfig`` keywords): JAX's
+#: own test config (``tests/test_archs.py``: 2 KV heads of 16, which 4 or 8
+#: model ranks split mid-head), one whose heads every model size here
+#: divides (and whose vocabulary of 61 pads to 64), and JAX's MoE oracle
+#: config (8 experts, top 2).
+LM_CFGS = {
+    "gqa": dict(name="m", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                d_ff=128, vocab=64, head_dim=16, attn_chunk=8, max_seq=16),
+    "heads": dict(name="h", n_layers=2, d_model=64, n_heads=16,
+                  n_kv_heads=8, d_ff=128, vocab=61, head_dim=8,
+                  attn_chunk=8, max_seq=16),
+    "moe": dict(name="e", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+                d_ff=64, vocab=64, head_dim=16, moe=True, n_experts=8,
+                top_k=2, d_ff_moe=32, moe_layer_step=1, attn_chunk=8),
+}
+LM_MESHES = ((2, 4), (8, 1), (1, 8))
+#: (config, mesh, explicit_row_parallel) of the two microbatched steps
+LM_TRAIN = [("gqa", m, False) for m in LM_MESHES] + [
+    ("gqa", (2, 4), True), ("heads", (2, 4), False)]
+#: the MoE's capacity factors and meshes: JAX's default on two meshes that
+#: give two functions, and a lossless one against the dense oracle
+LM_MOE = [(1.25, (2, 4)), (1.25, (8, 1)), (64.0, (2, 4)), (64.0, (1, 8))]
+LM_LR, LM_EPS = 1e-3, 1e-2
+
+
+def lm_config(name, **kw):
+    import torch
+
+    from repro_torch.models.lm import LMConfig
+
+    return LMConfig(**{**LM_CFGS[name], **kw}, dtype=torch.float32,
+                    param_dtype=torch.float32)
+
+
+class _SlicingGather:
+    """The FSDP gather with :class:`AllGatherRows`' slicing backward (the
+    trap: each data rank's gradient of its own rows only)."""
+
+    @staticmethod
+    def apply(x, group, dim):
+        from repro_torch.distrib.collectives import AllGatherRows
+
+        return AllGatherRows.apply(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+def _per_rank_microbatches(lay, batch, M):
+    """The trap: microbatch m as the m-th block of this rank's rows."""
+    b = next(iter(batch.values())).shape[0] // M
+    return [{k: v[m * b:(m + 1) * b] for k, v in batch.items()}
+            for m in range(M)]
+
+
+def task_lm8(rank, world, trees, batch, dec):
+    import dataclasses
+
+    import torch
+
+    from repro_torch import convert, optim
+    from repro_torch.distrib.collectives import gather_rows
+    from repro_torch.distrib.shardings import DATA_AXES, NamedSharding, P
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models import lm
+    from repro_torch.models.lm import sharded
+
+    def placed(cfg, name, mesh):
+        full = lm.init_params(cfg, device="cpu")
+        convert.load_jax_params(full, trees[name])
+        return full if mesh is None else lm.place_params(cfg, full, mesh)
+
+    def rows(mesh, arrays, dp=None):
+        dp = DATA_AXES(mesh) if dp is None else dp
+        return {k: torch.from_numpy(NamedSharding(mesh, P(dp)).local(v)
+                                    .copy()) for k, v in arrays.items()}
+
+    def full(cfg, mesh, tensors):  # a tree of shards -> {name: array}
+        tree = sharded._with_params(cfg, dict(tensors))
+        return {n: _np(p) for n, p in lm.gather_params(cfg, tree, mesh)
+                .named_parameters()}
+
+    def loss_grads(cfg, name, mesh):
+        params = placed(cfg, name, mesh)
+        b = rows(mesh, batch)
+        logits = lm.forward(cfg, params, b["tokens"], mesh)
+        if logits.shape[-1] != cfg.padded_vocab:
+            logits = gather_rows(logits, mesh.get_group("model"), 2)
+        logits = gather_rows(logits, mesh.get_group("data"), 0)
+        loss = lm.lm_loss(cfg, params, b, mesh)
+        names = [n for n, _ in params.named_parameters()]
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        return {"logits": _np(logits), "loss": float(loss.detach()),
+                "grads": full(cfg, mesh, zip(names, grads)),
+                "contiguous": all(g.is_contiguous() for g in grads)}
+
+    def train(cfg, name, mesh):
+        cfg = dataclasses.replace(cfg, microbatches=2)
+        params = placed(cfg, name, mesh)
+        opt = optim.adamw(LM_LR, eps=LM_EPS)
+        state = opt.init(list(params.parameters()))
+        step = lm.make_train_step(cfg, opt, mesh)
+        losses = []
+        for _ in range(2):
+            params, state, loss = step(params, state, rows(mesh, batch))
+            losses.append(float(loss))
+        return {"losses": losses, "params": full(
+            cfg, mesh, params.named_parameters())}
+
+    out = {}
+    meshes_ = {s: meshes.make_mesh(s, ("data", "model"), device="cpu")
+               for s in LM_MESHES}
+    for name in ("gqa", "heads"):
+        for shape, mesh in meshes_.items():
+            out[("loss", name, shape)] = loss_grads(lm_config(name), name,
+                                                    mesh)
+    for name, shape, erp in LM_TRAIN:
+        out[("train", name, shape, erp)] = train(
+            lm_config(name, explicit_row_parallel=erp), name,
+            meshes_[shape])
+    # each capacity cut's margin: the relative gap between the last gate an
+    # expert keeps and the first it drops (a near-tie is decided by
+    # float32 rounding alone, in either package)
+    top_k, margins = sharded._top_k, []
+
+    def recorded(x, k):
+        if x.dim() == 1 and k < x.shape[0]:
+            kept, dropped = torch.sort(x.detach(), descending=True).values[
+                k - 1:k + 1].tolist()
+            if dropped > 0 and kept != dropped:
+                margins.append((kept - dropped) / kept)
+        return top_k(x, k)
+
+    sharded._top_k = recorded
+    try:
+        for cf, shape in LM_MOE:
+            margins.clear()
+            out[("moe", cf, shape)] = loss_grads(
+                lm_config("moe", capacity_factor=cf), "moe", meshes_[shape])
+            out[("moe", cf, shape)]["margin"] = min(margins, default=1.0)
+    finally:
+        sharded._top_k = top_k
+    mesh = meshes_[(2, 4)]
+    # the two traps, each on the wrong form
+    saved = sharded.AllGatherReduceScatter
+    sharded.AllGatherReduceScatter = _SlicingGather
+    try:
+        out["trap_fsdp"] = loss_grads(lm_config("gqa"), "gqa", mesh)
+    finally:
+        sharded.AllGatherReduceScatter = saved
+    saved = sharded._microbatches
+    sharded._microbatches = _per_rank_microbatches
+    try:
+        out["trap_microbatch"] = train(lm_config("gqa"), "gqa", mesh)
+    finally:
+        sharded._microbatches = saved
+    # decode: 8 plain steps fill the seq-split cache, one flash step; the
+    # same with the sequence over every axis and the batch whole
+    for key, seq_axes, dp in (("decode", ("model",), None),
+                              ("decode_all_axes", ("data", "model"), ())):
+        cfg = lm_config("gqa", decode_seq_axes=seq_axes)
+        params = placed(cfg, "gqa", mesh)
+        toks = rows(mesh, {"t": dec["tokens"], "n": dec["next"]}, dp)
+        cache = lm.init_cache(cfg, dec["tokens"].shape[0], cfg.max_seq,
+                              device="cpu", mesh=mesh, dp_axes=dp)
+        plain = lm.make_decode_step(cfg, mesh, dp_axes=dp)
+        flash = lm.make_decode_step(
+            dataclasses.replace(cfg, flash_decode=True), mesh, dp_axes=dp)
+        logits = []
+        for i in range(8):
+            lg, cache = plain(params, cache, toks["t"][:, i:i + 1], i)
+            logits.append(_np(lg))
+        lg, cache = flash(params, cache, toks["n"], 8)
+        logits.append(_np(lg))
+        out[key] = {"logits": logits,
+                    "cache": {k: _np(v) for k, v in cache.items()}}
+    cfg = lm_config("heads")
+    logits, cache = lm.make_prefill_step(cfg, mesh)(
+        placed(cfg, "heads", mesh), rows(mesh, dec)["tokens"])
+    out["prefill"] = {"logits": _np(logits),
+                      "cache": {k: _np(v) for k, v in cache.items()}}
+    out["coords"] = (mesh.get_local_rank("data"),
+                     mesh.get_local_rank("model"))
+    return out
+
+
 TASKS = {"distrib": task_distrib, "train8": task_train8,
-         "train2": task_train2}
+         "train2": task_train2, "sparse8": task_sparse8,
+         "lm8": task_lm8}

@@ -151,9 +151,9 @@ def test_chunked_attention_matches_jax(sq, chunk, causal, kv_offset):
                                atol=1e-5)
 
 
-#: JAX's LMConfig fields that only its sharded forms read (the distributed
-#: slice's: the row-parallel matmul, flash decode, the shard_map MoE's
-#: capacity), at their defaults in every FULL config.
+#: JAX's LMConfig fields that only its sharded forms read (the row-parallel
+#: matmul, flash decode, the shard_map MoE's capacity), at their defaults
+#: in every FULL config, the port's too.
 SHARDED_ONLY = {"explicit_row_parallel": False, "flash_decode": False,
                 "decode_seq_axes": ("model",), "capacity_factor": 1.25}
 
@@ -166,7 +166,7 @@ def test_full_config_dims_match_assignment(arch):
     dtypes = ("dtype", "param_dtype", "opt_dtype", "grad_accum_dtype")
     jf, tf = dataclasses.asdict(jcfg), dataclasses.asdict(tcfg)
     for k, default in SHARDED_ONLY.items():
-        assert jf.pop(k) == default, k  # the port has no such field
+        assert jf[k] == tf[k] == default, k
     assert {k: v for k, v in jf.items() if k not in dtypes} == \
         {k: v for k, v in tf.items() if k not in dtypes}
     for k in dtypes:
