@@ -270,7 +270,7 @@ Phases, each printing JSON lines:
                   steps each; every loss falls; 6 adamw launches a step.
                   Then the reduced config on the CPU port and the card,
                   float32, at 1e-5 (gnn_cpu_vs_gpu).
-   lm             llama3.2-1b (8 steps, global batch 4 of JAX's 256, 2
+   lm             llama3.2-1b (4 steps, global batch 4 of JAX's 256, 2
                   microbatches), granite-moe-1b-a400m (4 steps, batch 4)
                   and phi3-mini-3.8b (4 steps, batch 4, 4 microbatches,
                   scan_chunks 4) at their FULL widths, bfloat16, seq 4,096,
@@ -279,7 +279,7 @@ Phases, each printing JSON lines:
                   fall: tokens/s and peak memory (and one more llama3.2-1b
                   step under torch.profiler: its top kernels, the device's
                   busy ms); then one 32,768-token
-                  prompt prefilled and 16 tokens decoded at batch 2 against
+                  prompt prefilled and 8 tokens decoded at batch 2 against
                   its cache (ms, tokens/s, no kernel); llama3-405b and
                   Maverick on meta (parameter counts). Then the five
                   reduced configs, float32, on the CPU port and the card:
@@ -332,6 +332,28 @@ Phases, each printing JSON lines:
                   and flash decode with tensor parallelism, the DBN's
                   sparse tables on model = N) against the world of one;
                   with one card a line says that part did not run.
+20. Slice 16, after every earlier path:
+   dryrun         the dry run (launch/dryrun.py) in two subprocesses,
+                  started first so that their host work overlaps the
+                  holds: six cells (the paper-width DBN and DeepFM
+                  train_batch, AutoInt serve_p99, GraphSAGE ogb_products,
+                  llama3.2-1b train_4k, llama3-405b decode_32k) for rank
+                  0 of a fake world of 256 with fake CUDA tensors, each
+                  meeting exactly its kernel ops (none launched; a fake
+                  tensor's data_ptr raises), their bytes kernels/cost.py's
+                  for the local shapes, one line a cell; and the DBN and
+                  DeepFM cells at a world of one.
+   roofline_dbn   Trainer(emit_roofline=True) on the paper-width DBN, one
+                  chunk of 4: one roofline event (examination_nll 16.4 MB
+                  and adamw 12.03 GB a step, kernels/cost.py's bound
+                  bytes), parameters, losses and launch counts equal to
+                  the bit to the run without it.
+   recsys_mesh    DeepFM and BST at published width on a (1, 1) NCCL mesh,
+                  4 steps against no mesh within 1e-5 (run under
+                  deterministic algorithms: index_add_'s sorted path),
+                  embedding_bag / flash_attention launches equal; then
+                  the two world-of-one cells' real steps, their peak
+                  beside the dry run's (dryrun_peak; told, not held).
 
 Every phase that drives a path sets every kernel's launch count to 0 just
 before it and reads the counts just after; they must be exact (where
@@ -366,15 +388,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.kernels import cost  # noqa: E402 (needs the path above)
+
 B_MAIN, K_MAIN = 65536, 10
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
-# tensor cores. Both kernels are float32 elementwise work.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-# Operations per (B, K) element, counted from the kernel sources (compares,
-# selects, adds, multiplies, divides and transcendentals each count one).
-OPS_PER_ELEMENT = {"examination_nll": 44, "session_nll": 12}
-BYTES_PER_ELEMENT = {"examination_nll": 6 * 4 + 1, "session_nll": 2 * 4 + 1}
+# H100 SXM peaks (NVIDIA data sheet), as kernels/cost.py holds them: HBM3
+# bandwidth, fp32 outside the tensor cores. Every bound below is
+# kernels/cost.py's: the work each kernel op must do.
+PEAK_BYTES_PER_S = cost.PEAK_BYTES_PER_S
+PEAK_FP32_PER_S = cost.PEAK_FP32_PER_S
 RTOL, ATOL = 1e-5, 1e-6
 # Device ms of the six kernels this slice leaves untouched, from the last
 # runs before it (PERF.md's kernel table and the runs it cites; NVIDIA H100
@@ -384,8 +405,13 @@ CONTROL_DEVICE_MS = {"examination_nll": 0.01265, "session_nll": 0.00551,
                      "flash_attention": 0.507, "dcn_cross": 0.0712}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **data) -> None:
-    print(json.dumps({"phase": phase, **data}), flush=True)
+    """One JSON line, with ``t``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **data,
+                      "t": round(time.perf_counter() - _T0, 2)}), flush=True)
 
 
 def check_close(name, got, want, rtol=RTOL, atol=ATOL):
@@ -474,14 +500,18 @@ def check_counts(what, expected) -> dict:
     return got
 
 
+def _meta(*shape, dtype=None):
+    """A shape and a type, for kernels/cost.py."""
+    import torch
+
+    return torch.empty(shape, dtype=dtype or torch.float32, device="meta")
+
+
 def bound(name, rows, cols):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the fp32 rate; inputs read once, a scalar written."""
-    n = rows * cols
-    t_bytes = (n * BYTES_PER_ELEMENT[name] + 4) / PEAK_BYTES_PER_S
-    t_ops = n * OPS_PER_ELEMENT[name] / PEAK_FP32_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """(bound_ms, bound_by) of a loss kernel over (rows, cols), from
+    kernels/cost.py: inputs read once, a scalar written."""
+    x = _meta(rows, cols)
+    return cost.bound_ms(cost.COSTS[name](x, x, None))
 
 
 # ---------------------------------------------------------------------------
@@ -1829,14 +1859,15 @@ TOWER_ROWS = B_MAIN * K_MAIN      # the tower runs on every (session, item)
 
 
 def dcn_bound(rows, dim, itemsize):
-    """(bound_ms, bound_by): x0 and x read once, W and b read once, the
-    float32 output written once; 2 D operations per output element for the
-    product, 3 for the epilogue (+ b, * x0, + x)."""
-    nbytes = (2 * rows * dim + dim * dim + dim) * itemsize + rows * dim * 4
-    ops = rows * dim * (2 * dim + 3)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """(bound_ms, bound_by), kernels/cost.py's: x0 and x read once, W and b
+    read once, the float32 output written once; 2 D operations per output
+    element for the product, 3 for the epilogue (+ b, * x0, + x)."""
+    import torch
+
+    dt = torch.float32 if itemsize == 4 else torch.bfloat16
+    x, w, b = _meta(rows, dim, dtype=dt), _meta(dim, dim, dtype=dt), \
+        _meta(dim, dtype=dt)
+    return cost.bound_ms(cost.dcn_cross(x, x, w, b))
 
 
 def _dcn_inputs(gen, device, rows, dim, dtype=None, aliased=False,
@@ -1981,9 +2012,7 @@ def phase_dcn_kernel(card):
 
 DBN_ROWS = 214_748_672      # configs/clax_baidu.py: 2^31 ids hashed 10x
 SPARSE_SLOTS = B_MAIN * K_MAIN
-ADAMW_BYTES_PER_ELEMENT = {"float32": 28, "bfloat16": 20}
-ADAMW_OPS_PER_ELEMENT = 16  # counted from csrc/adamw.cu, wd on
-SECTOR = 32
+SECTOR = cost.SECTOR
 
 
 def _adam_run(make_opt, params0, grads, steps, fused, start_count=0):
@@ -2137,11 +2166,17 @@ def _check_sensitive(name, times):
                              f"tolerances from its no-decay form")
 
 
-def adamw_bound(n, moments="float32"):
-    t_bytes = n * ADAMW_BYTES_PER_ELEMENT[moments] / PEAK_BYTES_PER_S
-    t_ops = n * ADAMW_OPS_PER_ELEMENT / PEAK_FP32_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+def adamw_bound(n, moments="float32", params="float32", grads="float32"):
+    """(bound_ms, bound_by) of one adamw launch over n elements, from
+    kernels/cost.py: p, g and both moments read, p and the moments written,
+    each in its type (28 bytes an element in float32)."""
+    import torch
+
+    def meta(dtype):
+        return _meta(n, dtype=getattr(torch, dtype))
+
+    return cost.bound_ms(cost.adamw(meta(params), meta(grads),
+                                    meta(moments), meta(moments)))
 
 
 def sparse_adamw_bound(live_rows, slots):
@@ -2153,11 +2188,10 @@ def sparse_adamw_bound(live_rows, slots):
     import torch
 
     sectors = torch.unique(live_rows // (SECTOR // 4)).numel()
-    t_bytes = (sectors * 6 * SECTOR + slots * 8
-               + live_rows.numel() * 4) / PEAK_BYTES_PER_S
-    t_ops = live_rows.numel() * ADAMW_OPS_PER_ELEMENT / PEAK_FP32_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    table = _meta(DBN_ROWS, 1)
+    return cost.bound_ms(cost.sparse_adamw(
+        table, table, table, _meta(slots, dtype=torch.int64),
+        _meta(slots, 1), sectors=sectors, live=live_rows.numel()))
 
 
 def phase_optimizer_kernels(card, data):
@@ -2674,35 +2708,19 @@ def bag_bound(table, ids, weights):
         span = int((last - first).max()) + 1
         sectors = int(torch.unique(torch.cat([
             torch.minimum(first + k, last) for k in range(span)])).numel())
-    id_bytes = 4 if rows < 2 ** 31 else 8
-    nbytes = (ids.numel() * id_bytes + sectors * 32
-              + ids.shape[0] * dim * 4
-              + (0 if weights is None else weights.numel() * 4))
-    ops = 2 * ids.numel() * dim
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return cost.bound_ms(cost.embedding_bag(table, ids, weights,
+                                            sectors=sectors))
 
 
 def fm_bound(v):
-    B, F, D = v.shape
-    t_bytes = (B * F * D * 4 + B * 4) / PEAK_BYTES_PER_S
-    t_ops = 4 * B * F * D / PEAK_FP32_PER_S  # add, square, add; subtract
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return cost.bound_ms(cost.fm_interaction(v))
 
 
 def flash_bound(q, k, v):
     """Non-causal: q, k, v read once, o written once, in their own type;
     per (query, key) pair 2 Dh operations for the score, 2 Dh for the
     weighted sum, one exp, all float32."""
-    B, Hq, Sq, Dh = q.shape
-    pairs = Sq * k.shape[2]
-    t_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()
-                                  ) / PEAK_BYTES_PER_S
-    t_ops = B * Hq * pairs * (4 * Dh + 1) / PEAK_FP32_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return cost.bound_ms(cost.flash_attention(q, k, v, False))
 
 
 def _max_err(got, want):
@@ -3156,7 +3174,7 @@ def _plain_forward(arch, model, batch):
 
     cfg = model.cfg
     if arch == "bst":
-        def plain_mean_bag(table_cfg, params, ids, combiner):
+        def plain_mean_bag(table_cfg, params, ids, combiner, mesh=None):
             live = (ids >= 0).float()
             return embedding_bag_plain(
                 params["table"], ids,
@@ -4644,8 +4662,9 @@ def phase_store(data, card, steps=16):
                 ("in_memory", memory_loader, steps),
                 ("single_shard_store", single_loader, steps),
                 ("multi_shard_store", multi_loader, epoch_steps)):
+            # two rounds (three before the dry run joined the smoke's time)
             warm_ms, input_path, warm_over = warm_and_input_rounds(
-                warm(loader_fn), loader_fn(), n)
+                warm(loader_fn), loader_fn(), n, rounds=2)
             rounds[name] = {"steps": n, "warm_step_ms": warm_ms,
                             "input_ms_per_step": input_path,
                             "warm_minus_overlapped_input_ms": warm_over}
@@ -4963,7 +4982,8 @@ def phase_telemetry(data, card, steps=16):
             return seconds / steps * 1e3
 
         warm_ms = {"on": [], "off": []}
-        for r in range(3):
+        # two rounds (three before the dry run joined the smoke's time)
+        for r in range(2):
             for telemetry in ((True, False) if r % 2 == 0
                               else (False, True)):
                 warm_ms["on" if telemetry else "off"].append(warm(telemetry))
@@ -5826,10 +5846,9 @@ def phase_adamw_bf16(card):
             t["plain"] = time_ms(plain_step, iters=3, warmup=1)
             del work, state
             _free_card()
-            t_bytes = n * ADAMW_BF16_BYTES[key] / PEAK_BYTES_PER_S
-            t_ops = n * ADAMW_OPS_PER_ELEMENT / PEAK_FP32_PER_S
-            t.update(bound=max(t_bytes, t_ops) * 1e3,
-                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+            t_bound, t_by = adamw_bound(n, moments=key[2], params=key[0],
+                                        grads=key[1])
+            t.update(bound=t_bound, bound_by=t_by,
                      bytes_per_element=ADAMW_BF16_BYTES[key], library=None)
             if key == ("bfloat16",) * 3:
                 lib_params = [torch.nn.Parameter(p.clone()) for p in params]
@@ -6142,10 +6161,12 @@ def _lm_batch(cfg, batch, seq, gen):
 #: batch is 256 at seq 4,096. The prefill and decode batches are the most
 #: rows that fit the card (``_lm_serve_rows``), up to JAX's 32 (prefill,
 #: 32,768) and 128 (decode against 32,768).
-LM_RUNS = {"llama3.2-1b": (8, 4),
+LM_RUNS = {"llama3.2-1b": (4, 4),
            "granite-moe-1b-a400m": (4, 4),
            "phi3-mini-3.8b": (4, 4)}
-LM_TRAIN_SEQ, LM_PREFILL_SEQ, LM_DECODE_STEPS = 4096, 32768, 16
+# 4 llama steps and 8 decode steps (8 and 16 before the dry run joined
+# the smoke's time)
+LM_TRAIN_SEQ, LM_PREFILL_SEQ, LM_DECODE_STEPS = 4096, 32768, 8
 LM_PREFILL_BATCH, LM_DECODE_BATCH = 32, 128  # JAX's
 #: The share of the card's memory kept free of the reckoned rows: the
 #: allocator's rounding and fragmentation, cuBLAS's workspaces.
@@ -6200,7 +6221,7 @@ def _lm_serve_rows(cfg):
 def _lm_run(arch, card):
     """One LM arch at FULL width on the card: ``steps`` train steps on one
     repeated batch (the loss must fall), then prefill of 32,768-token
-    prompts and 16 decode steps against their cache, each at the most rows
+    prompts and 8 decode steps against their cache, each at the most rows
     that fit (``_lm_serve_rows``). Returns the train run's counts."""
     import torch
 
@@ -7414,6 +7435,393 @@ def phase_lm_mesh(card, data):
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# slice 16: the dry run, the roofline, the recsys models on a mesh
+# ---------------------------------------------------------------------------
+
+#: The dry run's cells in the smoke, for rank 0 of a fake world of 256 with
+#: fake CUDA tensors, and the kernel ops each must meet
+DRYRUN_CELLS = {("clax-dbn-baidu", "train_batch"): {"examination_nll",
+                                                   "adamw"},
+                ("deepfm", "train_batch"): {"embedding_bag",
+                                            "fm_interaction", "adamw"},
+                ("autoint", "serve_p99"): {"flash_attention"},
+                ("graphsage-reddit", "ogb_products"): {"adamw"},
+                ("llama3.2-1b", "train_4k"): {"adamw"},
+                ("llama3-405b", "decode_32k"): set()}
+#: ... and at a world of one, each beside a real step's peak on the card
+PEAK_CELLS = (("clax-dbn-baidu", "train_batch"), ("deepfm", "train_batch"))
+DRYRUN_TIMEOUT_S = 240
+#: the recsys models on a (1, 1) NCCL mesh: steps, and the hold against the
+#: run without a mesh (the table gather's index_add_ sums in no fixed
+#: order, so not to the bit)
+RECSYS_MESH_STEPS, RECSYS_MESH_TOL = 4, 1e-5
+
+
+def start_dryrun():
+    """Start the dry run on the card in two subprocesses (one world each):
+    the :data:`DRYRUN_CELLS` over the production mesh's fake world of 256
+    and the :data:`PEAK_CELLS` over a fake world of one; returns what
+    :func:`phase_dryrun` reads."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for name, cells, jobs in (("pod16x16", list(DRYRUN_CELLS), 3),
+                              ("1x1", list(PEAK_CELLS), 1)):
+        log = open(os.path.join(out, f"{name}.log"), "w")
+        procs.append((name, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+             ",".join(f"{a}:{s}" for a, s in cells), "--mesh", name,
+             "--device", "cuda", "--jobs", str(jobs), "--out", out,
+             "--timeout", str(DRYRUN_TIMEOUT_S - 10)],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)))
+    return out, procs, time.perf_counter()
+
+
+def stop_dryrun(started) -> None:
+    """Kill whatever :func:`start_dryrun` started that still runs."""
+    for _, log, proc in started[1]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _expected_kernel_bytes(arch, model_rows):
+    """kernels/cost.py's bytes for each kernel op a cell meets for rank 0
+    of the production mesh (model rows ``model_rows``, data rows 16), from
+    the local shapes; None where the smoke does not recompute them."""
+    import torch
+
+    from repro_torch.configs import clax_baidu, deepfm
+
+    dp = 16
+    if arch == "clax-dbn-baidu":
+        rows = B_MAIN // dp
+        model = clax_baidu.make_model("dbn", device="meta")
+    elif arch == "deepfm":
+        rows = B_MAIN // dp
+        model = deepfm.make_model(device="meta")
+    else:
+        return None
+
+    def local(p):
+        shape = tuple(p.shape)
+        if shape and shape[0] >= 1_000_000:
+            shape = (shape[0] // model_rows,) + shape[1:]
+        return _meta(*shape)
+
+    params = [local(p) for p in model.parameters() if p.numel()]
+    out = {"adamw": sum(cost.adamw(p, p, p, p).bytes for p in params)}
+    if arch == "clax-dbn-baidu":
+        out["examination_nll"] = cost.examination_nll(
+            _meta(rows, K_MAIN), None, None).bytes
+    else:
+        cfg = model.cfg
+        table = _meta(cfg.table_rows // model_rows, 1)
+        ids = _meta(rows, cfg.n_sparse, dtype=torch.int32)
+        out["embedding_bag"] = cost.embedding_bag(table, ids).bytes
+        out["fm_interaction"] = cost.fm_interaction(
+            _meta(rows, cfg.n_sparse, cfg.embed_dim)).bytes
+    return out
+
+
+def phase_dryrun(card, started):
+    """Slice 16: the dry run on the card (``launch/dryrun.py``, started by
+    :func:`start_dryrun` before the holds so that its host work overlaps
+    theirs). Each cell must be counted with fake CUDA tensors (a fake
+    tensor's ``data_ptr`` raises, so a kernel binding that touched one
+    would fail the cell), meet exactly its kernel ops (none launched), each
+    op's bytes kernels/cost.py's for its local shapes; one line a cell.
+    Returns the world-of-one records' predicted peaks."""
+    out, procs, t0 = started
+    deadline = t0 + DRYRUN_TIMEOUT_S
+    for name, log, proc in procs:
+        try:
+            rc = proc.wait(max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log.close()
+        if rc != 0:
+            with open(log.name) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"dryrun {name}: exit {rc}\n{tail}")
+    seconds = time.perf_counter() - t0
+    for (arch, shape), kernels in DRYRUN_CELLS.items():
+        with open(os.path.join(out, f"{arch}__{shape}__pod16x16.json")) as f:
+            rec = json.load(f)
+        got = rec["kernel_ops"]
+        if rec["device"] != "cuda" or set(got) != kernels:
+            raise AssertionError(f"dryrun {arch} {shape}: kernel ops "
+                                 f"{sorted(got)} != {sorted(kernels)}")
+        want = _expected_kernel_bytes(arch, 16)
+        if want is not None:
+            for name, per_step in want.items():
+                row = got[name]
+                count = 1 if name == "adamw" else row["count"]
+                if not math.isclose(row["bytes"], per_step * count,
+                                    rel_tol=1e-12):
+                    raise AssertionError(
+                        f"dryrun {arch} {shape}: {name} {row['bytes']} "
+                        f"bytes, kernels/cost.py {per_step * count}")
+        emit("dryrun", card=card, arch=arch, shape=shape, mesh=rec["mesh"],
+             kind=rec["kind"], model_flops=rec["model_flops"],
+             flops_per_device=rec["cost"]["flops_per_device"],
+             bytes_per_device=rec["cost"]["bytes_accessed_per_device"],
+             wire_bytes_per_device=rec["collectives"][
+                 "total_wire_bytes_per_device"],
+             collective_counts=rec["collectives"]["op_counts"],
+             peak_bytes_per_device=rec["memory"]["peak_bytes_per_device"],
+             kernel_ops=got, build_seconds=rec["build_seconds"],
+             count_seconds=rec["count_seconds"])
+    predicted = {}
+    for arch, shape in PEAK_CELLS:
+        with open(os.path.join(out, f"{arch}__{shape}__1x1.json")) as f:
+            predicted[arch] = json.load(f)["memory"]["peak_bytes_per_device"]
+    emit("dryrun_done", card=card, seconds=seconds, cells=len(DRYRUN_CELLS),
+         world_of_one_predicted_peak_bytes=predicted)
+    return predicted
+
+
+def _roofline_hold(card, data, steps=4):
+    """Trainer(emit_roofline=True) on the paper-width DBN, one epoch of
+    ``steps`` steps in one chunk, beside the same run without it: one
+    ``roofline`` event, in which examination_nll's bytes are its bound's
+    16.4 MB a step and adamw's the DBN's parameters' (the two tables' 12.03
+    GB); the parameters and losses equal to the bit, the launch counts
+    equal."""
+    import torch
+
+    from repro_torch.data import ClickLogLoader
+    from repro_torch.obs import MemorySink, Recorder
+    from repro_torch.train import Trainer
+
+    train = {k: v[:steps * B_MAIN] for k, v in data.items()}
+    runs = {}
+    for flag in (False, True):
+        _free_card()
+        model, make_optimizer, sparse, _, _ = _train_spec("dbn")
+        sink = MemorySink()
+        trainer = Trainer(make_optimizer(), epochs=1, chunk_batches=steps,
+                          device="cuda", log_fn=_quiet,
+                          recorder=Recorder(sinks=[sink]),
+                          emit_roofline=flag, **sparse)
+        reset_counts()
+        t0 = time.perf_counter()
+        history = trainer.train(model, ClickLogLoader(train,
+                                                      batch_size=B_MAIN,
+                                                      seed=0))
+        torch.cuda.synchronize()
+        runs[flag] = {"seconds": time.perf_counter() - t0,
+                      "launches": read_counts(),
+                      "losses": [r["train_loss"] for r in history],
+                      "params": [p.detach().clone()
+                                 for p in model.parameters()],
+                      "events": sink.by_kind("roofline"),
+                      "spans": [e for e in sink.by_kind("span")
+                                if e["name"] == "roofline"]}
+        del model, trainer
+    a, b = runs[False], runs[True]
+    equal = all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+    if not equal or a["losses"] != b["losses"] or \
+            a["launches"] != b["launches"]:
+        raise AssertionError(f"roofline: the run with it differs: losses "
+                             f"{a['losses']} {b['losses']}, launches "
+                             f"{a['launches']} {b['launches']}")
+    if a["events"] or len(b["events"]) != 1 or len(b["spans"]) != 1:
+        raise AssertionError(f"roofline: {len(b['events'])} events, "
+                             f"{len(b['spans'])} spans (want 1 each)")
+    rf = b["events"][0]["data"]
+    exam = rf["kernel_ops"]["examination_nll"]
+    adam = rf["kernel_ops"]["adamw"]
+    exam_bytes = cost.examination_nll(_meta(B_MAIN, K_MAIN), None,
+                                      None).bytes
+    params = [_meta(*p.shape) for p in b["params"] if p.numel()]
+    adam_bytes = sum(cost.adamw(p, p, p, p).bytes for p in params)
+    tables = sum(cost.adamw(p, p, p, p).bytes for p in params
+                 if p.dim() and p.shape[0] >= 1_000_000)
+    if exam["count"] != steps or exam["bytes"] != steps * exam_bytes or \
+            adam["count"] != steps * len(params) or \
+            adam["bytes"] != steps * adam_bytes:
+        raise AssertionError(f"roofline: kernel ops {rf['kernel_ops']}, "
+                             f"want examination_nll {exam_bytes} and adamw "
+                             f"{adam_bytes} bytes a step")
+    emit("roofline_dbn", card=card, steps=steps, batch=B_MAIN,
+         params_bits_equal=True, losses_bits_equal=True,
+         launches=b["launches"], roofline=rf,
+         examination_nll_bytes_per_step=exam_bytes,
+         adamw_bytes_per_step=adam_bytes, adamw_table_bytes_per_step=tables,
+         roofline_span_s=b["spans"][0].get("dur"),
+         train_seconds={"without": a["seconds"], "with": b["seconds"]})
+    del runs
+    _free_card()
+
+
+def _measured_cell_peak(arch, shape, mesh):
+    """The peak device memory of one real step of the dry-run cell (real
+    tensors on the card, filled with valid values) on ``mesh``, from the
+    cell's arguments on: its parameters, state and batch are allocated
+    before the count starts, as the dry run's arguments are."""
+    import torch
+
+    from repro_torch.configs import registry
+
+    _free_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cell = registry.build_cell(arch, shape, mesh)
+    with torch.no_grad():
+        for p in cell.args[0].parameters():
+            if p.is_floating_point():
+                p.normal_(0.0, 0.02, generator=gen)
+        batch = cell.args[2]
+        for k, t in batch.items():
+            if k == "positions":
+                t.copy_(torch.arange(t.shape[-1], device=t.device).expand_as(
+                    t))
+            elif k == "mask":
+                t.fill_(True)
+            elif k in ("clicks", "labels"):
+                t.copy_(torch.rand(t.shape, generator=gen, device=t.device)
+                        < 0.3)
+            elif k == "field_ids":
+                t.random_(0, 80_000_000, generator=gen)
+            else:
+                t.random_(0, 2 ** 31 - 1, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cell.fn(*cell.args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del cell, batch
+    _free_card()
+    return peak
+
+
+def _recsys_mesh_hold(card, predicted):
+    """DeepFM and BST at their published widths on a (1, 1) NCCL mesh
+    (``place_``, ``make_train_step(mesh=)``), RECSYS_MESH_STEPS steps
+    against the same steps without a mesh from the same weights: losses
+    and parameters within RECSYS_MESH_TOL, and the embedding_bag and
+    flash_attention launches equal. Then the :data:`PEAK_CELLS`' real
+    steps on that mesh, their peaks beside the dry run's prediction (told,
+    not held)."""
+    import torch
+
+    from repro_torch.configs.recsys_common import SHAPES
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    rows = SHAPES["train_batch"]["batch"]
+    # index_add_'s atomics sum an id's repeats in no fixed order,
+    # and Adam turns a last-bit difference in a near-zero row gradient into
+    # a step's difference (1.9e-4 after 4 steps in this hold's first run):
+    # the runs take index_add_'s sorted, deterministic path.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _recsys_mesh_runs(card, mesh, rows)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    peaks = {}
+    for arch, shape in PEAK_CELLS:
+        peaks[arch] = {"measured_bytes": _measured_cell_peak(arch, shape,
+                                                             mesh),
+                       "predicted_bytes": predicted.get(arch)}
+    emit("dryrun_peak", card=card, world="1x1 (NCCL)", cells=peaks)
+    torch.distributed.destroy_process_group()
+
+
+def _recsys_mesh_runs(card, mesh, rows):
+    """The runs of :func:`_recsys_mesh_hold`: DeepFM and BST with and
+    without ``mesh``."""
+    import torch
+
+    from repro_torch import optim
+
+    for arch in ("deepfm", "bst"):
+        log = _log(arch, torch.device("cuda"), seed=4)
+        batches = [log.batch(rows) for _ in range(RECSYS_MESH_STEPS)]
+        runs = {}
+        for name in ("no_mesh", "mesh"):
+            _free_card()
+            model = _config(arch).make_model(device="cuda", seed=0)
+            m = None
+            if name == "mesh":
+                model.place_(mesh)
+                m = mesh
+            step = model.make_train_step(optim.adamw(1e-3), m)
+            state = step.init()
+            reset_counts()
+            losses = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for batch in batches:
+                state, loss = step(state, batch)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            runs[name] = {"seconds": time.perf_counter() - t0,
+                          "launches": read_counts(),
+                          "losses": [float(x) for x in losses],
+                          "params": [p.detach().clone()
+                                     for p in model.parameters()]}
+            del model, step, state
+        a, b = runs["no_mesh"], runs["mesh"]
+        worst = max(float((x - y).abs().max())
+                    for x, y in zip(a["params"], b["params"]))
+        loss_gap = max(abs(x - y) for x, y in zip(a["losses"],
+                                                  b["losses"]))
+        kernels = ("embedding_bag", "flash_attention", "fm_interaction",
+                   "adamw")
+        if worst > RECSYS_MESH_TOL or loss_gap > RECSYS_MESH_TOL or any(
+                a["launches"][k] != b["launches"][k] for k in kernels):
+            raise AssertionError(f"recsys_mesh {arch}: parameters "
+                                 f"{worst}, losses {loss_gap} apart; "
+                                 f"launches {a['launches']} "
+                                 f"{b['launches']}")
+        emit("recsys_mesh", card=card, arch=arch, steps=RECSYS_MESH_STEPS,
+             batch=rows, max_abs_param_diff=worst, max_loss_diff=loss_gap,
+             tol=RECSYS_MESH_TOL, launches=b["launches"],
+             losses=b["losses"],
+             ms_per_step={k: r["seconds"] / RECSYS_MESH_STEPS * 1e3
+                          for k, r in runs.items()},
+             deterministic_algorithms=True)
+        del runs, batches, log
+
+
+def phase_slice16(card, data, started=None):
+    """Slice 16, after every earlier path: the dry run (``started`` by
+    :func:`start_dryrun` earlier, else here, in subprocesses whose host
+    work overlaps other phases), the roofline hold and the recsys models on
+    a mesh; the dry run's prediction of the world-of-one peaks beside the
+    real steps'."""
+    t0 = time.perf_counter()
+    if started is None:
+        started = start_dryrun()
+    try:
+        _roofline_hold(card, data)
+        predicted = phase_dryrun(card, started)
+    finally:  # a failed hold leaves no dry-run process behind
+        stop_dryrun(started)
+    _recsys_mesh_hold(card, predicted)
+    emit("slice16_done", card=card, seconds=time.perf_counter() - t0)
+
+
+def _after_lm(smi, data, dryrun) -> None:
+    """The phases after the LM family's."""
+    # Slice 14, after every earlier path: a world of one under NCCL, and
+    # a world over every card where there are several.
+    phase_distrib(smi, data)
+    # Slice 15, after every earlier path: the LM family's sharded forms on
+    # a mesh (and, with several cards, a world over all of them).
+    phase_lm_mesh(smi, data)
+    # Slice 16, after every earlier path: the dry run (started before the
+    # LM phase), the roofline and the recsys models on a mesh.
+    phase_slice16(smi, data, dryrun)
+
+
 def main() -> int:
     import torch
 
@@ -7467,13 +7875,14 @@ def main() -> int:
     # then GraphSAGE and the LM family at their published widths.
     kernels.update(phase_adamw_bf16(smi))
     phase_gnn(smi)
-    lm = phase_lm(smi)
-    # Slice 14, after every earlier path: a world of one under NCCL, and
-    # a world over every card where there are several.
-    phase_distrib(smi, data)
-    # Slice 15, after every earlier path: the LM family's sharded forms on
-    # a mesh (and, with several cards, a world over all of them).
-    phase_lm_mesh(smi, data)
+    # slice 16's dry run is host work in subprocesses: it runs beside the
+    # LM phase, whose steps keep the card busy, and is read at the end
+    dryrun = start_dryrun()
+    try:
+        lm = phase_lm(smi)
+        _after_lm(smi, data, dryrun)
+    finally:
+        stop_dryrun(dryrun)
     del data
     # Each kernel's launches in the training run of its path; BST's
     # retrieval bag in its serve phase.

@@ -1,15 +1,15 @@
 """autoint [recsys] n_sparse=39 embed_dim=16 n_attn_layers=3 n_heads=2
 d_attn=32 interaction=self-attn [arXiv:1810.11921; paper].
 
-Port of ``repro.configs.autoint`` (``build_cell`` waits with
-``build_recsys_cell``), plus :func:`make_model`, which ``chip_smoke.py``
-drives.
+Port of ``repro.configs.autoint``, plus :func:`make_model`, which
+``chip_smoke.py`` drives.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.configs.recsys_common import SHAPES  # noqa: F401
+from repro_torch.configs.recsys_common import (  # noqa: F401
+    SHAPES, build_recsys_cell, tabular_batch_factory)
 from repro_torch.models.recsys import AutoInt, AutoIntConfig
 
 FULL = AutoIntConfig(name="autoint", n_sparse=39, embed_dim=16,
@@ -40,3 +40,14 @@ def make_model(device="cuda", seed: int = 0,
     """AutoInt at ``cfg`` (default the published width, :data:`FULL`), with
     random weights drawn on ``device`` from ``seed``."""
     return AutoInt(cfg or FULL, device=device, seed=seed)
+
+
+def build_cell(shape: str, mesh):
+    """The dry-run cell of :data:`FULL` at ``shape`` on ``mesh``."""
+    f = _flops_per_example(FULL)
+    return build_recsys_cell(
+        AutoInt(FULL, device="meta"), shape, mesh,
+        batch_factory=tabular_batch_factory(FULL.n_sparse),
+        flops_per_example=f,
+        retrieval_flops=f * 1_000_000,
+        arch_name=FULL.name)

@@ -2,15 +2,15 @@
 interaction=transformer-seq — Behavior Sequence Transformer (Alibaba)
 [arXiv:1905.06874; paper].
 
-Port of ``repro.configs.bst`` (``build_cell`` waits with
-``build_recsys_cell``), plus :func:`make_model`, which ``chip_smoke.py``
-drives.
+Port of ``repro.configs.bst``, plus :func:`make_model`, which
+``chip_smoke.py`` drives.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.configs.recsys_common import SHAPES  # noqa: F401
+from repro_torch.configs.recsys_common import (  # noqa: F401
+    SHAPES, build_recsys_cell, sequence_batch_factory)
 from repro_torch.models.recsys import BST, BSTConfig
 
 FULL = BSTConfig(name="bst", embed_dim=32, seq_len=20, n_blocks=1, n_heads=8,
@@ -36,3 +36,15 @@ def make_model(device="cuda", seed: int = 0,
     """BST at ``cfg`` (default the published width, :data:`FULL`), with
     random weights drawn on ``device`` from ``seed``."""
     return BST(cfg or FULL, device=device, seed=seed)
+
+
+def build_cell(shape: str, mesh):
+    """The dry-run cell of :data:`FULL` at ``shape`` on ``mesh``."""
+    f = _flops_per_example(FULL)
+    # retrieval path is the factorized dot: 2 * C * D
+    return build_recsys_cell(
+        BST(FULL, device="meta"), shape, mesh,
+        batch_factory=sequence_batch_factory(FULL.seq_len),
+        flops_per_example=f,
+        retrieval_flops=2.0 * 1_000_000 * FULL.embed_dim,
+        arch_name=FULL.name)

@@ -16,7 +16,12 @@ over the query-document features, and the naive DCTR with the same tower.
 sessions and a bulk serving batch of 262,144; :func:`serve_bulk` runs the
 latter through ``predict_clicks``. :func:`_param_specs` is JAX's sharding
 of the config: tables of 1,000,000 rows or more row-sharded over
-``model``, everything else replicated.
+``model``, everything else replicated. :func:`build_cell` builds the
+dry-run cells on it (UBM ``train_batch`` and ``serve_bulk``, DBN
+``train_batch``). Their tables have the rows ``EmbeddingParameter`` gives
+2^31 ids hashed 10x, 214,748,672 (rounded up to a multiple of 512), as
+JAX's own ``EmbeddingParameter`` sizes them; JAX's ``TABLE_ROWS``
+constant (214,748,160) is read by nothing.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import optim as optim_lib
+from repro_torch.configs.common import Cell, dp_axes, fake_module, local_batch
 from repro_torch.core import (Compression, DeepCrossParameterConfig,
                               DocumentCTR, DynamicBayesianNetwork,
                               EmbeddingParameterConfig, PositionBasedModel,
@@ -106,3 +113,78 @@ def serve_bulk(model, batch: Dict[str, np.ndarray]) -> np.ndarray:
         batch[k])).to(device) for k in ("positions", "query_doc_ids",
                                          "mask")})
     return out.cpu().numpy()
+
+
+def _place(model, mesh) -> None:
+    """Row-shard the tables of 1,000,000 rows or more over ``model`` (this
+    rank keeps its rows; the lookups go through the masked all-reduce),
+    leaving the rest whole: JAX's :func:`_param_specs`. The model counts
+    as placed on ``mesh`` (a ``TrainEngine`` on it places nothing
+    again)."""
+    from repro_torch.core.parameterization import EmbeddingParameter
+    from repro_torch.distrib.shardings import NamedSharding, P
+
+    for part in model.modules():
+        if isinstance(part, EmbeddingParameter):
+            for name in ("table", "quotient", "remainder"):
+                t = getattr(part, name, None)
+                if t is not None and t.shape[0] >= 1_000_000:
+                    part.shard_rows_(name, NamedSharding(mesh,
+                                                         P("model", None)))
+    model._mesh = mesh
+
+
+def build_cell(shape: str, mesh, kind: str = "ubm") -> Cell:
+    """The dry-run cell of the paper-width ``kind`` (``ubm`` or ``dbn``) at
+    ``shape`` on ``mesh``: ``train_batch`` is one step of the engine's
+    eager route (``TrainEngine._loop`` over a chunk of one batch, never a
+    capture), ``serve_bulk`` one ``predict_clicks`` over this rank's
+    rows."""
+    from repro_torch.distrib.shardings import P
+    from repro_torch.train.engine import TrainEngine
+
+    info = SHAPES[shape]
+    B = info["batch"]
+    dp = dp_axes(mesh)
+    device = mesh.device_type
+    model = fake_module(make_model(kind, device="meta"), device)
+    pspecs, _ = _param_specs(model)
+    _place(model, mesh)
+    shapes = {"positions": ((B, POSITIONS), torch.int32),
+              "query_doc_ids": ((B, POSITIONS), torch.int32),
+              "clicks": ((B, POSITIONS), torch.float32),
+              "mask": ((B, POSITIONS), torch.bool)}
+    bspecs = {k: P(dp, None) for k in shapes}
+    batch = local_batch(mesh, shapes, bspecs, device)
+
+    if info["kind"] == "train":
+        engine = TrainEngine(model, optim_lib.adamw(3e-3, weight_decay=1e-4),
+                             mesh=mesh)
+        opt_state = engine.init_opt_state()
+        chunk = {k: v[None] for k, v in batch.items()}
+
+        def train_step(model, opt_state, chunk):
+            return engine._loop(opt_state, chunk)
+
+        ospecs = (optim_lib.ScaleByAdamState(count=P(), mu=pspecs,
+                                             nu=pspecs), (), ())
+        return Cell(
+            arch=f"clax-{kind}-baidu", shape=shape, kind="train",
+            fn=train_step, args=(model, opt_state, chunk),
+            in_specs=(pspecs, ospecs, {k: P(None, dp, None)
+                                       for k in shapes}),
+            out_specs=(pspecs, ospecs, P()),
+            # log-space chain: ~60 flops/item fwd, 3x for bwd — gather-bound.
+            model_flops=3.0 * 60 * B * POSITIONS,
+            donate=(0, 1),
+            notes="2^31 ids hashed 10x -> 214.7M rows P('model'); AdamW",
+        )
+
+    return Cell(
+        arch=f"clax-{kind}-baidu", shape=shape, kind="serve",
+        fn=lambda model, batch: model.predict_clicks(batch),
+        args=(model, batch), in_specs=(pspecs, bspecs),
+        out_specs=P(dp, None),
+        model_flops=1.0 * 60 * B * POSITIONS * POSITIONS,
+        notes="unconditional click prediction (UBM marginalization O(K^2))",
+    )

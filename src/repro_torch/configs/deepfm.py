@@ -1,15 +1,15 @@
 """deepfm [recsys] n_sparse=39 embed_dim=10 mlp=400-400-400 interaction=fm
 [arXiv:1703.04247; paper]. Criteo-scale unified table (8e7 rows).
 
-Port of ``repro.configs.deepfm`` (``build_cell`` waits with
-``build_recsys_cell``), plus :func:`make_model`, which ``chip_smoke.py``
-drives.
+Port of ``repro.configs.deepfm``, plus :func:`make_model`, which
+``chip_smoke.py`` drives.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.configs.recsys_common import SHAPES  # noqa: F401
+from repro_torch.configs.recsys_common import (  # noqa: F401
+    SHAPES, build_recsys_cell, tabular_batch_factory)
 from repro_torch.models.recsys import DeepFM, DeepFMConfig
 
 FULL = DeepFMConfig(name="deepfm", n_sparse=39, embed_dim=10,
@@ -34,3 +34,14 @@ def make_model(device="cuda", seed: int = 0,
     """DeepFM at ``cfg`` (default the published width, :data:`FULL`), with
     random weights drawn on ``device`` from ``seed``."""
     return DeepFM(cfg or FULL, device=device, seed=seed)
+
+
+def build_cell(shape: str, mesh):
+    """The dry-run cell of :data:`FULL` at ``shape`` on ``mesh``."""
+    f = _flops_per_example(FULL)
+    return build_recsys_cell(
+        DeepFM(FULL, device="meta"), shape, mesh,
+        batch_factory=tabular_batch_factory(FULL.n_sparse),
+        flops_per_example=f,
+        retrieval_flops=f * 1_000_000,
+        arch_name=FULL.name)

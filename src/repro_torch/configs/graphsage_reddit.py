@@ -1,8 +1,8 @@
 """graphsage-reddit [gnn] n_layers=2 d_hidden=128 aggregator=mean
 sample_sizes=25-10 [arXiv:1706.02216; paper].
 
-Port of ``repro.configs.graphsage_reddit`` (``build_cell`` waits with the
-dry run), plus the molecule train step, which ``chip_smoke.py`` drives.
+Port of ``repro.configs.graphsage_reddit``, whose molecule train step
+``chip_smoke.py`` also drives.
 
 Shapes:
   full_graph_sm  Cora-scale full-batch (2708 nodes / 10556 edges / 1433 feats)
@@ -15,9 +15,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch import optim as optim_lib
+from repro_torch.configs.common import (Cell, dp_axes, fake_module,
+                                        local_batch)
+from repro_torch.distrib.shardings import P
 from repro_torch.models.gnn import SAGEConfig
 from repro_torch.models.gnn.graphsage import (full_graph_forward,
+                                              init_params,
+                                              make_full_graph_train_step,
                                               make_loss_step,
+                                              make_sampled_train_step,
                                               node_classification_loss)
 
 FULL = SAGEConfig(name="graphsage-reddit", n_layers=2, d_in=602, d_hidden=128,
@@ -60,12 +66,13 @@ def _flops_full(cfg, n_nodes, n_edges, d_feat):
     return 3 * total  # fwd + bwd(2x)
 
 
-def _make_molecule_step(cfg, optimizer, n_graphs):
+def _make_molecule_step(cfg, optimizer, n_graphs, mesh=None):
     """Graph classification: node logits mean-pooled per ``graph_ids``
     (JAX's ``segment_sum``: ``index_add_``), each graph labelled by the
-    label of every ``n // n_graphs``-th node."""
+    label of every ``n // n_graphs``-th node; with ``mesh`` the
+    aggregations split over its ranks, as :func:`full_graph_forward`'s."""
     def loss_fn(params, graph):
-        node_logits = full_graph_forward(cfg, params, graph)
+        node_logits = full_graph_forward(cfg, params, graph, mesh)
         ids = graph["graph_ids"]
         pooled = node_logits.new_zeros(n_graphs, node_logits.shape[1]
                                        ).index_add(0, ids, node_logits)
@@ -76,3 +83,93 @@ def _make_molecule_step(cfg, optimizer, n_graphs):
         return node_classification_loss(pooled, labels[:n_graphs])
 
     return make_loss_step(loss_fn, optimizer or optim_lib.adam(1e-2))
+
+
+def _pad_edges(n_edges: int, mesh) -> int:
+    from repro_torch.distrib.shardings import axis_size
+
+    n_dev = 1
+    for a in mesh.mesh_dim_names:
+        n_dev *= axis_size(mesh, a)
+    return -(-n_edges // n_dev) * n_dev
+
+
+def _params_opt(cfg, optimizer, device):
+    params = fake_module(init_params(cfg, device="meta"), device)
+    return params, optimizer.init(list(params.parameters()))
+
+
+def build_cell(shape: str, mesh) -> Cell:
+    """The dry-run cell at ``shape`` on ``mesh``. Full-batch and molecule:
+    every rank holds the whole graph (nodes replicated, JAX's placement)
+    and takes its slice of the edges, padded to a multiple of the ranks as
+    JAX pads them, then one all-reduce sums the aggregations
+    (:func:`full_graph_forward` on a mesh); JAX holds only the slice.
+    Sampled: the batch over the data axes."""
+    info = SHAPES[shape]
+    all_axes = tuple(mesh.mesh_dim_names)
+    device = mesh.device_type
+    optimizer = optim_lib.adam(1e-2)
+
+    if info["kind"] in ("full", "molecule"):
+        if info["kind"] == "molecule":
+            n_nodes = info["n_nodes"] * info["batch"]
+            n_edges_raw = info["n_edges"] * info["batch"]
+        else:
+            n_nodes, n_edges_raw = info["n_nodes"], info["n_edges"]
+        cfg = shape_config(shape)
+        n_edges = _pad_edges(n_edges_raw, mesh)
+        shapes = {
+            "features": ((n_nodes, info["d_feat"]), torch.float32),
+            "src": ((n_edges,), torch.int32),
+            "dst": ((n_edges,), torch.int32),
+            "edge_weight": ((n_edges,), torch.float32),
+            "degree_inv": ((n_nodes,), torch.float32),
+            "labels": ((n_nodes,), torch.int32),
+        }
+        if info["kind"] == "molecule":
+            shapes["graph_ids"] = ((n_nodes,), torch.int32)
+            fn = _make_molecule_step(cfg, optimizer, info["batch"], mesh)
+        else:
+            fn = make_full_graph_train_step(cfg, optimizer, mesh)
+        gspecs = {k: P(None) for k in shapes}
+        graph = local_batch(mesh, shapes, gspecs, device)
+        params, opt_state = _params_opt(cfg, optimizer, device)
+        return Cell(
+            arch=FULL.name, shape=shape, kind="train", fn=fn,
+            args=(params, opt_state, graph),
+            in_specs=(P(), P(), gspecs), out_specs=(P(), P(), P()),
+            model_flops=_flops_full(cfg, n_nodes, n_edges_raw,
+                                    info["d_feat"]),
+            donate=(0, 1),
+            notes=f"edges padded {n_edges_raw}->{n_edges}, each rank's "
+                  f"slice over {all_axes}; nodes replicated + psum",
+        )
+
+    # sampled minibatch (Reddit)
+    cfg = shape_config(shape)
+    B = info["batch_nodes"]
+    f1, f2 = info["fanout"]
+    dp = dp_axes(mesh)
+    shapes = {
+        "feats_hop_0": ((B, info["d_feat"]), torch.float32),
+        "feats_hop_1": ((B, f1, info["d_feat"]), torch.float32),
+        "feats_hop_2": ((B, f1, f2, info["d_feat"]), torch.float32),
+        "labels": ((B,), torch.int32),
+    }
+    bspecs = {"feats_hop_0": P(dp, None), "feats_hop_1": P(dp, None, None),
+              "feats_hop_2": P(dp, None, None, None), "labels": P(dp)}
+    batch = local_batch(mesh, shapes, bspecs, device)
+    params, opt_state = _params_opt(cfg, optimizer, device)
+    gathered = B * (1 + f1 + f1 * f2)
+    flops = 3 * (2.0 * 2 * gathered * info["d_feat"] * cfg.d_hidden
+                 + 2.0 * 2 * B * cfg.d_hidden * cfg.n_classes)
+    return Cell(
+        arch=FULL.name, shape=shape, kind="train",
+        fn=make_sampled_train_step(cfg, optimizer, mesh),
+        args=(params, opt_state, batch),
+        in_specs=(P(), P(), bspecs), out_specs=(P(), P(), P()),
+        model_flops=flops,
+        donate=(0, 1),
+        notes=f"host NeighborSampler feeds fixed fanout {info['fanout']}",
+    )

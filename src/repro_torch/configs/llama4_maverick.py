@@ -6,11 +6,10 @@ The early-fusion modality frontend is a stub per the brief: input_specs
 provide token ids for the backbone.
 
 
-Port of ``repro.configs.llama4_maverick`` (``build_cell`` waits with the dry
-run)."""
+Port of ``repro.configs.llama4_maverick``."""
 import torch
 
-from repro_torch.configs.lm_common import SHAPES  # noqa: F401
+from repro_torch.configs.lm_common import SHAPES, build_lm_cell  # noqa: F401
 from repro_torch.models.lm import LMConfig
 
 FULL = LMConfig(
@@ -29,3 +28,8 @@ def reduced() -> LMConfig:
                     n_heads=4, n_kv_heads=2, d_ff=128, vocab=256, head_dim=16,
                     moe=True, n_experts=8, top_k=1, d_ff_moe=128,
                     moe_layer_step=2, n_shared_experts=1, attn_chunk=16)
+
+
+def build_cell(shape: str, mesh):
+    """The dry-run cell of :data:`FULL` at ``shape`` on ``mesh``."""
+    return build_lm_cell(FULL, shape, mesh)

@@ -1,15 +1,15 @@
 """mind [recsys] embed_dim=64 n_interests=4 capsule_iters=3
 interaction=multi-interest [arXiv:1904.08030; unverified].
 
-Port of ``repro.configs.mind`` (``build_cell`` waits with
-``build_recsys_cell``), plus :func:`make_model`, which ``chip_smoke.py``
-drives.
+Port of ``repro.configs.mind``, plus :func:`make_model`, which
+``chip_smoke.py`` drives.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.configs.recsys_common import SHAPES  # noqa: F401
+from repro_torch.configs.recsys_common import (  # noqa: F401
+    SHAPES, build_recsys_cell, sequence_batch_factory)
 from repro_torch.models.recsys import MIND, MINDConfig
 
 FULL = MINDConfig(name="mind", embed_dim=64, n_interests=4, capsule_iters=3,
@@ -34,3 +34,15 @@ def make_model(device="cuda", seed: int = 0,
     """MIND at ``cfg`` (default the published width, :data:`FULL`), with
     random weights drawn on ``device`` from ``seed``."""
     return MIND(cfg or FULL, device=device, seed=seed)
+
+
+def build_cell(shape: str, mesh):
+    """The dry-run cell of :data:`FULL` at ``shape`` on ``mesh``."""
+    f = _flops_per_example(FULL)
+    return build_recsys_cell(
+        MIND(FULL, device="meta"), shape, mesh,
+        batch_factory=sequence_batch_factory(FULL.history_len),
+        flops_per_example=f,
+        retrieval_flops=f + 2.0 * 1_000_000 * FULL.n_interests
+        * FULL.embed_dim,
+        arch_name=FULL.name)

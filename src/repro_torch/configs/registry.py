@@ -3,14 +3,16 @@ resolution.
 
 ``ARCHS`` holds JAX's ten archs in JAX's order (the five LM archs,
 GraphSAGE and the four recsys archs) and ``EXTRA_CELLS`` the paper's own
-cells; :func:`get_arch` raises JAX's ``KeyError`` on an unknown id.
-``build_cell`` waits with ``launch/dryrun.py``.
+cells with their builders; :func:`get_arch` raises JAX's ``KeyError`` on
+an unknown id, and :func:`build_cell` builds any cell for the dry run.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
-from repro_torch.configs import (autoint, bst, deepfm, graphsage_reddit,
+from repro_torch.configs import (autoint, bst, clax_baidu, deepfm,
+                                 graphsage_reddit,
                                  granite_moe_1b, llama3_2_1b, llama3_405b,
                                  llama4_maverick, mind, phi3_mini_3_8b)
 from repro_torch.configs.lm_common import SHAPES as LM_SHAPES
@@ -34,11 +36,14 @@ LM_ARCHS = ("llama3-405b", "phi3-mini-3.8b", "llama3.2-1b",
 RECSYS_ARCHS = ("deepfm", "mind", "bst", "autoint")
 
 #: Extra (beyond the assigned cells): the paper's own workload, as
-#: (arch, shape).
+#: (arch, shape, builder of ``mesh``).
 EXTRA_CELLS = [
-    ("clax-ubm-baidu", "train_batch"),
-    ("clax-ubm-baidu", "serve_bulk"),
-    ("clax-dbn-baidu", "train_batch"),
+    ("clax-ubm-baidu", "train_batch",
+     functools.partial(clax_baidu.build_cell, "train_batch", kind="ubm")),
+    ("clax-ubm-baidu", "serve_bulk",
+     functools.partial(clax_baidu.build_cell, "serve_bulk", kind="ubm")),
+    ("clax-dbn-baidu", "train_batch",
+     functools.partial(clax_baidu.build_cell, "train_batch", kind="dbn")),
 ]
 
 
@@ -63,5 +68,13 @@ def list_cells(include_extra: bool = False) -> List[Tuple[str, str]]:
     """The assigned (arch, shape) cells (+ optional paper-own extras)."""
     cells = [(a, s) for a in ARCHS for s in arch_shapes(a)]
     if include_extra:
-        cells += list(EXTRA_CELLS)
+        cells += [(a, s) for a, s, _ in EXTRA_CELLS]
     return cells
+
+
+def build_cell(arch_id: str, shape: str, mesh):
+    """The dry-run cell of ``(arch_id, shape)`` on ``mesh``."""
+    for a, s, fn in EXTRA_CELLS:
+        if (a, s) == (arch_id, shape):
+            return fn(mesh)
+    return get_arch(arch_id).build_cell(shape, mesh)

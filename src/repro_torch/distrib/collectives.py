@@ -168,12 +168,14 @@ def sharded_embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     return full[ids]
 
 
-def masked_psum_lookup(mesh, *, batch_dims: int = 2):
+def masked_psum_lookup(mesh, *, batch_dims: int = 2, gather=None):
     """A lookup ``(table_shard (rows, d), ids (B, K) or (B,)) -> (B, K, d)``
     for a table row-sharded over ``model``: each model rank gathers the
     rows it owns (ids outside its range give zeros) and the pieces are
     summed over ``model``. Differentiable: the gradient scatters into the
-    owning shard only."""
+    owning shard only. ``gather(table, rows)`` gathers the local rows
+    (default ``table[rows]``; the recsys tables pass theirs, whose
+    backward is one ``index_add_``)."""
     group = mesh.get_group(MODEL_AXIS)
     midx = axis_index(mesh, MODEL_AXIS)
 
@@ -184,7 +186,9 @@ def masked_psum_lookup(mesh, *, batch_dims: int = 2):
         rows = table_shard.shape[0]
         local = ids.to(torch.int64) - midx * rows
         owned = (local >= 0) & (local < rows)
-        emb = table_shard[torch.clamp(local, 0, rows - 1)]
+        safe = torch.clamp(local, 0, rows - 1)
+        emb = table_shard[safe] if gather is None else gather(table_shard,
+                                                               safe)
         emb = torch.where(owned[..., None], emb, torch.zeros_like(emb))
         return AllReduceSum.apply(emb, group)
 

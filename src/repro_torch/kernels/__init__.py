@@ -6,7 +6,14 @@ by device; and the optimizer's two kernels, ``adamw`` (dense, one pass)
 and ``sparse_adamw`` (lazy, touched rows only), in CUDA C++. ``session_nll_triton`` is ``session_nll``'s first design, kept
 to be timed beside the CUDA kernel. Each wrapper's ``.launches`` counts the
 launches it makes, none while the current stream is being captured into a
-CUDA graph: the graph's replays run the kernel, with no wrapper."""
+CUDA graph: the graph's replays run the kernel, with no wrapper.
+
+Each wrapper checks its inputs and hands them to a registered op,
+``torch.ops.repro_torch.<name>`` (``torch.library.custom_op``), whose body
+launches the kernel (and counts the launch) and whose fake form makes only
+the outputs' shapes and types: under ``FakeTensorMode`` (the dry run,
+``TrainEngine.roofline``) a kernel is met as the op it is and nothing
+launches. :mod:`repro_torch.kernels.cost` gives each op's work."""
 from repro_torch.kernels.adamw import adamw_cuda
 from repro_torch.kernels.dcn_cross import dcn_cross_cuda, dcn_cross_plain
 from repro_torch.kernels.embedding_bag import (embedding_bag_cuda,

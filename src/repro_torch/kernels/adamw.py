@@ -133,10 +133,28 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                          "predicate, for norm=True only")
     if not all(t.is_contiguous() for t in (p, g, m, v)):
         raise ValueError("adamw_cuda takes contiguous tensors")
-    n = p.numel()
-    if n == 0:
+    if p.numel() == 0:
         return torch.zeros((), dtype=torch.float64, device=device) \
             if norm else None
+    out = torch.ops.repro_torch.adamw(
+        p, g, m, v, count, lr_tensor, pred, apply, bool(norm), float(b1),
+        float(b2), float(eps), float(weight_decay), float(lr))
+    return out if norm else None
+
+
+@torch.library.custom_op("repro_torch::adamw", mutates_args=("p", "m", "v"),
+                         device_types="cuda")
+def _launch(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+            v: torch.Tensor, count: torch.Tensor,
+            lr_tensor: Optional[torch.Tensor], pred: Optional[torch.Tensor],
+            apply: Optional[torch.Tensor], norm: bool, b1: float, b2: float,
+            eps: float, weight_decay: float, lr: float) -> torch.Tensor:
+    """The launch, as a registered op that writes ``p``, ``m`` and ``v`` in
+    place: a fake tensor meets its fake form, which launches nothing. It
+    returns the 0-d float64 sum of squares with ``norm``, else an empty
+    (0,) tensor (an op returns a tensor or nothing, never either)."""
+    device = p.device
+    n = p.numel()
     vector = all(_aligned(t, 4 * t.element_size()) for t in (p, g, m, v))
     plan = launch_plan(n, vector, _sm_count(device.index
                                             if device.index is not None
@@ -161,7 +179,15 @@ def adamw_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                            + lib.adamw_error_string(err).decode())
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         adamw_cuda.launches += 1
-    return None if partials is None else partials.sum()
+    if partials is None:
+        return torch.empty(0, dtype=torch.float64, device=device)
+    return partials.sum()
+
+
+@_launch.register_fake
+def _(p, g, m, v, count, lr_tensor, pred, apply, norm, b1, b2, eps,
+      weight_decay, lr):
+    return p.new_empty(() if norm else (0,), dtype=torch.float64)
 
 
 adamw_cuda.launches = 0

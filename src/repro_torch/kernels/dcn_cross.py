@@ -27,8 +27,6 @@ from repro_torch.kernels.ref import dcn_cross_ref as dcn_cross_plain
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
     """Build (first use) and load the kernel library, with its C signatures:
@@ -74,9 +72,20 @@ def dcn_cross_cuda(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
         raise TypeError(f"dcn_cross takes float32 or bfloat16, got {x.dtype}")
     if dim >= 2 ** 31 or -(-rows // 64) >= 2 ** 31:
         raise ValueError(f"({rows}, {dim}) exceeds one launch's grid")
+    if rows * dim == 0:
+        return torch.empty(rows, dim, dtype=torch.float32, device=device)
+    return torch.ops.repro_torch.dcn_cross(x0, x, w, b)
+
+
+@torch.library.custom_op("repro_torch::dcn_cross", mutates_args=(),
+                         device_types="cuda")
+def _launch(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+            b: torch.Tensor) -> torch.Tensor:
+    """The launch, as a registered op: a fake tensor meets its fake form,
+    which makes the (B, D) output and launches nothing."""
+    rows, dim = x.shape
+    device = x.device
     out = torch.empty(rows, dim, dtype=torch.float32, device=device)
-    if out.numel() == 0:
-        return out
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -89,6 +98,11 @@ def dcn_cross_cuda(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         dcn_cross_cuda.launches += 1
     return out
+
+
+@_launch.register_fake
+def _(x0, x, w, b):
+    return x.new_empty(x.shape, dtype=torch.float32)
 
 
 dcn_cross_cuda.launches = 0

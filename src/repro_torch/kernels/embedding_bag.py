@@ -198,29 +198,50 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
     if dim >= 2 ** 31 or slots >= 2 ** 31:
         raise ValueError(f"D = {dim} or L = {slots} exceeds the kernel's "
                          "int32 arguments")
-    out = torch.empty(bags, dim, dtype=torch.float32, device=device)
-    if out.numel() == 0:
-        return out
+    if bags * dim == 0:
+        return torch.empty(bags, dim, dtype=torch.float32, device=device)
     if rows == 0 and slots > 0:
         raise ValueError("embedding_bag takes a table of at least one row")
     if plan is None:
         plan = plan_for(table, ids, weights)
     if plan.grid >= 2 ** 31:
         raise ValueError(f"{bags} bags x {dim} exceeds one launch's grid")
+    return torch.ops.repro_torch.embedding_bag(table, ids, weights,
+                                               plan.tile_bags,
+                                               plan.smem_bytes)
+
+
+@torch.library.custom_op("repro_torch::embedding_bag", mutates_args=(),
+                         device_types="cuda")
+def _launch(table: torch.Tensor, ids: torch.Tensor,
+            weights: Optional[torch.Tensor], tile_bags: int,
+            smem_bytes: int) -> torch.Tensor:
+    """The launch, as a registered op: a fake tensor meets its fake form,
+    which makes the (B, D) output and launches nothing."""
+    rows, dim = table.shape
+    bags, slots = ids.shape
+    device = table.device
+    out = torch.empty(bags, dim, dtype=torch.float32, device=device)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.embedding_bag_forward(
             table.data_ptr(), ids.data_ptr(),
             None if weights is None else weights.data_ptr(), out.data_ptr(),
-            rows, dim, bags, slots, ids.element_size(), plan.tile_bags,
-            plan.smem_bytes, stream)
+            rows, dim, bags, slots, ids.element_size(), tile_bags,
+            smem_bytes, stream)
     if err != 0:
         raise RuntimeError("embedding_bag kernel launch failed: "
                            + lib.embedding_bag_error_string(err).decode())
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         embedding_bag_cuda.launches += 1
     return out
+
+
+@_launch.register_fake
+def _(table, ids, weights, tile_bags, smem_bytes):
+    return table.new_empty((ids.shape[0], table.shape[1]),
+                           dtype=torch.float32)
 
 
 embedding_bag_cuda.launches = 0

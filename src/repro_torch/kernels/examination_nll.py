@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -168,8 +168,24 @@ def examination_nll_cuda(attr_logits, clicks, mask, p_skip_survive, p_death,
         return attr_logits.new_zeros(())
     if plan is None:
         plan = launch_plan(rows, cols)
+    return torch.ops.repro_torch.examination_nll(
+        attr_logits, clicks, mask, p_skip_survive, p_death, p_reset,
+        p_reset_not, list(plan))
+
+
+@torch.library.custom_op("repro_torch::examination_nll", mutates_args=(),
+                         device_types="cuda")
+def _launch(attr_logits: torch.Tensor, clicks: torch.Tensor,
+            mask: torch.Tensor, p_skip_survive: torch.Tensor,
+            p_death: torch.Tensor, p_reset: torch.Tensor,
+            p_reset_not: torch.Tensor, plan: List[int]) -> torch.Tensor:
+    """The launch, as a registered op: a fake tensor meets its fake form,
+    which makes the scalar output and launches nothing."""
+    rows_per_block, threads, grid, smem_bytes = plan
+    rows, cols = attr_logits.shape
+    device = attr_logits.device
     lib = _library()
-    partials = torch.empty(2 * plan.grid, dtype=torch.float32, device=device)
+    partials = torch.empty(2 * grid, dtype=torch.float32, device=device)
     out = torch.empty((), dtype=torch.float32, device=device)
     ticket = last_block.counter(device)
     with torch.cuda.device(device):
@@ -179,13 +195,19 @@ def examination_nll_cuda(attr_logits, clicks, mask, p_skip_survive, p_death,
             p_skip_survive.data_ptr(), p_death.data_ptr(),
             p_reset.data_ptr(), p_reset_not.data_ptr(), partials.data_ptr(),
             ticket.data_ptr(), out.data_ptr(), rows, cols,
-            plan.rows_per_block, plan.threads, plan.smem_bytes, stream)
+            rows_per_block, threads, smem_bytes, stream)
     if err != 0:
         raise RuntimeError("examination_nll kernel launch failed: "
                            + lib.examination_nll_error_string(err).decode())
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         examination_nll_cuda.launches += 1
     return out
+
+
+@_launch.register_fake
+def _(attr_logits, clicks, mask, p_skip_survive, p_death, p_reset,
+      p_reset_not, plan):
+    return attr_logits.new_empty((), dtype=torch.float32)
 
 
 examination_nll_cuda.launches = 0

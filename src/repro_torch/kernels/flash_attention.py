@@ -30,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from fractions import Fraction
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -293,28 +293,55 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("a batch, head or sequence count exceeds the "
                          "kernel's int32 arguments")
     scale = scale if scale is not None else 1.0 / (Dh ** 0.5)
-    out = empty_like_layout(q)
-    if out.numel() == 0:
-        return out
+    if B * Hq * Sq * Dh == 0:
+        return empty_like_layout(q)
     if Skv == 0:
         raise ValueError("flash_attention over an empty key sequence")
+    fields = None
+    if plan is not None:
+        fields = [int(plan.variant == "rows"), plan.per_group, plan.stages,
+                  plan.threads, plan.grid, plan.smem_bytes]
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
+                                                 float(scale), fields)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float, plan: Optional[List[int]]) -> torch.Tensor:
+    """The launch, as a registered op: a fake tensor meets its fake form,
+    which makes the output in q's layout and launches nothing. ``plan``:
+    None for :func:`plan_for` (which reads the inputs' alignment), else
+    the launch's (rows variant, per_group, stages, threads, grid,
+    smem_bytes)."""
+    B, Hq, Sq, Dh = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    device = q.device
     if plan is None:
-        plan = plan_for(q, k, v, causal)
+        p = plan_for(q, k, v, causal)
+        plan = [int(p.variant == "rows"), p.per_group, p.stages, p.threads,
+                p.grid, p.smem_bytes]
+    rows, per_group, stages, threads, grid, smem_bytes = plan
+    out = empty_like_layout(q)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
             Hkv, Sq, Skv, Dh, layout(q), layout(k), layout(v),
-            int(q.dtype == torch.bfloat16), float(scale), int(causal),
-            int(plan.variant == "rows"), plan.per_group, plan.stages,
-            plan.threads, plan.grid, plan.smem_bytes, stream)
+            int(q.dtype == torch.bfloat16), scale, int(causal), rows,
+            per_group, stages, threads, grid, smem_bytes, stream)
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         flash_attention_cuda.launches += 1
     return out
+
+
+@_launch.register_fake
+def _(q, k, v, causal, scale, plan):
+    return empty_like_layout(q)
 
 
 flash_attention_cuda.launches = 0

@@ -104,14 +104,23 @@ def fm_interaction_triton(v: torch.Tensor) -> torch.Tensor:
     B, F, D = v.shape
     if D > MAX_D:
         raise ValueError(f"fm_interaction_triton takes D <= {MAX_D}, got {D}")
-    out = torch.empty(B, dtype=torch.float32, device=device)
     if B == 0:
-        return out
+        return torch.empty(B, dtype=torch.float32, device=device)
     if F == 0 or D == 0:
-        return out.zero_()
+        return torch.zeros(B, dtype=torch.float32, device=device)
+    return torch.ops.repro_torch.fm_interaction(v)
+
+
+@torch.library.custom_op("repro_torch::fm_interaction", mutates_args=(),
+                         device_types="cuda")
+def _launch(v: torch.Tensor) -> torch.Tensor:
+    """The launch, as a registered op: a fake tensor meets its fake form,
+    which makes the (B,) output and launches nothing."""
+    B, F, D = v.shape
+    out = torch.empty(B, dtype=torch.float32, device=v.device)
     block_b, block_f, block_d = block_shape(F, D)
     grid = ((B + block_b - 1) // block_b,)
-    with torch.cuda.device(device):
+    with torch.cuda.device(v.device):
         # No fma contraction: s*s - sq must round as the plain form does,
         # so a row of one field gives exactly 0.
         _kernel()[grid](v, out, B, F, D, BLOCK_B=block_b, BLOCK_F=block_f,
@@ -119,6 +128,11 @@ def fm_interaction_triton(v: torch.Tensor) -> torch.Tensor:
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         fm_interaction_triton.launches += 1
     return out
+
+
+@_launch.register_fake
+def _(v):
+    return v.new_empty((v.shape[0],), dtype=torch.float32)
 
 
 fm_interaction_triton.launches = 0

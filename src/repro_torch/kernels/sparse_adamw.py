@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -150,6 +151,26 @@ def sparse_adamw_cuda(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
     if slots * d == 0:
         return torch.zeros((), dtype=torch.float64, device=device) \
             if norm else None
+    out = torch.ops.repro_torch.sparse_adamw(
+        table, mu, nu, ids, grads, count, pred, apply, bool(norm), float(lr),
+        float(b1), float(b2), float(eps), float(weight_decay))
+    return out if norm else None
+
+
+@torch.library.custom_op("repro_torch::sparse_adamw",
+                         mutates_args=("table", "mu", "nu"),
+                         device_types="cuda")
+def _launch(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+            ids: torch.Tensor, grads: torch.Tensor, count: torch.Tensor,
+            pred: Optional[torch.Tensor], apply: Optional[torch.Tensor],
+            norm: bool, lr: float, b1: float, b2: float, eps: float,
+            weight_decay: float) -> torch.Tensor:
+    """The launch, as a registered op that writes ``table``, ``mu`` and
+    ``nu`` in place: a fake tensor meets its fake form, which launches
+    nothing. It returns the 0-d float64 sum with ``norm``, else an empty
+    (0,) tensor."""
+    device = table.device
+    slots, d = grads.shape
     partials = (torch.empty(-(-slots * d // 256), dtype=torch.float64,
                             device=device) if norm else None)
     lib = _library()
@@ -168,7 +189,15 @@ def sparse_adamw_cuda(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
                            + lib.sparse_adamw_error_string(err).decode())
     if not torch.cuda.is_current_stream_capturing():  # a capture runs nothing
         sparse_adamw_cuda.launches += 1
-    return None if partials is None else partials.sum()
+    if partials is None:
+        return torch.empty(0, dtype=torch.float64, device=device)
+    return partials.sum()
+
+
+@_launch.register_fake
+def _(table, mu, nu, ids, grads, count, pred, apply, norm, lr, b1, b2, eps,
+      weight_decay):
+    return table.new_empty(() if norm else (0,), dtype=torch.float64)
 
 
 sparse_adamw_cuda.launches = 0

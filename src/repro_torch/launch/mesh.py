@@ -21,6 +21,14 @@ instead of waiting for ever. Beside the mesh's groups there is one gloo
 group over the whole world, :func:`host_group`, for decisions the host
 takes (the preemption flag): reducing them there never waits on the card.
 It is made at its first use, by every rank at once.
+
+:func:`start_fake_world` starts a world of many ranks in one process:
+rank 0 of ``torch.distributed``'s ``fake`` backend, whose collectives
+return at once and move nothing. A mesh over it has every group and
+coordinate of rank 0 of the real world, on either device; it is what the
+dry run (:mod:`repro_torch.launch.dryrun`) builds its cells on, with fake
+tensors. A process holds one world, so a fake one runs in a process of
+its own.
 """
 from __future__ import annotations
 
@@ -49,8 +57,29 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def is_fake_world() -> bool:
+    """Whether the running world is a :func:`start_fake_world` one."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
+def start_fake_world(world_size: int) -> None:
+    """Start a world of ``world_size`` ranks in this process, as rank 0 of
+    the ``fake`` backend (``torch.testing._internal.distributed.fake_pg``):
+    every group forms, every collective returns at once and moves
+    nothing."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a world is running already: a fake world needs "
+                           "a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(world_size))
+
+
 def _device_type(device) -> str:
     kind = torch.device(device).type
+    if is_fake_world() and kind in _BACKEND:
+        return kind
     if kind not in _BACKEND:
         raise ValueError(f"meshes run on cuda (NCCL) or cpu (gloo), not "
                          f"{device!r}")
@@ -78,6 +107,8 @@ def ensure_world(device="cuda") -> None:
     the backend ``device`` needs."""
     kind = _device_type(device)
     backend = _BACKEND[kind]
+    if is_fake_world():
+        return
     if dist.is_initialized():
         have = dist.get_backend()
         if have != backend:
@@ -136,8 +167,8 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
         mine = None
         # every rank makes every group, in the same order
         for row in ranks.movedim(dim, -1).reshape(-1, shape[dim]).tolist():
-            group = dist.new_group(row, timeout=TIMEOUT,
-                                   backend=_BACKEND[kind])
+            group = dist.new_group(row, timeout=TIMEOUT, backend=None
+                                   if is_fake_world() else _BACKEND[kind])
             if me in row:
                 mine = group
         groups.append(mine)

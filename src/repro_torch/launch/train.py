@@ -48,8 +48,16 @@ Observability: ``--metrics-out`` writes telemetry events as JSONL (and
 turns on the engine's per-step grad and parameter norms), ``--trace-out``
 exports the host spans as a Chrome trace at the end, ``--obs-every`` thins
 per-step events, and ``--profile-steps A:B`` opens a ``torch.profiler``
-window into ``--profile-dir``. ``--kernel-impl`` and ``--emit-roofline``
-wait for later slices.
+window into ``--profile-dir``. ``--emit-roofline`` emits the chunk step's
+per-device cost once as a ``roofline`` event (``TrainEngine.roofline``: a
+fake run of one chunk, counted by ``launch/op_cost.py``).
+
+JAX's ``--kernel-impl`` (``pallas`` / ``xla`` / ``ref``, resolved at trace
+time by ``repro.kernels.dispatch``) has no counterpart, by design: in the
+port the device picks, a CUDA tensor launching the hand-written kernel (or
+raising) and a CPU tensor taking its plain version, with no registry and
+no fallback; ``chip_smoke.py``'s ``conformance`` phase holds each kernel
+route against its plain route on the card.
 
 Data parallelism: ``--data-parallel`` trains on a ``(n, 1)`` mesh over
 every rank of the world (``launch.mesh.make_data_parallel_mesh``; NCCL on
@@ -247,6 +255,10 @@ def main(argv=None):
                          "chunks covering global steps A..B")
     ap.add_argument("--profile-dir", default="profile",
                     help="directory the --profile-steps trace is written to")
+    ap.add_argument("--emit-roofline", action="store_true",
+                    help="emit the chunk step's per-device cost (flops, "
+                         "bytes, collective wire, peak; a fake run of one "
+                         "chunk) once as a roofline telemetry event")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
     if args.ingest_workers < 1:
@@ -358,7 +370,8 @@ def main(argv=None):
                       telemetry=bool(args.metrics_out),
                       obs_every=args.obs_every,
                       profile_steps=args.profile_steps,
-                      profile_dir=args.profile_dir, mesh=mesh)
+                      profile_dir=args.profile_dir, mesh=mesh,
+                      emit_roofline=args.emit_roofline)
     try:
         trainer.train(model, train_loader, val_loader,
                       resume=bool(args.ckpt_dir))

@@ -113,7 +113,7 @@ def init_params(cfg: SAGEConfig, gen: Optional[torch.Generator] = None, *,
     """JAX's init: per layer ``w_self`` and ``w_neigh`` ~ N(0, 1 / fan_in),
     zero bias, drawn from ``gen`` (default: a generator on ``device`` seeded
     with ``seed``)."""
-    if gen is None:
+    if gen is None and torch.device(device).type != "meta":
         gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
     return SAGEParams(cfg, gen, device)
 
@@ -313,16 +313,37 @@ def node_classification_loss(logits, labels, mask=None) -> torch.Tensor:
     return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
-def make_loss_step(loss_fn, optimizer):
+def make_loss_step(loss_fn, optimizer, mesh=None):
     """``step(params, opt_state, data) -> (params, opt_state, loss)`` for
     ``loss_fn(params, data)``: the gradient, then ``optim.step`` in place on
-    the parameters (returned as the same module)."""
+    the parameters (returned as the same module). With ``mesh`` the data
+    are this rank's rows of a batch split over the data axes: the loss is
+    each rank's mean divided by their number, and it and every gradient
+    are summed over them (the global batch's mean, as JAX's replicated
+    parameters under a batch-sharded step)."""
+    group, share = None, 1
+    if mesh is not None:
+        from repro_torch.distrib.collectives import axes_group
+        from repro_torch.distrib.shardings import (DATA_AXES,
+                                                   data_parallel_size)
+
+        group = axes_group(mesh, DATA_AXES(mesh))
+        share = data_parallel_size(mesh)
+
     def step(params, opt_state, data):
         plist = list(params.parameters())
         loss = loss_fn(params, data)
+        if group is not None:
+            loss = loss / share
         grads = torch.autograd.grad(loss, plist)
+        loss = loss.detach()
+        if group is not None:
+            import torch.distributed as dist
+
+            for t in (loss,) + grads:
+                dist.all_reduce(t, group=group)
         opt_state = optim_lib.step(optimizer, grads, opt_state, plist)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step
 
@@ -335,8 +356,11 @@ def make_full_graph_train_step(cfg: SAGEConfig, optimizer=None, mesh=None):
             graph.get("label_mask")), optimizer)
 
 
-def make_sampled_train_step(cfg: SAGEConfig, optimizer=None):
+def make_sampled_train_step(cfg: SAGEConfig, optimizer=None, mesh=None):
+    """The sampled step; with ``mesh`` over this rank's rows of the batch
+    (see :func:`make_loss_step`)."""
     optimizer = optimizer or optim_lib.adam(1e-2)
     return make_loss_step(
         lambda p, batch: node_classification_loss(
-            sampled_forward(cfg, p, batch), batch["labels"]), optimizer)
+            sampled_forward(cfg, p, batch), batch["labels"]), optimizer,
+        mesh)

@@ -61,9 +61,10 @@ class AutoInt(RecsysModel):
     def _layer_dims(self):
         return [self.cfg.embed_dim] + [self.cfg.d_attn] * self.cfg.n_attn_layers
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor], mesh=None
+                ) -> torch.Tensor:
         cfg = self.cfg
-        h = table_lookup(cfg.table, self.embedding, batch["field_ids"])
+        h = table_lookup(cfg.table, self.embedding, batch["field_ids"], mesh)
         B, F, _ = h.shape
         for l in range(cfg.n_attn_layers):
             lp = getattr(self, f"attn_{l}")

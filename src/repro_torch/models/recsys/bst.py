@@ -74,12 +74,13 @@ class BST(RecsysModel):
         """JAX's ``BST._ln``: population variance, eps 1e-6, no bias."""
         return layer_norm(x, scale).to(x.dtype)
 
-    def encode(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def encode(self, batch: Dict[str, torch.Tensor], mesh=None
+               ) -> torch.Tensor:
         """history_ids (B, L) + target_ids (B,) -> (B, total_len, D)."""
         cfg = self.cfg
         seq_ids = torch.cat([batch["history_ids"],
                              batch["target_ids"][:, None]], dim=1)
-        h = table_lookup(cfg.table, self.embedding, seq_ids)
+        h = table_lookup(cfg.table, self.embedding, seq_ids, mesh)
         h = h + self.pos_embed[None]
         for b in range(cfg.n_blocks):
             bp = getattr(self, f"block_{b}")
@@ -100,11 +101,13 @@ class BST(RecsysModel):
             h = h + torch.relu(x @ bp["ff1"]) @ bp["ff2"]
         return h
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        h = self.encode(batch)
+    def forward(self, batch: Dict[str, torch.Tensor], mesh=None
+                ) -> torch.Tensor:
+        h = self.encode(batch, mesh)
         return self.mlp(h.reshape(h.shape[0], -1))[..., 0]
 
-    def retrieval_score(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def retrieval_score(self, batch: Dict[str, torch.Tensor], mesh=None
+                        ) -> torch.Tensor:
         """Two-tower factorization for candidate scoring: the mean-pooled
         history (the ``embedding_bag`` kernel, mean combiner) plus the
         static positional mean, dotted against every candidate item's
@@ -112,8 +115,9 @@ class BST(RecsysModel):
         -> (B, C)."""
         cfg = self.cfg
         user_vec = (bag_lookup(cfg.table, self.embedding,
-                               batch["history_ids"], combiner="mean")
+                               batch["history_ids"], combiner="mean",
+                               mesh=mesh)
                     + torch.mean(self.pos_embed[:cfg.seq_len], dim=0))
         cand = table_lookup(cfg.table, self.embedding,
-                            batch["candidate_ids"])              # (C, D)
+                            batch["candidate_ids"], mesh)        # (C, D)
         return user_vec @ cand.t()

@@ -45,6 +45,8 @@ class DeepFMConfig:
 
 
 class DeepFM(RecsysModel):
+    TABLES = ("embedding", "first_order")
+
     def __init__(self, cfg: DeepFMConfig, device="cuda", seed: int = 0):
         super().__init__()
         self.cfg = cfg
@@ -57,14 +59,16 @@ class DeepFM(RecsysModel):
                        activation="relu", device=device)
         self.bias = torch.nn.Parameter(initializers.zeros((), device))
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor], mesh=None
+                ) -> torch.Tensor:
         """batch["field_ids"]: (B, n_sparse) global ids -> logits (B,)."""
         ids = batch["field_ids"]
-        v = table_lookup(self.cfg.table, self.embedding, ids)     # (B, F, D)
+        v = table_lookup(self.cfg.table, self.embedding, ids,
+                         mesh)                                # (B, F, D)
         # First-order term as one fused bag reduction over the (N, 1) table:
         # sum_f w[ids_f] without a (B, F, 1) gather intermediate.
         first = bag_lookup(self.cfg.first_order_table, self.first_order,
-                           ids)[..., 0]                             # (B,)
+                           ids, mesh=mesh)[..., 0]                  # (B,)
         fm = fm_interaction(v)                                      # (B,)
         deep = self.mlp(v.reshape(v.shape[0], -1))[..., 0]          # (B,)
         return self.bias + first + fm + deep

@@ -84,24 +84,40 @@ class _Rows(torch.autograd.Function):
         return d_table, None
 
 
+def _lookup(mesh, table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table[rows]`` for global rows in range by the ``index_add_``-backed
+    gather; on a mesh ``table`` is this rank's block of rows over
+    ``model`` and the rows it owns are summed over ``model``
+    (:func:`~repro_torch.distrib.collectives.masked_psum_lookup`)."""
+    if mesh is None:
+        return _Rows.apply(table, rows)
+    from repro_torch.distrib.collectives import masked_psum_lookup
+
+    return masked_psum_lookup(mesh, batch_dims=rows.dim(),
+                              gather=_Rows.apply)(table, rows)
+
+
 def table_lookup(cfg: TableConfig, params: Mapping[str, torch.Tensor],
-                 ids: torch.Tensor) -> torch.Tensor:
-    """ids (...,) -> embeddings (..., dim)."""
+                 ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """ids (...,) -> embeddings (..., dim). With ``mesh`` the tables are
+    this rank's rows over ``model``: each id is hashed or clipped globally
+    first, then looked up where it lives. A QR table's quotient and
+    remainder rows are each summed over ``model`` before their product."""
     ids = ids.long()
     if cfg.compression == "hash":
-        return _Rows.apply(params["table"], hash_ids(ids, cfg.stored_rows))
+        return _lookup(mesh, params["table"], hash_ids(ids, cfg.stored_rows))
     if cfg.compression == "qr":
-        q = _Rows.apply(params["quotient"],
-                        (ids // cfg.qr_rem_rows) % cfg.qr_quot_rows)
-        r = _Rows.apply(params["remainder"], ids % cfg.qr_rem_rows)
+        q = _lookup(mesh, params["quotient"],
+                    (ids // cfg.qr_rem_rows) % cfg.qr_quot_rows)
+        r = _lookup(mesh, params["remainder"], ids % cfg.qr_rem_rows)
         return q * r
-    return _Rows.apply(params["table"],
-                       torch.clamp(ids, 0, cfg.stored_rows - 1))
+    return _lookup(mesh, params["table"],
+                   torch.clamp(ids, 0, cfg.stored_rows - 1))
 
 
 def bag_lookup(cfg: TableConfig, params: Mapping[str, torch.Tensor],
                ids: torch.Tensor, weights: Optional[torch.Tensor] = None,
-               combiner: str = "sum") -> torch.Tensor:
+               combiner: str = "sum", mesh=None) -> torch.Tensor:
     """Fused bag reduction: out[b] = reduce_l w[b,l] * table[ids[b,l]].
 
     Routes through the ``embedding_bag`` kernel (ids < 0 are padding). An
@@ -110,9 +126,15 @@ def bag_lookup(cfg: TableConfig, params: Mapping[str, torch.Tensor],
     and the backward, which is the clip that JAX's ``bag_lookup`` applies.
     QR-compressed tables have no materialized row table to gather from, so
     they take lookup + reduce.
+
+    With ``mesh`` the table is this rank's rows over ``model``: each id is
+    clipped (or hashed) globally, the ids this rank does not own become
+    padding, the kernel bags the local rows, and the bags are summed over
+    ``model``. The mean combiner's weights divide by the bag's global count
+    of live ids, before the masking.
     """
     if cfg.compression == "qr":
-        rows = table_lookup(cfg, params, torch.clamp_min(ids, 0))
+        rows = table_lookup(cfg, params, torch.clamp_min(ids, 0), mesh)
         w = (torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
              if weights is None else weights)
         w = torch.where(ids >= 0, w, 0.0).float()
@@ -120,10 +142,35 @@ def bag_lookup(cfg: TableConfig, params: Mapping[str, torch.Tensor],
             count = torch.sum((ids >= 0).float(), dim=1, keepdim=True)
             w = w / torch.clamp_min(count, 1.0)
         return torch.einsum("bld,bl->bd", rows.float(), w)
-    if cfg.compression == "hash":
-        ids = torch.where(ids >= 0, hash_ids(ids.long(), cfg.stored_rows), -1)
-    return embedding_bag(params["table"], ids, weights, combiner=combiner,
-                         clip_ids=True)
+    if mesh is None:
+        if cfg.compression == "hash":
+            ids = torch.where(ids >= 0, hash_ids(ids.long(), cfg.stored_rows),
+                              -1)
+        return embedding_bag(params["table"], ids, weights,
+                             combiner=combiner, clip_ids=True)
+    from repro_torch.distrib.collectives import AllReduceSum
+    from repro_torch.distrib.shardings import MODEL_AXIS, axis_index
+
+    live = ids >= 0
+    wide = ids.long()
+    rows = (hash_ids(wide, cfg.stored_rows) if cfg.compression == "hash"
+            else torch.clamp(wide, 0, cfg.stored_rows - 1))
+    if combiner == "mean":
+        count = torch.sum(live.float(), dim=1, keepdim=True)
+        if weights is None:
+            weights = torch.ones(ids.shape, dtype=torch.float32,
+                                 device=ids.device)
+        weights = weights / torch.clamp_min(count, 1.0)
+    elif combiner != "sum":
+        raise ValueError(f"unknown combiner {combiner!r}")
+    shard = params["table"]
+    local = rows - axis_index(mesh, MODEL_AXIS) * shard.shape[0]
+    owned = live & (local >= 0) & (local < shard.shape[0])
+    local = torch.where(owned, local, -1)
+    if ids.dtype == torch.int32:  # the kernel's int32 variant, as off a mesh
+        local = local.int()
+    return AllReduceSum.apply(embedding_bag(shard, local, weights),
+                              mesh.get_group(MODEL_AXIS))
 
 
 def table_spec(cfg: TableConfig) -> Dict:

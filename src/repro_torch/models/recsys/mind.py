@@ -58,7 +58,8 @@ class MIND(RecsysModel):
         self.routing_init = torch.nn.Parameter(initializers.normal(0.02)(
             (cfg.history_len, cfg.n_interests), gen, device))
 
-    def interests(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def interests(self, batch: Dict[str, torch.Tensor], mesh=None
+                  ) -> torch.Tensor:
         """history_ids (B, L) [-1 = pad] -> interest capsules (B, K, D).
         Padding is masked twice, as in JAX: its id reads row 0, then its
         embedding and its routing weights are zeroed. The routing logits
@@ -66,7 +67,8 @@ class MIND(RecsysModel):
         cfg = self.cfg
         ids = batch["history_ids"]
         mask = (ids >= 0)[..., None]
-        e = table_lookup(cfg.table, self.embedding, torch.clamp_min(ids, 0))
+        e = table_lookup(cfg.table, self.embedding, torch.clamp_min(ids, 0),
+                         mesh)
         e = torch.where(mask, e, 0.0)                            # (B, L, D)
         eh = e @ self.bilinear                                   # (B, L, D)
         b = self.routing_init[None].expand(ids.shape[0], -1, -1)
@@ -77,20 +79,23 @@ class MIND(RecsysModel):
             b = b + torch.einsum("bkd,bld->blk", u, eh)
         return u
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor], mesh=None
+                ) -> torch.Tensor:
         """Label-aware scoring of target_ids (B,) -> logit (B,): the
         interests soft-selected by a softmax over K of pow * score."""
-        u = self.interests(batch)                                # (B, K, D)
-        t = table_lookup(self.cfg.table, self.embedding, batch["target_ids"])
+        u = self.interests(batch, mesh)                          # (B, K, D)
+        t = table_lookup(self.cfg.table, self.embedding, batch["target_ids"],
+                         mesh)
         scores = torch.einsum("bkd,bd->bk", u, t)                # (B, K)
         w = torch.softmax(self.cfg.label_aware_pow * scores, dim=-1)
         return torch.sum(w * scores, dim=-1)
 
-    def retrieval_score(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def retrieval_score(self, batch: Dict[str, torch.Tensor], mesh=None
+                        ) -> torch.Tensor:
         """Multi-interest retrieval: the max over interests of each
         interest's dot with every candidate, in one (B, K, D) x (C, D)
         product: history_ids (B, L), candidate_ids (C,) -> (B, C)."""
-        u = self.interests(batch)                                # (B, K, D)
+        u = self.interests(batch, mesh)                          # (B, K, D)
         cand = table_lookup(self.cfg.table, self.embedding,
-                            batch["candidate_ids"])              # (C, D)
+                            batch["candidate_ids"], mesh)        # (C, D)
         return torch.amax(u @ cand.t(), dim=1)

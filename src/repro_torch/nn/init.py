@@ -5,6 +5,7 @@ tensor is made on in place of the rng that the JAX versions ignore. The
 random ones take an explicit ``torch.Generator`` on that device: from the
 same seed they give other numbers than ``jax.random``, so parity tests
 carry weights over with ``repro_torch.convert`` instead of re-drawing them.
+On the ``meta`` device (no generator) they make shapes and types only.
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ def normal(stddev: float = 0.02):
 
 def _truncated_standard_normal(shape, generator, device) -> torch.Tensor:
     out = torch.empty(shape, device=device)
+    if out.is_meta:  # shapes and types only: nothing to draw
+        return out
     return torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
                                        generator=generator)
 

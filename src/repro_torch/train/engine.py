@@ -845,6 +845,55 @@ class TrainEngine:
             self.graphs = ChunkGraphs(self._chunk_body)
         return self._replayed(opt_state, chunk)
 
+    def roofline(self, opt_state, chunk: Dict[str, torch.Tensor]
+                 ) -> Dict[str, Any]:
+        """Per-device cost of one chunk (JAX's ``roofline``): one chunk of
+        the eager route (:meth:`_loop`) run on fake copies of the
+        parameters, the optimizer state and ``chunk`` under
+        ``FakeTensorMode``, counted by
+        :class:`~repro_torch.launch.op_cost.OpCounter` (every iteration
+        runs, so no trip count is needed). It reads only the shapes of the
+        live state: no parameter or moment changes, no graph is captured,
+        no kernel launches (a kernel is met as its registered op and costed
+        by :mod:`repro_torch.kernels.cost`). The result gets JAX's
+        ``chunk_batches`` and ``flops_per_step``. A sweep's stacked
+        replicas are not counted: it raises."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.nn.utils.stateless import _reparametrize_module
+
+        from repro_torch.launch.op_cost import OpCounter
+
+        if self.replicas is not None:
+            raise NotImplementedError("roofline counts one model's chunk, "
+                                      "not a sweep's replicas")
+        fake = FakeTensorMode()
+
+        def copy(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            out = fake.from_tensor(t.detach())
+            return out.requires_grad_(t.requires_grad)
+
+        params = [copy(p) for p in self.params]
+        state = tree_map(copy, opt_state)
+        fake_chunk = {k: copy(v) for k, v in chunk.items()}
+        live = self.params
+        counter = OpCounter()
+        try:
+            self.params = params
+            with fake, _reparametrize_module(
+                    self.model, dict(zip(self.names, params))):
+                counter.track(params, state, fake_chunk)
+                with counter:
+                    self._loop(state, fake_chunk)
+        finally:
+            self.params = live
+        cost = counter.result()
+        n = next(iter(chunk.values())).shape[0]
+        cost["chunk_batches"] = int(n)
+        cost["flops_per_step"] = cost["flops"] / max(n, 1)
+        return cost
+
     def _replayed(self, opt_state, chunk: Dict[str, torch.Tensor]):
         tensors = (self.params if self.replicas is None
                    else self.replica_params + [self.active])

@@ -63,7 +63,10 @@ one chunk behind, which also emits a ``metric`` event per step
 each validation and each checkpoint are spans; every epoch ends with an
 ``epoch`` event, a counters snapshot and the process's memory (host RSS
 and the card's). ``profile_steps="A:B"`` opens a ``torch.profiler`` window
-into ``profile_dir`` around the chunks covering those global steps. Events
+into ``profile_dir`` around the chunks covering those global steps.
+``emit_roofline=True`` emits the first chunk's per-device cost once, in a
+``roofline`` span, as a ``roofline`` event (:meth:`TrainEngine.roofline`:
+a fake run of the eager route, which changes and launches nothing). Events
 go to ``recorder``, else to the process-global one. Leaving an epoch by any
 path (its end, preemption, an exception) closes the prefetcher's iteration,
 which stops and joins its staging thread and, through it, the loader's
@@ -205,7 +208,7 @@ class Trainer:
                  step_budget_seconds: Optional[float] = None,
                  telemetry: bool = False, recorder=None, obs_every: int = 1,
                  profile_steps=None, profile_dir: Optional[str] = None,
-                 mesh=None):
+                 mesh=None, emit_roofline: bool = False):
         self.optimizer = optimizer
         self.mesh = mesh
         # only rank 0 of a mesh logs, writes checkpoints and profiles
@@ -237,6 +240,9 @@ class Trainer:
                               if isinstance(profile_steps, str)
                               else profile_steps)
         self.profile_dir = profile_dir
+        # `emit_roofline` emits the chunk step's per-device cost once, as a
+        # `roofline` event (TrainEngine.roofline: a fake run, no kernel).
+        self.emit_roofline = bool(emit_roofline)
         self.chunk_batches = chunk_batches
         self.device = torch.device(device)
         self.sparse_tables = sparse_tables
@@ -360,6 +366,7 @@ class Trainer:
                                  log_dir=self.profile_dir or "profile",
                                  recorder=self.recorder)
                    if self.profile_steps and self.lead else None)
+        roofline_pending = self.emit_roofline
         if R is None:
             best_val, bad_epochs = float("inf"), 0
         else:
@@ -425,6 +432,15 @@ class Trainer:
                 try:
                     with rec.span("epoch", epoch=state.epoch):
                         for chunk, loader_state, n in items:
+                            if roofline_pending:
+                                # once, before the first chunk runs
+                                roofline_pending = False
+                                with rec.span("roofline"):
+                                    cost = engine.roofline(state.opt_state,
+                                                           chunk)
+                                rec.emit(make_event(
+                                    "roofline", "chunk_step", data=cost,
+                                    step=state.global_step))
                             if profile is not None:
                                 profile.before_chunk(state.global_step)
                             state.opt_state, losses = engine.step(

@@ -731,6 +731,59 @@ def task_lm8(rank, world, trees, batch, dec):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the recsys models on a mesh: worlds of 4 as (2, 2) and (1, 4)
+# ---------------------------------------------------------------------------
+
+def task_recsys4(rank, world, shape, cases, lr):
+    """Each case's reduced recsys model on a ``shape`` gloo mesh: its JAX
+    parameters loaded, its tables cut to this rank's rows (``place_``),
+    one AdamW step per batch over this rank's rows of it, and the
+    retrieval scores of this rank's candidates. Returns, per case, the
+    rank's coordinates, the losses, its parameter blocks and scores."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.convert import load_jax_params
+    from repro_torch.launch import mesh as meshes
+
+    mesh = meshes.make_mesh(shape, ("data", "model"), device="cpu")
+    d, m = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    dp = shape[0]
+    out = {}
+    for name, case in cases.items():
+        conf = importlib.import_module(f"repro_torch.configs.{case['arch']}")
+        cfg = dataclasses.replace(conf.reduced(), **case["overrides"])
+        model = conf.make_model(device="cpu", cfg=cfg)
+        load_jax_params(model, case["params"])
+        model.place_(mesh)
+        step = model.make_train_step(optim.adamw(lr), mesh)
+        state = step.init()
+        losses = []
+        for batch in case["batches"]:
+            rows = next(iter(batch.values())).shape[0] // dp
+            local = {k: torch.from_numpy(v[d * rows:(d + 1) * rows])
+                     for k, v in batch.items()}
+            state, loss = step(state, local)
+            losses.append(float(loss))
+        scores = None
+        if case.get("retrieval") is not None:
+            r = case["retrieval"]
+            key = "candidate_ids" if "candidate_ids" in r else "field_ids"
+            rows = r[key].shape[0] // dp
+            local = {k: torch.from_numpy(v[d * rows:(d + 1) * rows]
+                                         if k == key else v)
+                     for k, v in r.items()}
+            with torch.no_grad():
+                scores = _np(model.retrieval_score(local, mesh))
+        out[name] = {"coords": (d, m), "losses": losses,
+                     "params": _named(model), "scores": scores}
+    return out
+
+
 TASKS = {"distrib": task_distrib, "train8": task_train8,
          "train2": task_train2, "sparse8": task_sparse8,
-         "lm8": task_lm8}
+         "lm8": task_lm8, "recsys4": task_recsys4}

@@ -56,7 +56,7 @@ def test_list_cells_is_jax_over_the_ported_archs(include_extra):
     assert treg.list_cells(include_extra) == want
     assert len(treg.list_cells()) == 40
     extras = [(a, s) for a, s, _ in jreg.EXTRA_CELLS]
-    assert treg.EXTRA_CELLS == extras
+    assert [(a, s) for a, s, _ in treg.EXTRA_CELLS] == extras
 
 
 @pytest.mark.parametrize("arch", sorted(jreg.LM_ARCHS) + ["graphsage-reddit",
