@@ -60,9 +60,15 @@ Phases, each printing JSON lines:
                   hashed as row_ids does, with sentinel padding against its
                   plain version, untouched rows equal to the bit, row 0
                   untouched and row R-1 touched, its dedupe timed, beside
-                  torch.optim.SparseAdam; edges: unhashed Zipf ranks at
+                  torch.optim.SparseAdam; its forms (the live run walked,
+                  the table gradient read at the live rows: the engine's)
+                  and its first design, each equal to the bit to the
+                  every-slot form, all timed; edges: unhashed Zipf ranks at
                   the same size, d = 3, bf16 moments, every row touched,
-                  and the same decay case.
+                  the same decay case, and the live run's edges (a
+                  row-sharded rank's ids with sentinels on both sides, per
+                  slot and table gradient; every slot a sentinel; one live
+                  slot; a run that ends at the last slot).
 4. train_dbn      the paper-width DBN (2 x 214,748,672 hashed rows, batch
                   65,536, AdamW 3e-3) takes 16 steps through the Trainer;
                   the examination_nll kernel must be launched 16 times,
@@ -1186,6 +1192,9 @@ def chunk_timing(engine, batch, kind, card, per_chunk, loader, steps, n=4,
     before = read_counts()
     _, per_replay, nodes = replayed_launches(
         lambda: engine.step(state, chunk))
+    index_select_nodes = sum(
+        n for name, n in _LAST_REPLAYED.items()
+        if "indexselect" in name.lower().replace("_", ""))
     after = read_counts()
     counted = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     if counted:
@@ -1220,6 +1229,7 @@ def chunk_timing(engine, batch, kind, card, per_chunk, loader, steps, n=4,
             "wrapper_launches_per_replay": counted,
             "graph_launches_per_replay": per_replay,
             "graph_kernel_nodes_per_replay": nodes,
+            "index_select_nodes": index_select_nodes,
             "profile_kernels_per_replay": profiled,
             "profile_device_kernels_per_replay": total["launches_per_call"],
             "profile_device_ms_per_replay":
@@ -1643,6 +1653,18 @@ def phase_train(kind, data, steps, card, extra=None):
                  **_optimizer_launches(make_engine(), 4)}
     timing = chunk_timing(make_engine(chunk_batches=4), held_out, kind, card,
                           per_chunk, loader, steps)
+    # The sparse route reads each table's gradient where it lies: its
+    # replay holds no index_select node beyond the dense route's.
+    if kind == "dbn":
+        _KEPT["dbn_index_select_nodes"] = timing["index_select_nodes"]
+    elif kind == "dbn_sparse" and "dbn_index_select_nodes" in _KEPT:
+        found["index_select_nodes_as_dense"] = (
+            timing["index_select_nodes"] == _KEPT["dbn_index_select_nodes"])
+        if not found["index_select_nodes_as_dense"]:
+            raise AssertionError(
+                f"dbn_sparse: {timing['index_select_nodes']} index_select "
+                f"nodes a replay, the dense route "
+                f"{_KEPT['dbn_index_select_nodes']}")
     found["staging_thread_capture"] = capture_with_staging_thread(
         make_engine(), loader, per_step)
     found["no_host_sync_in_update"] = no_sync_check(make_engine(), held_out)
@@ -2179,19 +2201,21 @@ def adamw_bound(n, moments="float32", params="float32", grads="float32"):
                                     meta(moments), meta(moments)))
 
 
-def sparse_adamw_bound(live_rows, slots):
+def sparse_adamw_bound(live_rows, slots, table_grad=False):
     """For a (R, 1) float32 table and moments: each distinct 32-byte sector
     that this run's touched rows fall in (eight rows a sector), read and
     written, in each of p, m and v; every slot's 8-byte id, and each live
     slot's 4-byte gradient (the kernel reads no gradient of a sentinel
-    slot), read in order."""
+    slot), read in order, or with ``table_grad`` the same sectors of the
+    table gradient read."""
     import torch
 
     sectors = torch.unique(live_rows // (SECTOR // 4)).numel()
     table = _meta(DBN_ROWS, 1)
+    grads = table if table_grad else _meta(slots, 1)
     return cost.bound_ms(cost.sparse_adamw(
-        table, table, table, _meta(slots, dtype=torch.int64),
-        _meta(slots, 1), sectors=sectors, live=live_rows.numel()))
+        table, table, table, _meta(slots, dtype=torch.int64), grads,
+        table_grad=table_grad, sectors=sectors, live=live_rows.numel()))
 
 
 def phase_optimizer_kernels(card, data):
@@ -2205,14 +2229,19 @@ def phase_optimizer_kernels(card, data):
     bit, row 0 untouched and row R-1 touched; timed beside
     torch.optim.SparseAdam (no weight decay: another function, timed at
     wd = 0). Each kernel has an edge case where the decay term moves the
-    parameters far past the tolerance, checked to be so."""
+    parameters far past the tolerance, checked to be so. sparse_adamw's
+    forms (the live run of ``live_span``; the table gradient read at the
+    live rows, the engine's form) and its first design, each against its
+    every-slot form to the bit, timed in this call; and the live run's
+    edges."""
     import numpy as np
     import torch
 
     from repro_torch import optim
     from repro_torch.core.parameterization import hash_ids
     from repro_torch.kernels import sparse_adamw_cuda, sparse_adamw_plain
-    from repro_torch.optim.sparse import (init_sparse_table_state,
+    from repro_torch.kernels.sparse_adamw import sparse_adamw_scan_cuda
+    from repro_torch.optim.sparse import (init_sparse_table_state, live_span,
                                           unique_rows_with_sentinel)
 
     device = torch.device("cuda")
@@ -2352,7 +2381,8 @@ def phase_optimizer_kernels(card, data):
         data["query_doc_ids"][:B_MAIN].reshape(-1)).to(device), DBN_ROWS)
     ids = torch.where(ids == 0, 1, ids)  # row 0 stays untouched
     ids[0] = DBN_ROWS - 1                # row R-1 is touched
-    rows = unique_rows_with_sentinel(ids, DBN_ROWS)
+    rows, live_end = unique_rows_with_sentinel(ids, DBN_ROWS,
+                                               return_count=True)
     live = int((rows < DBN_ROWS).sum())
     # Unhashed Zipf ranks, the hot rows side by side at the table's start:
     # an edge case of the same size.
@@ -2365,6 +2395,13 @@ def phase_optimizer_kernels(card, data):
     before = torch.randn(DBN_ROWS, 1, generator=gen, device=device) * 0.5
     row_grads = torch.randn(SPARSE_SLOTS, 1, generator=gen, device=device)
     kw = dict(lr=3e-3, weight_decay=1e-4)
+    # the live run: its end, the dedupe's count (the engine's), and its
+    # [start, end) found by live_span (a mesh's); the table gradient that
+    # holds each live slot's gradient at its row (the engine's form reads it)
+    bounds = torch.tensor([0, DBN_ROWS], dtype=torch.int64, device=device)
+    span, zipf_span = live_span(rows, bounds), live_span(zipf_rows, bounds)
+    d_table = torch.zeros(DBN_ROWS, 1, device=device)
+    d_table[rows[:live]] = row_grads[:live]
 
     def run(kernel, base, rows_, grads_, steps, kw_, mdt=torch.float32,
             preds=None):
@@ -2397,7 +2434,23 @@ def phase_optimizer_kernels(card, data):
     s_over = {"main": max(_over(tk, tp, 1e-6, 1e-6),
                           _over(sk.mu, sp.mu, 1e-6, 1e-6),
                           _over(sk.nu, sp.nu, 1e-6, 1e-6))}
-    del tk, sk, tp, sp
+    del tp, sp
+    torch.cuda.empty_cache()
+    # the redesign's forms and the first design against the every-slot form
+    # above: p, m and v to the bit (held below with the other checks)
+    for form, (kernel, grads_, extra) in {
+            "span": (sparse_adamw_cuda, row_grads, dict(span=span)),
+            "dedupe_end": (sparse_adamw_cuda, row_grads, dict(span=live_end)),
+            "table_grad": (sparse_adamw_cuda, d_table,
+                           dict(span=live_end, table_grad=True)),
+            "first_design": (sparse_adamw_scan_cuda, row_grads, {})}.items():
+        tf, sf = run(kernel, before, rows, grads_, 2, {**kw, **extra})
+        checks[f"{form}_bit_equal"] = bool(
+            torch.equal(tf, tk) and torch.equal(sf.mu, sk.mu)
+            and torch.equal(sf.nu, sk.nu))
+        del tf, sf
+        torch.cuda.empty_cache()
+    del tk, sk
     torch.cuda.empty_cache()
     # the predicate forms, as for adamw: True is the kernel without one to
     # the bit, False writes nothing
@@ -2421,11 +2474,11 @@ def phase_optimizer_kernels(card, data):
     torch.cuda.empty_cache()
     if not all(s_predicate.values()):
         raise AssertionError(f"sparse_adamw predicate forms: {s_predicate}")
-    # the norm mode (the telemetry's param_norm), apply and pred each True
-    # and False: the kernel writes what the predicate form writes under
-    # pred & apply, to the bit, and the touched rows' sum of squares it
-    # implies (theirs before plus its p'^2 - p^2) is the plain form's,
-    # within 1e-5
+    # the norm mode (the telemetry's param_norm) in the engine's form, apply
+    # and pred each True and False: the kernel writes what the predicate
+    # form writes under pred & apply, to the bit, and the touched rows' sum
+    # of squares it implies (theirs before plus its p'^2 - p^2) is the plain
+    # form's, within 1e-5
     touched_before = float(torch.sum(before[rows[:live]].double() ** 2))
 
     def norm_run(kernel, apply, pred):
@@ -2433,8 +2486,9 @@ def phase_optimizer_kernels(card, data):
         st = init_sparse_table_state(t)
         count = st.count + apply
         st.count.add_(pred & apply)
-        delta = kernel(t, st.mu, st.nu, rows, row_grads, count,
-                       pred=pred & apply, norm=True, apply=apply, **kw)
+        delta = kernel(t, st.mu, st.nu, rows, d_table, count,
+                       pred=pred & apply, norm=True, apply=apply,
+                       span=live_end, table_grad=True, **kw)
         return (t, st), touched_before + float(delta)
 
     s_norm_forms = {}
@@ -2500,25 +2554,91 @@ def phase_optimizer_kernels(card, data):
                 lambda wd: run(sparse_adamw_plain, base, e_rows, e_g, steps,
                                dict(lr=0.05, weight_decay=wd))[0])
     _check_sensitive("sparse_adamw", decay_sensitivity["sparse_adamw"])
+    live_run_edges = _sparse_live_run_edges(gen, kw)
     t = before.clone()
     st = init_sparse_table_state(t)
+    engine_form = dict(span=live_end, table_grad=True)
 
-    def sparse_kernel(rows_=rows, pred=None):
-        sparse_adamw_cuda(t, st.mu, st.nu, rows_, row_grads, st.count,
-                          pred=pred, **kw)
+    def sparse_kernel(rows_=rows, pred=None, grads_=row_grads, **form):
+        sparse_adamw_cuda(t, st.mu, st.nu, rows_, grads_, st.count,
+                          pred=pred, **kw, **form)
 
-    s_ms = time_ms(sparse_kernel, iters=100)
-    s_device = {"kernel": graph_ms(sparse_kernel),
-                "kernel_pred_true": graph_ms(lambda: sparse_kernel(pred=yes)),
-                "kernel_pred_false": graph_ms(
-                    lambda: sparse_kernel(pred=no)),
+    def engine_kernel(pred=None):
+        sparse_kernel(pred=pred, grads_=d_table, **engine_form)
+
+    s_ms = time_ms(engine_kernel, iters=100)
+    # "kernel": the engine's form; "every_slot": the per-slot form without
+    # a span, every slot walked; "first_design": the kernel's first design
+    s_device = {"kernel": graph_ms(engine_kernel),
+                "per_slot_span": graph_ms(lambda: sparse_kernel(span=span)),
+                "every_slot": graph_ms(sparse_kernel),
+                "first_design": graph_ms(lambda: sparse_adamw_scan_cuda(
+                    t, st.mu, st.nu, rows, row_grads, st.count, **kw)),
+                "kernel_pred_true": graph_ms(lambda: engine_kernel(yes)),
+                "kernel_pred_false": graph_ms(lambda: engine_kernel(no)),
                 "dedupe": graph_ms(lambda: unique_rows_with_sentinel(
                     ids, DBN_ROWS)),
+                "live_span": graph_ms(lambda: live_span(rows, bounds)),
                 "zipf_ranks_kernel": graph_ms(
-                    lambda: sparse_kernel(zipf_rows))}
+                    lambda: sparse_kernel(zipf_rows, span=zipf_span))}
+    first_design_ms = time_ms(lambda: sparse_adamw_scan_cuda(
+        t, st.mu, st.nu, rows, row_grads, st.count, **kw), iters=100)
+    # What holds it: the floor of one live slot; the same live count drawn
+    # from the table's first 8,000,000 rows (the touched pages' spread);
+    # and cold L2 (a 512 MB write between calls evicts the rows; its own
+    # time taken out), beside the route it replaced: the per-table work
+    # before it, a slot-wide gather of the table gradient, then the first
+    # design
+    one_live = unique_rows_with_sentinel(
+        torch.full((SPARSE_SLOTS,), 12_345, device=device), DBN_ROWS)
+    compact = unique_rows_with_sentinel(
+        torch.randperm(8_000_000, generator=gen, device=device)[:live],
+        DBN_ROWS, max_unique=SPARSE_SLOTS)
+    for name, rows_ in (("one_live", one_live), ("compact_rows_8m", compact)):
+        span_ = live_span(rows_, bounds)
+        s_device[name] = graph_ms(lambda: sparse_kernel(rows_, span=span_))
+    del one_live, compact
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.int32, device=device)
+    flush_ms = graph_ms(lambda: flush.add_(1))
+
+    def cold_ms(fn):
+        def after_flush():
+            flush.add_(1)
+            fn()
+        return graph_ms(after_flush) - flush_ms
+
+    def parent_route():
+        d = torch.index_select(d_table, 0, torch.clamp(rows, max=DBN_ROWS - 1))
+        sparse_adamw_scan_cuda(t, st.mu, st.nu, rows, d, st.count, **kw)
+
+    def engine_route():  # its span is the dedupe's count: no search
+        engine_kernel()
+
+    s_device["routes"] = {"parent": graph_ms(parent_route),
+                          "engine": graph_ms(engine_route)}
+    s_device["cold"] = {
+        "kernel": cold_ms(engine_kernel),
+        "per_slot_span": cold_ms(lambda: sparse_kernel(span=span)),
+        "first_design": cold_ms(lambda: sparse_adamw_scan_cuda(
+            t, st.mu, st.nu, rows, row_grads, st.count, **kw)),
+        "parent_route": cold_ms(parent_route),
+        "engine_route": cold_ms(engine_route)}
+    del flush
+    # the launch plan's neighbours: the engine's form at other grid caps
+    from repro_torch.kernels import sparse_adamw as sparse_module
+
+    plan_sweep = {}
+    chosen = sparse_module.BLOCKS_PER_SM
+    try:
+        for per_sm in (1, 2, 4, 8):
+            sparse_module.BLOCKS_PER_SM = per_sm
+            plan_sweep[per_sm] = graph_ms(engine_kernel)
+    finally:
+        sparse_module.BLOCKS_PER_SM = chosen
+    s_device["plan_sweep_blocks_per_sm"] = plan_sweep
     s_plain_ms = time_ms(lambda: sparse_adamw_plain(
-        t, st.mu, st.nu, rows, row_grads, st.count, **kw), iters=5,
-        warmup=1)
+        t, st.mu, st.nu, rows, d_table, st.count, **kw, **engine_form),
+        iters=5, warmup=1)
     dedupe_ms = time_ms(lambda: unique_rows_with_sentinel(ids, DBN_ROWS),
                         iters=50)
     del t, st
@@ -2530,17 +2650,27 @@ def phase_optimizer_kernels(card, data):
     lib = torch.optim.SparseAdam([lib_param], lr=3e-3)
     s_library_ms = time_ms(lib.step, iters=20, warmup=2)
     del lib, lib_param
-    s_bound_ms, s_bound_by = sparse_adamw_bound(live_rows, SPARSE_SLOTS)
+    slot_bound_ms, _ = sparse_adamw_bound(live_rows, SPARSE_SLOTS)
+    s_bound_ms, s_bound_by = sparse_adamw_bound(live_rows, SPARSE_SLOTS,
+                                                table_grad=True)
     zipf_bound_ms, _ = sparse_adamw_bound(zipf_rows[:zipf_live],
                                           SPARSE_SLOTS)
+    share_of_bound = {
+        "kernel": s_bound_ms / s_device["kernel"],
+        "per_slot_span": slot_bound_ms / s_device["per_slot_span"],
+        "every_slot": slot_bound_ms / s_device["every_slot"],
+        "first_design": slot_bound_ms / s_device["first_design"]}
     emit("kernel", name="sparse_adamw", shape=[DBN_ROWS, 1, SPARSE_SLOTS],
-         live_rows=live, card=card, kernel_ms=s_ms, plain_ms=s_plain_ms,
+         live_rows=live, span=span.tolist(), card=card, kernel_ms=s_ms,
+         first_design_ms=first_design_ms, plain_ms=s_plain_ms,
          library_ms=s_library_ms,
          library="torch.optim.SparseAdam on the live rows' COO gradient "
                  "(no weight decay: timed, not held)",
          dedupe_ms=dedupe_ms, device_ms=s_device, bound_ms=s_bound_ms,
-         bound_by=s_bound_by, max_abs_err=err, checks=checks,
+         bound_by=s_bound_by, per_slot_bound_ms=slot_bound_ms,
+         share_of_bound=share_of_bound, max_abs_err=err, checks=checks,
          zipf_ranks={"live_rows": zipf_live, "bound_ms": zipf_bound_ms},
+         live_run_edges=live_run_edges,
          predicate=s_predicate, norm_forms=s_norm_forms,
          decay_sensitivity=decay_sensitivity["sparse_adamw"])
     _hold("sparse_adamw", s_over)
@@ -2560,11 +2690,90 @@ def phase_optimizer_kernels(card, data):
         "max_abs_err": err, "ms": s_ms, "plain_ms": s_plain_ms,
         "bound_ms": s_bound_ms, "bound_by": s_bound_by,
         "library_ms": s_library_ms, "device_ms": s_device,
-        "predicate": s_predicate, "held": True}
-    del before, touched, ids, rows, zipf_rows, row_grads
+        "per_slot_bound_ms": slot_bound_ms, "first_design_ms":
+        first_design_ms, "live_rows": live, "predicate": s_predicate,
+        "held": True}
+    del before, touched, ids, rows, zipf_rows, row_grads, d_table
     gc.collect()
     torch.cuda.empty_cache()
     return results
+
+
+def _sparse_live_run_edges(gen, kw):
+    """sparse_adamw with the span its callers compute against the plain
+    version without one (every slot walked), three steps over a (1000, 2)
+    table: a row-sharded rank's ids (the global ids of 4000 rows deduped
+    and shifted into the block [1000, 2000), sentinels on both sides of
+    the run), per slot and with the table gradient; every slot a sentinel;
+    one live slot; a run that ends at the last slot (no padding). The
+    parameters within the main case's tolerance, the moments and the rows
+    off the run equal to the bit; raises otherwise."""
+    import torch
+
+    from repro_torch.kernels import sparse_adamw_cuda, sparse_adamw_plain
+    from repro_torch.optim.sparse import (init_sparse_table_state, live_span,
+                                          unique_rows_with_sentinel)
+
+    device = torch.device("cuda")
+    n_rows, d, slots = 1000, 2, 700
+
+    def bounds(lo, hi):
+        return torch.tensor([lo, hi], dtype=torch.int64, device=device)
+
+    def ids_of(case):
+        if case.startswith("mesh_layout"):
+            unique = unique_rows_with_sentinel(torch.randint(
+                0, 4 * n_rows, (3 * n_rows,), generator=gen, device=device),
+                4 * n_rows)
+            local = unique - n_rows
+            return (torch.where((local >= 0) & (local < n_rows), local,
+                                n_rows),
+                    live_span(unique, bounds(n_rows, 2 * n_rows)))
+        if case == "all_sentinel":
+            ids = torch.full((slots,), n_rows, device=device)
+        elif case == "one_live":
+            ids = unique_rows_with_sentinel(
+                torch.full((slots,), 417, device=device), n_rows)
+        else:  # run_to_last_slot
+            ids = torch.sort(torch.randperm(n_rows, generator=gen,
+                                            device=device)[:slots]).values
+        return ids, live_span(ids, bounds(0, n_rows))
+
+    out, bad = {}, {}
+    for case in ("mesh_layout", "mesh_layout_table_grad", "all_sentinel",
+                 "one_live", "run_to_last_slot"):
+        ids, span = ids_of(case)
+        table_grad = case.endswith("table_grad")
+        grads = torch.randn(n_rows if table_grad else ids.numel(), d,
+                            generator=gen, device=device)
+        base = torch.randn(n_rows, d, generator=gen, device=device)
+        runs = []
+        for kernel, extra in ((sparse_adamw_cuda, dict(span=span)),
+                              (sparse_adamw_plain, {})):
+            t = base.clone()
+            st = init_sparse_table_state(t)
+            for _ in range(3):
+                st.count.add_(1)
+                kernel(t, st.mu, st.nu, ids, grads, st.count,
+                       table_grad=table_grad, **kw, **extra)
+            runs.append((t, st))
+        (tk, sk), (tp, sp) = runs
+        off = torch.ones(n_rows, dtype=torch.bool, device=device)
+        off[ids[ids < n_rows]] = False
+        row = {"live": int((ids < n_rows).sum()), "span": span.tolist(),
+               "params_over": _over(tk, tp, 1e-6, 1e-6),
+               "params_abs_err": _max_err(tk, tp),
+               "moments_bit_equal": bool(torch.equal(sk.mu, sp.mu)
+                                         and torch.equal(sk.nu, sp.nu)),
+               "off_run_rows_bit_equal": bool(torch.equal(tk[off],
+                                                          base[off]))}
+        out[case] = row
+        if not (row["params_over"] <= 0 and row["moments_bit_equal"]
+                and row["off_run_rows_bit_equal"]):
+            bad[case] = row
+    if bad:
+        raise AssertionError(f"sparse_adamw live-run edges: {bad}")
+    return out
 
 
 # ---------------------------------------------------------------------------

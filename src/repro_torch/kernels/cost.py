@@ -144,20 +144,26 @@ def adamw(p, g, m, v, *rest, **kw) -> Cost:
     return Cost(n * ADAMW_OPS_PER_ELEMENT, n * per)
 
 
-def sparse_adamw(table, mu, nu, ids, grads, *rest,
+def sparse_adamw(table, mu, nu, ids, grads, count=None, pred=None,
+                 apply=None, norm=False, lr=0.0, b1=0.0, b2=0.0, eps=0.0,
+                 weight_decay=0.0, span=None, table_grad=False, *,
                  sectors: Optional[int] = None, live: Optional[int] = None,
                  **kw) -> Cost:
     """Each 32-byte sector a live row lies in (``sectors``), read and
     written in the table and both moments; every slot's 8-byte id; each
-    live slot's (``live``, default every slot) gradient row read. By
-    default every slot's row its own sectors, at most the table's."""
+    live slot's (``live``, default every slot) gradient: its row read in
+    order (per slot), or with ``table_grad`` its row's sectors of the table
+    gradient, the table's sectors read once more. By default every slot's
+    row its own sectors, at most the table's."""
     rows, dim = (int(s) for s in table.shape)
     slots = int(ids.shape[0])
     live = slots if live is None else int(live)
     if sectors is None:
         sectors = min(live * row_sectors(dim), -(-rows * dim * 4 // SECTOR))
     per_sector = 2 * (_itemsize(table) + 2 * _itemsize(mu)) * SECTOR // 4
-    nbytes = sectors * per_sector + slots * 8 + live * dim * 4
+    grad_bytes = (sectors * SECTOR * _itemsize(grads) // 4 if table_grad
+                  else live * dim * 4)
+    nbytes = sectors * per_sector + slots * 8 + grad_bytes
     return Cost(live * dim * ADAMW_OPS_PER_ELEMENT, nbytes)
 
 

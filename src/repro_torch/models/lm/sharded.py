@@ -55,7 +55,9 @@ The loss of each microbatch is its global batch's masked mean: each rank
 contributes its masked sum over the all-reduced count, summed over the
 data axes. Microbatch m is the global rows ``[m B / M, (m + 1) B / M)``,
 split over the data axes; each rank's block of the batch is gathered over
-them first (its token ids: a few KB).
+them first (its token ids: a few KB). Where the data ranks do not divide a
+microbatch, each rank takes ``ceil(b / n)`` rows, the last ones padded
+with masked rows, as GSPMD pads the dimension.
 
 **Decode.** The cache ``(U, sub, B, S, Hkv, Dh)`` is split over the data
 axes on the batch and over ``cfg.decode_seq_axes`` on the sequence; the
@@ -567,21 +569,51 @@ def lm_loss(cfg: tf.LMConfig, params, batch, mesh) -> torch.Tensor:
     return _loss(_Layout(cfg, mesh), params, batch)
 
 
+#: The value of a padded row, by batch key (else 0, a valid token id): a
+#: target of -1 is masked, so the row adds nothing to the loss, its count
+#: or any gradient.
+_PAD = {"targets": -1}
+
+
 def _microbatches(lay: _Layout, batch, M: int):
     """Microbatch m of the global batch is its rows ``[m B / M, (m + 1) B /
     M)``, split over the data axes: each rank's rows are gathered over them
-    (rank order is row order) and this rank takes its block of each."""
+    (rank order is row order) and this rank takes its block of each.
+
+    A microbatch of ``b`` rows that the ``n`` data ranks do not divide is
+    laid out as GSPMD lays such a dimension: ``c = ceil(b / n)`` rows a
+    rank, rank r the rows ``[r c, min((r + 1) c, b))``, each rank padded to
+    ``c`` rows with masked rows (:data:`_PAD`), so every rank runs the same
+    shapes and enters every collective. JAX's ``shard_map`` bodies (the
+    capacity MoE, the explicit row-parallel matmul) refuse such a split,
+    and so does this; ``B % M`` must be 0, as JAX's reshape needs."""
     full = {k: (gather_rows(v, lay.dp_group) if lay.dp_group is not None
                 else v) for k, v in batch.items()}
     n = 1 if lay.dp_group is None else dist.get_world_size(lay.dp_group)
     r = 0 if lay.dp_group is None else dist.get_rank(lay.dp_group)
     B = next(iter(full.values())).shape[0]
-    if B % (M * n):
-        raise ValueError(f"a global batch of {B} rows does not split into "
-                         f"{M} microbatches over {n} data ranks")
-    b = B // (M * n)
-    return [{k: v[m * n * b + r * b:m * n * b + (r + 1) * b]
-             for k, v in full.items()} for m in range(M)]
+    if B % M:
+        raise TypeError(f"cannot reshape a global batch of {B} rows into "
+                        f"{M} microbatches of {B / M:g}")
+    b = B // M
+    c = -(-b // n)
+    if b % n and (lay.cfg.moe or lay.cfg.explicit_row_parallel):
+        body = ("capacity MoE" if lay.cfg.moe
+                else "explicit row-parallel matmul")
+        raise ValueError(f"a microbatch of {b} rows is not evenly divisible "
+                         f"by the {n} data ranks, which the {body}'s "
+                         f"shard_map needs")
+    lo, hi = min(r * c, b), min((r + 1) * c, b)
+
+    def block(key, v, m):
+        rows = v[m * b + lo:m * b + hi]
+        if hi - lo == c:
+            return rows
+        pad = rows.new_full((c - (hi - lo),) + tuple(v.shape[1:]),
+                            _PAD.get(key, 0))
+        return torch.cat([rows, pad])
+
+    return [{k: block(k, v, m) for k, v in full.items()} for m in range(M)]
 
 
 # ---------------------------------------------------------------------------

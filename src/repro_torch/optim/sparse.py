@@ -26,6 +26,14 @@ count are updated in place, and the dedupe runs without a host sync (no
 data-dependent shapes), so a sparse step can be captured in a CUDA graph.
 :func:`sparse_adamw_update` runs the hand-written ``sparse_adamw`` kernel on
 CUDA tensors and its plain version on CPU tensors.
+
+The dedupe's live slots are one contiguous run (ascending ids, then the
+sentinel; on a row-sharded mesh, whose rows outside this rank's block map
+to the local sentinel, sentinels on both sides of it): the dedupe's count
+ends it on one device, :func:`live_span` finds it on a mesh, both on the
+device, and the update walks only those slots. The update also takes the
+table gradient itself (``table_grad=True``), read at the live rows, in
+place of a per-slot gather of it.
 """
 from __future__ import annotations
 
@@ -53,11 +61,15 @@ def init_sparse_table_state(table: torch.Tensor,
 
 def unique_rows_with_sentinel(ids: torch.Tensor, n_rows: int, *,
                               return_inverse: bool = False,
-                              max_unique: Optional[int] = None):
+                              max_unique: Optional[int] = None,
+                              return_count: bool = False):
     """Fixed-size dedupe of a row-id stream: the distinct ids in ascending
     order, padded to ``max_unique or ids.numel()`` slots with the
     out-of-range sentinel ``n_rows`` (``jnp.unique(size=..., fill_value=
-    n_rows)``); with ``return_inverse``, also each id's slot.
+    n_rows)``); with ``return_inverse``, also each id's slot; with
+    ``return_count``, last, the number of distinct ids as a 0-d int64
+    tensor on the device (for ids in ``[0, n_rows)``, the end of the live
+    run: a ``span`` of ``sparse_adamw_update``, with no search).
 
     No host sync: sort, mark the first id of each run, ``pos = cumsum - 1``,
     and scatter each sorted id to its ``pos`` in a buffer filled with the
@@ -68,17 +80,33 @@ def unique_rows_with_sentinel(ids: torch.Tensor, n_rows: int, *,
     out = torch.full((size + 1,), n_rows, dtype=flat.dtype,
                      device=flat.device)
     if flat.shape[0] == 0:
-        return (out[:size], torch.empty_like(flat)) if return_inverse \
-            else out[:size]
-    sorted_ids, order = torch.sort(flat, stable=True)
-    first = torch.ones_like(sorted_ids, dtype=torch.bool)
-    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
-    pos = torch.clamp(torch.cumsum(first, 0) - 1, max=size)
-    out.scatter_(0, pos, sorted_ids)
-    if not return_inverse:
-        return out[:size]
-    inverse = torch.empty_like(pos).scatter_(0, order, pos)
-    return out[:size], inverse
+        inverse = torch.empty_like(flat)
+        count = torch.zeros((), dtype=torch.int64, device=flat.device)
+    else:
+        sorted_ids, order = torch.sort(flat, stable=True)
+        first = torch.ones_like(sorted_ids, dtype=torch.bool)
+        first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+        runs = torch.cumsum(first, 0)
+        pos = torch.clamp(runs - 1, max=size)
+        out.scatter_(0, pos, sorted_ids)
+        count = runs[-1]
+        if return_inverse:
+            inverse = torch.empty_like(pos).scatter_(0, order, pos)
+    got = (out[:size],) + ((inverse,) if return_inverse else ()) + (
+        (count,) if return_count else ())
+    return got if len(got) > 1 else got[0]
+
+
+def live_span(unique_ids: torch.Tensor, bounds: torch.Tensor
+              ) -> torch.Tensor:
+    """``[start, end)`` of the slots of ``unique_ids`` (ascending, as
+    :func:`unique_rows_with_sentinel` makes them) whose ids lie in
+    ``[bounds[0], bounds[1])``, a (2,) int64 tensor on their device: one
+    search there, no host sync. ``bounds`` (a (2,) int64 tensor on the
+    same device) is ``[lo, lo + rows]`` for this rank's block of a
+    row-sharded table (``[0, n_rows]`` for a whole one, whose span the
+    dedupe's ``return_count`` gives with no search)."""
+    return torch.searchsorted(unique_ids, bounds)
 
 
 def sparse_row_grads(row_grads: torch.Tensor, ids: torch.Tensor, n_rows: int,
@@ -106,13 +134,22 @@ def sparse_adamw_update(table: torch.Tensor, state: SparseTableState,
                         eps: float = 1e-8, weight_decay: float = 0.0,
                         pred: Optional[torch.Tensor] = None,
                         norm: bool = False,
-                        apply: Optional[torch.Tensor] = None):
+                        apply: Optional[torch.Tensor] = None,
+                        span: Optional[torch.Tensor] = None,
+                        table_grad: bool = False):
     """Update only the touched rows of (table, mu, nu), in place; advances
     ``state.count`` in place. Sentinel slots change nothing. Returns the
     same table and state. CPU tensors take the plain form, CUDA tensors the
     ``sparse_adamw`` kernel; other devices raise. With ``pred`` (a bool 0-d
     tensor on the device: the non-finite guard's, a sweep's active replica)
     the count advances by it, and where it is False nothing is written.
+
+    ``grads`` are ``(slots, d)``, one row a slot; with ``table_grad=True``
+    the ``(n_rows, d)`` table gradient, read at each live slot's row.
+    ``span`` (None: every slot) gives the slots walked: a (2,) ``[start,
+    end)`` (:func:`live_span`) or a 0-d end, from slot 0 (the dedupe's
+    count), under the precondition that the live slots of ``unique_ids``
+    are one contiguous run inside it.
 
     ``norm=True`` (the engine's telemetry, ``repro_torch.optim.step``'s
     sparse twin) also returns the float64 0-d sum of squares of the table
@@ -132,7 +169,8 @@ def sparse_adamw_update(table: torch.Tensor, state: SparseTableState,
         count = state.count + (1 if apply is None else apply)
     state.count.add_(1 if pred is None else pred)
     kwargs = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-                  pred=pred, norm=norm, apply=apply)
+                  pred=pred, norm=norm, apply=apply, span=span,
+                  table_grad=table_grad)
     args = (table, state.mu, state.nu, unique_ids, grads.float(),
             state.count if count is None else count)
     if table.device.type == "cpu":

@@ -126,7 +126,7 @@ are separate chunk signatures: they never share a graph.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,7 +139,7 @@ from repro_torch.core.parameterization import (CONSTANT_START, Compression,
                                                FeatureParameter)
 from repro_torch.distrib.collectives import axes_group, gather_rows
 from repro_torch.distrib.shardings import DATA_AXES
-from repro_torch.optim.sparse import (init_sparse_table_state,
+from repro_torch.optim.sparse import (init_sparse_table_state, live_span,
                                       sparse_adamw_update,
                                       unique_rows_with_sentinel)
 from repro_torch.train.capture import ChunkGraphs
@@ -147,6 +147,15 @@ from repro_torch.tree import (map_with_paths, nest, tree_copy_, tree_leaves,
                               tree_map)
 
 SPARSE_PATH_SEP = "/"
+
+
+class SparseRows(NamedTuple):
+    """A sparse table's rows of one step: the distinct ids (this rank's
+    local ids, padded with the sentinel) and ``span``, their live run on
+    the device: its end (the dedupe's count) on one device, its ``[start,
+    end)`` (``optim.sparse.live_span``) on a mesh."""
+    ids: torch.Tensor
+    span: torch.Tensor
 
 
 def discover_sparse_tables(model) -> Dict[Tuple[str, ...],
@@ -287,6 +296,12 @@ class TrainEngine:
                                         self.model_size * rows)
             else:
                 self._row_block[key] = (0, rows, rows)
+        # on a mesh, sparse key -> [lo, lo + rows] of the global ids this
+        # rank's rows hold, on the device: what live_span searches for
+        self._bounds = {} if self.mesh is None else {
+            key: torch.tensor([lo, lo + rows], dtype=torch.int64,
+                              device=self.params[self._table_at[key]].device)
+            for key, (lo, rows, _) in self._row_block.items()}
         # a sweep's stacked parameters, their per-replica views and the
         # device-resident active mask (made by init_replica_params)
         self.replica_params: Optional[List[torch.Tensor]] = None
@@ -415,21 +430,25 @@ class TrainEngine:
         total = self._psum(count.clone())
         return torch.clamp_min(count, 1.0) / torch.clamp_min(total, 1.0)
 
-    def _union_rows(self, batch) -> Dict[str, torch.Tensor]:
+    def _union_rows(self, batch) -> Dict[str, SparseRows]:
         """Each sparse table's distinct rows over every data rank's batch
         rows, as this rank's local ids: the ids gathered over ``data`` at
         ``dp x`` this rank's length and deduped (the same list, in the same
         order, on every rank), then shifted into this model rank's block,
-        every row outside it (and every pad) the local sentinel."""
+        every row outside it (and every pad) the local sentinel. The live
+        run, between sentinels, is where the global ids lie in the
+        block."""
         out = {}
         for key, part in self.sparse_parts.items():
             lo, rows, total = self._row_block[key]
             ids = part.row_ids(batch).reshape(-1).contiguous()
             every = ids.new_empty((self.data_parallel_size() * ids.numel(),))
             dist.all_gather_into_tensor(every, ids, group=self._data_group)
-            local = unique_rows_with_sentinel(every, total) - lo
-            out[key] = torch.where((local >= 0) & (local < rows), local,
-                                   rows)
+            unique = unique_rows_with_sentinel(every, total)
+            local = unique - lo
+            out[key] = SparseRows(
+                torch.where((local >= 0) & (local < rows), local, rows),
+                live_span(unique, self._bounds[key]))
         return out
 
     def _reduce(self, loss, grads, rows):
@@ -452,11 +471,12 @@ class TrainEngine:
         d_rows = {}
         for key, at in self._table_at.items():
             n_rows = self.params[at].shape[0]
+            ids = rows[key].ids
             d_rows[key] = self._psum(torch.index_select(
-                grads[at], 0, torch.clamp(rows[key], max=n_rows - 1)))
+                grads[at], 0, torch.clamp(ids, max=n_rows - 1)))
             # the sentinel slots read the last row: not part of the gradient
             (local if at in self._sharded_at else whole).append(torch.where(
-                (rows[key] < n_rows)[:, None], d_rows[key], 0.0))
+                (ids < n_rows)[:, None], d_rows[key], 0.0))
         return loss, d_rows, (whole, local)
 
     def _all_finite(self, loss, checked) -> torch.Tensor:
@@ -629,13 +649,13 @@ class TrainEngine:
         self._active_host = mask.copy()
 
     # -- the step --------------------------------------------------------------
-    def _sparse_rows(self, batch) -> Dict[str, torch.Tensor]:
+    def _sparse_rows(self, batch) -> Dict[str, SparseRows]:
         """Each sparse table's distinct rows in the batch, padded with the
         sentinel (backward already summed duplicate lookups into the table
-        gradient's rows)."""
-        return {key: unique_rows_with_sentinel(
+        gradient's rows), and their live run."""
+        return {key: SparseRows(*unique_rows_with_sentinel(
                     part.row_ids(batch), self.params[self._table_at[key]]
-                    .shape[0])
+                    .shape[0], return_count=True))
                 for key, part in self.sparse_parts.items()}
 
     def _update(self, opt_state, params, grads, rows, pred, norm=False,
@@ -646,7 +666,8 @@ class TrainEngine:
         float64 sum of squares of the parameters the step would write under
         ``apply`` alone (see ``optim.step``: the telemetry's
         ``param_norm``). ``d_rows`` are the sparse tables' row gradients
-        at ``rows`` where the caller has them (summed over a mesh)."""
+        at ``rows`` where the caller has them (summed over a mesh); else
+        the kernel reads each table's gradient at its live rows."""
         if not self.sparse_parts:
             return optim_lib.step(self.optimizer, grads, opt_state, params,
                                   pred, norm=norm, apply=apply)
@@ -658,14 +679,12 @@ class TrainEngine:
             dense, sumsq = dense
         sparse = {}
         for key, at in self._table_at.items():
-            table, d_table = params[at], grads[at]
-            n_rows = table.shape[0]
-            # the sentinel pads read the last row, and are skipped
-            d = (d_rows[key] if d_rows is not None else torch.index_select(
-                d_table, 0, torch.clamp(rows[key], max=n_rows - 1)))
+            ids, span = rows[key]
             done = sparse_adamw_update(
-                table, opt_state["sparse"][key], rows[key], d,
-                pred=pred, norm=norm, apply=apply, **self.sparse_kwargs)
+                params[at], opt_state["sparse"][key], ids,
+                grads[at] if d_rows is None else d_rows[key],
+                pred=pred, norm=norm, apply=apply, span=span,
+                table_grad=d_rows is None, **self.sparse_kwargs)
             sparse[key] = done[1]
             if norm:
                 share = done[2]
@@ -877,17 +896,18 @@ class TrainEngine:
         params = [copy(p) for p in self.params]
         state = tree_map(copy, opt_state)
         fake_chunk = {k: copy(v) for k, v in chunk.items()}
-        live = self.params
+        live, bounds = self.params, self._bounds
         counter = OpCounter()
         try:
             self.params = params
+            self._bounds = {k: copy(v) for k, v in bounds.items()}
             with fake, _reparametrize_module(
                     self.model, dict(zip(self.names, params))):
                 counter.track(params, state, fake_chunk)
                 with counter:
                     self._loop(state, fake_chunk)
         finally:
-            self.params = live
+            self.params, self._bounds = live, bounds
         cost = counter.result()
         n = next(iter(chunk.values())).shape[0]
         cost["chunk_batches"] = int(n)

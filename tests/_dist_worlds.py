@@ -571,6 +571,17 @@ LM_TRAIN = [("gqa", m, False) for m in LM_MESHES] + [
 #: give two functions, and a lossless one against the dense oracle
 LM_MOE = [(1.25, (2, 4)), (1.25, (8, 1)), (64.0, (2, 4)), (64.0, (1, 8))]
 LM_LR, LM_EPS = 1e-3, 1e-2
+#: (config, mesh, microbatches, global rows) of two microbatched steps
+#: whose microbatches the data ranks do not divide: 4 rows over 8, 12 over
+#: 8, and 1 over 2 with ``model`` of 4 (its sums and the vocabulary-parallel
+#: loss with a padded rank)
+LM_UNEVEN = [("gqa", (8, 1), 4, 16), ("gqa", (8, 1), 2, 24),
+             ("gqa", (2, 4), 16, 16), ("heads", (2, 4), 16, 16)]
+#: (config, mesh, microbatches, global rows, LMConfig keywords) of uneven
+#: splits that JAX's shard_map bodies refuse: the capacity MoE and the
+#: explicit row-parallel matmul
+LM_REFUSED = [("moe", (8, 1), 2, 24, {}),
+              ("gqa", (8, 1), 2, 24, {"explicit_row_parallel": True})]
 
 
 def lm_config(name, **kw):
@@ -600,7 +611,7 @@ def _per_rank_microbatches(lay, batch, M):
             for m in range(M)]
 
 
-def task_lm8(rank, world, trees, batch, dec):
+def task_lm8(rank, world, trees, batch, dec, batch24):
     import dataclasses
 
     import torch
@@ -641,15 +652,15 @@ def task_lm8(rank, world, trees, batch, dec):
                 "grads": full(cfg, mesh, zip(names, grads)),
                 "contiguous": all(g.is_contiguous() for g in grads)}
 
-    def train(cfg, name, mesh):
-        cfg = dataclasses.replace(cfg, microbatches=2)
+    def train(cfg, name, mesh, microbatches=2, arrays=batch):
+        cfg = dataclasses.replace(cfg, microbatches=microbatches)
         params = placed(cfg, name, mesh)
         opt = optim.adamw(LM_LR, eps=LM_EPS)
         state = opt.init(list(params.parameters()))
         step = lm.make_train_step(cfg, opt, mesh)
         losses = []
         for _ in range(2):
-            params, state, loss = step(params, state, rows(mesh, batch))
+            params, state, loss = step(params, state, rows(mesh, arrays))
             losses.append(float(loss))
         return {"losses": losses, "params": full(
             cfg, mesh, params.named_parameters())}
@@ -665,6 +676,16 @@ def task_lm8(rank, world, trees, batch, dec):
         out[("train", name, shape, erp)] = train(
             lm_config(name, explicit_row_parallel=erp), name,
             meshes_[shape])
+    arrays = {16: batch, 24: batch24}
+    for name, shape, M, n in LM_UNEVEN:
+        out[("uneven", name, shape, M, n)] = train(
+            lm_config(name), name, meshes_[shape], M, arrays[n])
+    for name, shape, M, n, kw in LM_REFUSED:
+        try:
+            train(lm_config(name, **kw), name, meshes_[shape], M, arrays[n])
+            out[("refused", name, shape, M, n)] = None
+        except ValueError as e:
+            out[("refused", name, shape, M, n)] = str(e)
     # each capacity cut's margin: the relative gap between the last gate an
     # expert keeps and the first it drops (a near-tie is decided by
     # float32 rounding alone, in either package)

@@ -66,6 +66,12 @@ RATIOS = {
     ("lm|decode_32k", "2x4"): 1617559552 / 409600000,
 }
 
+#: The reduced llama train cell with microbatches narrower than the data
+#: ranks: 64 microbatches of 4 of the 256 rows over the 8 data ranks of
+#: ``(8, 1)`` (JAX pads each to 8 rows, one a device; the port's ranks 4-7
+#: take a masked row).
+NARROW = ("lm|train_4k_narrow", "8x1")
+
 CELL_BUILDERS = r"""
 def cells(mesh, build_lm, recsys, DeepFM, BST, deepfm, bst, llama, sage,
           clax, meta):
@@ -85,6 +91,13 @@ def cells(mesh, build_lm, recsys, DeepFM, BST, deepfm, bst, llama, sage,
         "full_graph_sm", mesh)
     yield "clax-dbn|train_batch", lambda: clax.build_cell(
         "train_batch", mesh, kind="dbn")
+
+
+def narrow(mesh, build_lm, llama):
+    import dataclasses
+    lm = dataclasses.replace(llama.reduced(), attn_chunk=4096,
+                             microbatches=64)
+    return build_lm(lm, "train_4k", mesh)
 """
 
 JAX_SCRIPT = r"""
@@ -121,6 +134,14 @@ for shape in ((1, 1), (2, 4)):
                           donate_argnums=cell.donate).lower(
                 *cell.args).compile().as_text()
         out["walk"]["%s|%dx%d" % (key, *shape)] = analyze_hlo(hlo)
+mesh = mesh_of((8, 1))
+with set_mesh(mesh):
+    cell = narrow(mesh, build_lm_cell, llama3_2_1b)
+    hlo = jax.jit(cell.fn, in_shardings=cell.in_shardings,
+                  out_shardings=cell.out_shardings,
+                  donate_argnums=cell.donate).lower(
+        *cell.args).compile().as_text()
+out["walk"]["lm|train_4k_narrow|8x1"] = analyze_hlo(hlo)
 print(json.dumps(out))
 """
 
@@ -158,6 +179,15 @@ else:
                            else torch.no_grad()):
                 cell.fn(*cell.args)
         out["walk"]["%s|%dx%d" % (key, *shape)] = counter.result()
+    if world == 8:
+        mesh = dryrun._mesh("8x1", "cpu")
+        with FakeTensorMode():
+            cell = narrow(mesh, build_lm_cell, llama3_2_1b)
+            counter = OpCounter()
+            counter.track(cell.args)
+            with counter, torch.enable_grad():
+                cell.fn(*cell.args)
+        out["walk"]["lm|train_4k_narrow|8x1"] = counter.result()
 print(json.dumps(out))
 """
 
@@ -248,6 +278,19 @@ def test_dot_flops_per_device_match_jax(runs, cell, mesh):
         assert got == pytest.approx(want, rel=1e-6, abs=0)
     else:
         assert got == pytest.approx(want * ratio, rel=1e-2)
+
+
+def test_narrow_microbatch_cell_builds_and_matches_jax_dot_flops(runs):
+    """Microbatches of 4 rows over 8 data ranks (the 405b ``train_4k``
+    cell on ``pod2x16x16`` lays 16 over 32): the port's rank 0 takes one
+    row a microbatch, as each of JAX's devices after GSPMD's padding, so
+    its dot flops per device are JAX's, held as
+    :func:`test_dot_flops_per_device_match_jax` holds them."""
+    jax_out, port = runs
+    key = "|".join(NARROW)
+    want, got = jax_out["walk"][key]["flops"], port["walk"][key]["flops"]
+    print(f"{key}: port {got:.6e} JAX {want:.6e}")
+    assert got == pytest.approx(want, rel=1e-6, abs=0)
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -341,6 +384,38 @@ def test_kernel_ops_fake_forms_make_outputs_and_launch_nothing(name):
                          else torch.float32)
 
 
+def test_sparse_adamw_table_gradient_form_meets_its_fake_form_and_cost():
+    """The op with a span and the table gradient (the engine's form) under
+    a FakeTensorMode and the dry run's counter: no launch, the empty (0,)
+    result, charged ``kernels/cost.py``'s bytes for that form (the table
+    gradient's sectors in place of per-slot rows)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import repro_torch.kernels  # noqa: F401  (registers the ops)
+    from repro_torch.kernels import cost
+    from repro_torch.launch.op_cost import OpCounter
+
+    with FakeTensorMode():
+        table = torch.empty(1000, 2)
+        ids = torch.empty(64, dtype=torch.int64)
+        span = torch.empty(2, dtype=torch.int64)
+        count = torch.empty((), dtype=torch.int32)
+        counter = OpCounter()
+        with counter:
+            out = torch.ops.repro_torch.sparse_adamw(
+                table, table, table, ids, table, count, None, None, False,
+                1e-3, 0.9, 0.999, 1e-8, 0.0, span, True)
+        want = cost.sparse_adamw(table, table, table, ids, table,
+                                 table_grad=True)
+    assert tuple(out.shape) == (0,) and out.dtype == torch.float64
+    row = counter.result()["kernel_ops"]["sparse_adamw"]
+    assert row["count"] == 1 and row["bytes"] == want.bytes
+    # 64 slots' rows of 2 floats: 64 sectors each of p, m, v and the
+    # table gradient, against the per-slot form's 64 x 8 gradient bytes
+    assert want.bytes == 64 * 192 + 64 * 8 + 64 * 32
+
+
 #: PERF.md's kernel table: row -> (op, its arguments' shapes and types,
 #: the bound in ms at 3.35 TB/s and 67 TFLOP/s, as the table states it)
 BOUNDS = {
@@ -367,6 +442,31 @@ BOUNDS = {
                              ((1498482688,), "float32"),
                              ((1498482688,), "float32")), 10.74),
 }
+
+
+#: PERF.md's two ``sparse_adamw`` rows at the DBN's first batch: one
+#: (214,748,672, 1) table, 655,360 slots, 86,726 live rows in 86,603
+#: sectors (``chip_smoke.py`` counts them), the gradient per slot or read
+#: from the table gradient -> the bound in ms
+SPARSE_BOUNDS = {"per_slot": (False, 0.00663), "table_grad": (True, 0.00736)}
+
+
+@pytest.mark.parametrize("row", sorted(SPARSE_BOUNDS))
+def test_cost_reproduces_the_sparse_adamw_rows(row):
+    import torch
+
+    from repro_torch.kernels import cost
+
+    table_grad, want = SPARSE_BOUNDS[row]
+    rows, slots = 214748672, 655360
+    table = torch.empty((rows, 1), device="meta")
+    ids = torch.empty((slots,), dtype=torch.int64, device="meta")
+    grads = table if table_grad else torch.empty((slots, 1), device="meta")
+    got, by = cost.bound_ms(cost.sparse_adamw(
+        table, table, table, ids, grads, table_grad=table_grad,
+        sectors=86603, live=86726))
+    assert by == "bytes"
+    assert got == pytest.approx(want, abs=0.5e-5)
 
 
 @pytest.mark.parametrize("row", sorted(BOUNDS))

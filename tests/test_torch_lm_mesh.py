@@ -15,7 +15,10 @@ configs from the same init trees and numpy batches, at 1e-5:
   splits ``wk`` mid-head on 4 and 8 model ranks) and one whose heads each
   model size divides (and whose vocabulary pads 61 to 64);
 * two ``param_specs``-placed AdamW steps with ``microbatches=2`` and
-  uneven target masks, ``explicit_row_parallel`` off and on;
+  uneven target masks, ``explicit_row_parallel`` off and on; the same
+  with microbatches the data ranks do not divide (4 rows over 8, 12 over
+  8, 1 over 2), and the uneven splits JAX's ``shard_map`` refuses (the
+  capacity MoE, the explicit row-parallel matmul) refused alike;
 * the capacity-bounded MoE at ``capacity_factor=1.25`` on ``(2, 4)`` and
   ``(8, 1)`` (two functions: capacity counts each data rank's tokens), and
   at 64 on ``(2, 4)`` and ``(1, 8)`` against JAX's dense oracle;
@@ -119,6 +122,37 @@ for name, s, erp in spec["train"]:
     key = f"train/{name}/{tuple(s)}/{erp}"
     out[key + "/losses"] = np.asarray(losses)
     flat(key + "/params", p)
+batches = {16: batch, 24: {"tokens": jnp.asarray(inp["tokens24"]),
+                           "targets": jnp.asarray(inp["targets24"])}}
+for name, s, M, n in spec["uneven"]:
+    cfg = cfg_of(name, microbatches=M)
+    mesh = meshes[tuple(s)]
+    opt = optim.adamw(spec["lr"], eps=spec["eps"])
+    with set_mesh(mesh):
+        p = placed(cfg, name, mesh)
+        st = opt.init(p)
+        step = jax.jit(make_train_step(cfg, opt, mesh))
+        losses = []
+        for _ in range(2):
+            p, st, loss = step(p, st, batches[n])
+            losses.append(float(loss))
+    key = f"uneven/{name}/{tuple(s)}/{M}/{n}"
+    out[key + "/losses"] = np.asarray(losses)
+    flat(key + "/params", p)
+refused = {}
+for name, s, M, n, kw in spec["refused"]:
+    cfg = cfg_of(name, microbatches=M, **kw)
+    mesh = meshes[tuple(s)]
+    opt = optim.adamw(spec["lr"], eps=spec["eps"])
+    try:
+        with set_mesh(mesh):
+            p = placed(cfg, name, mesh)
+            jax.jit(make_train_step(cfg, opt, mesh))(p, opt.init(p),
+                                                     batches[n])
+        refused[f"{name}/{tuple(s)}/{M}/{n}"] = None
+    except Exception as e:
+        refused[f"{name}/{tuple(s)}/{M}/{n}"] = f"{type(e).__name__}: {e}"
+print("REFUSED " + json.dumps(refused))
 for cf, s in spec["moe"]:
     loss_grads(f"moe/{cf}/{tuple(s)}", cfg_of("moe", capacity_factor=cf),
                "moe", meshes[tuple(s)])
@@ -167,7 +201,10 @@ def _inputs():
             # uneven masks: each microbatch and rank its own count
             "targets": rng.integers(-1, vocab, (16, 8)).astype(np.int32),
             "dec_tokens": rng.integers(0, vocab, (4, 8)).astype(np.int32),
-            "dec_next": rng.integers(0, vocab, (4, 1)).astype(np.int32)}
+            "dec_next": rng.integers(0, vocab, (4, 1)).astype(np.int32),
+            # 3 rows a rank on (8, 1): microbatches of 12 rows over 8 ranks
+            "tokens24": rng.integers(0, vocab, (24, 8)).astype(np.int32),
+            "targets24": rng.integers(-1, vocab, (24, 8)).astype(np.int32)}
 
 
 def _trees():
@@ -194,7 +231,8 @@ def worlds():
     trees = _trees()
     spec = {"cfgs": W.LM_CFGS, "meshes": W.LM_MESHES,
             "train": W.LM_TRAIN, "moe": W.LM_MOE, "lr": W.LM_LR,
-            "eps": W.LM_EPS}
+            "eps": W.LM_EPS, "uneven": W.LM_UNEVEN,
+            "refused": W.LM_REFUSED}
     with tempfile.TemporaryDirectory() as tmp:
         src, dst = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npz")
         np.savez(src, **inp, **_flat("params", trees))
@@ -208,7 +246,9 @@ def worlds():
             ranks = W.spawn("lm8", 8, timeout=300, trees=trees,
                             batch={k: inp[k] for k in ("tokens", "targets")},
                             dec={"tokens": inp["dec_tokens"],
-                                 "next": inp["dec_next"]})
+                                 "next": inp["dec_next"]},
+                            batch24={"tokens": inp["tokens24"],
+                                     "targets": inp["targets24"]})
             out, err = proc.communicate(timeout=400)
         finally:
             if proc.poll() is None:
@@ -216,7 +256,9 @@ def worlds():
         assert proc.returncode == 0, err[-3000:]
         assert "JAX_LM_MESH_OK" in out
         jax_out = dict(np.load(dst))
-    return SimpleNamespace(ranks=ranks, jax=jax_out)
+    refused = json.loads(next(line for line in out.splitlines()
+                              if line.startswith("REFUSED "))[8:])
+    return SimpleNamespace(ranks=ranks, jax=jax_out, refused=refused)
 
 
 def _close(got, want, what):
@@ -261,6 +303,33 @@ def test_two_microbatched_steps_match_jax(worlds, name, shape, erp):
         got = r[("train", name, shape, erp)]
         _close(got["losses"], worlds.jax[key + "/losses"], key)
         _close_tree(got["params"], worlds.jax, key + "/params")
+
+
+@pytest.mark.parametrize("name,shape,M,n", W.LM_UNEVEN)
+def test_uneven_microbatch_steps_match_jax(worlds, name, shape, M, n):
+    """Microbatches of n / M rows that the data ranks do not divide (fewer
+    rows than ranks, or 12 over 8): each rank takes ceil(rows / ranks) of
+    them, padded with masked rows, as GSPMD pads JAX's; the padded rows add
+    nothing to the loss, its count or any gradient."""
+    key = f"uneven/{name}/{shape}/{M}/{n}"
+    for r in worlds.ranks:
+        got = r[("uneven", name, shape, M, n)]
+        _close(got["losses"], worlds.jax[key + "/losses"], key)
+        _close_tree(got["params"], worlds.jax, key + "/params")
+
+
+@pytest.mark.parametrize("name,shape,M,n,kw", W.LM_REFUSED)
+def test_uneven_split_is_refused_where_jax_refuses(worlds, name, shape, M,
+                                                   n, kw):
+    """JAX's shard_map bodies (the capacity MoE, the explicit row-parallel
+    matmul) refuse a microbatch the data ranks do not divide; the port
+    refuses it alike, on every rank, with a ValueError."""
+    want = worlds.refused[f"{name}/{shape}/{M}/{n}"]
+    assert want is not None and want.startswith("ValueError: shard_map")
+    assert "not evenly divisible" in want
+    for r in worlds.ranks:
+        got = r[("refused", name, shape, M, n)]
+        assert got is not None and "not evenly divisible" in got, got
 
 
 @pytest.mark.parametrize("cf,shape", W.LM_MOE)
