@@ -163,8 +163,9 @@ Phases, each printing JSON lines:
                   directory; a SIGTERM KillSwitch at batch 9 preempts the
                   run, a fresh Trainer resumes it: parameters, moments and
                   history equal to the bit to an uninterrupted run; save
-                  and restore seconds and bytes. Then the launcher's
-                  SIGKILL drill at its default size (3 epochs):
+                  and restore seconds and bytes. Beside it, in processes
+                  of its own, the launcher's SIGKILL drill at its default
+                  size (3 epochs; its two runs at once):
                   --fault-kill-at-step 100 --max-restarts 1 exits 0 with
                   the uninterrupted run's records and test metrics.
    em             Figure 1 on the card: GCTR, RCTR, DCTR and SDBN by MLE,
@@ -2201,21 +2202,24 @@ def adamw_bound(n, moments="float32", params="float32", grads="float32"):
                                     meta(moments), meta(moments)))
 
 
-def sparse_adamw_bound(live_rows, slots, table_grad=False):
+def sparse_adamw_bound(live_rows, slots, table_grad=False, spanned=False):
     """For a (R, 1) float32 table and moments: each distinct 32-byte sector
     that this run's touched rows fall in (eight rows a sector), read and
-    written, in each of p, m and v; every slot's 8-byte id, and each live
-    slot's 4-byte gradient (the kernel reads no gradient of a sentinel
-    slot), read in order, or with ``table_grad`` the same sectors of the
-    table gradient read."""
+    written, in each of p, m and v; the 8-byte id of each slot walked
+    (every slot, or with ``spanned`` the live run's), and each live slot's
+    4-byte gradient (the kernel reads no gradient of a sentinel slot), read
+    in order, or with ``table_grad`` the same sectors of the table gradient
+    read."""
     import torch
 
     sectors = torch.unique(live_rows // (SECTOR // 4)).numel()
     table = _meta(DBN_ROWS, 1)
     grads = table if table_grad else _meta(slots, 1)
+    span = _meta(2, dtype=torch.int64) if spanned else None
     return cost.bound_ms(cost.sparse_adamw(
         table, table, table, _meta(slots, dtype=torch.int64), grads,
-        table_grad=table_grad, sectors=sectors, live=live_rows.numel()))
+        span=span, table_grad=table_grad, sectors=sectors,
+        live=live_rows.numel()))
 
 
 def phase_optimizer_kernels(card, data):
@@ -2230,17 +2234,17 @@ def phase_optimizer_kernels(card, data):
     torch.optim.SparseAdam (no weight decay: another function, timed at
     wd = 0). Each kernel has an edge case where the decay term moves the
     parameters far past the tolerance, checked to be so. sparse_adamw's
-    forms (the live run of ``live_span``; the table gradient read at the
-    live rows, the engine's form) and its first design, each against its
-    every-slot form to the bit, timed in this call; and the live run's
-    edges."""
+    forms (the live run of ``live_span`` and of the dedupe's span; the
+    table gradient read at the live rows, the engine's form), each against
+    its every-slot form to the bit, timed in this call; and the live run's
+    edges. (Its first design is timed beside it from a checkout of that
+    tree: ``scripts/sparse_adamw_trees.py``.)"""
     import numpy as np
     import torch
 
     from repro_torch import optim
     from repro_torch.core.parameterization import hash_ids
     from repro_torch.kernels import sparse_adamw_cuda, sparse_adamw_plain
-    from repro_torch.kernels.sparse_adamw import sparse_adamw_scan_cuda
     from repro_torch.optim.sparse import (init_sparse_table_state, live_span,
                                           unique_rows_with_sentinel)
 
@@ -2381,8 +2385,8 @@ def phase_optimizer_kernels(card, data):
         data["query_doc_ids"][:B_MAIN].reshape(-1)).to(device), DBN_ROWS)
     ids = torch.where(ids == 0, 1, ids)  # row 0 stays untouched
     ids[0] = DBN_ROWS - 1                # row R-1 is touched
-    rows, live_end = unique_rows_with_sentinel(ids, DBN_ROWS,
-                                               return_count=True)
+    rows, dedupe_span = unique_rows_with_sentinel(ids, DBN_ROWS,
+                                                  return_span=True)
     live = int((rows < DBN_ROWS).sum())
     # Unhashed Zipf ranks, the hot rows side by side at the table's start:
     # an edge case of the same size.
@@ -2395,7 +2399,7 @@ def phase_optimizer_kernels(card, data):
     before = torch.randn(DBN_ROWS, 1, generator=gen, device=device) * 0.5
     row_grads = torch.randn(SPARSE_SLOTS, 1, generator=gen, device=device)
     kw = dict(lr=3e-3, weight_decay=1e-4)
-    # the live run: its end, the dedupe's count (the engine's), and its
+    # the live run: [0, count) from the dedupe (the engine's), and its
     # [start, end) found by live_span (a mesh's); the table gradient that
     # holds each live slot's gradient at its row (the engine's form reads it)
     bounds = torch.tensor([0, DBN_ROWS], dtype=torch.int64, device=device)
@@ -2436,15 +2440,15 @@ def phase_optimizer_kernels(card, data):
                           _over(sk.nu, sp.nu, 1e-6, 1e-6))}
     del tp, sp
     torch.cuda.empty_cache()
-    # the redesign's forms and the first design against the every-slot form
-    # above: p, m and v to the bit (held below with the other checks)
-    for form, (kernel, grads_, extra) in {
-            "span": (sparse_adamw_cuda, row_grads, dict(span=span)),
-            "dedupe_end": (sparse_adamw_cuda, row_grads, dict(span=live_end)),
-            "table_grad": (sparse_adamw_cuda, d_table,
-                           dict(span=live_end, table_grad=True)),
-            "first_design": (sparse_adamw_scan_cuda, row_grads, {})}.items():
-        tf, sf = run(kernel, before, rows, grads_, 2, {**kw, **extra})
+    # the kernel's forms against its every-slot form above: p, m and v to
+    # the bit (held below with the other checks)
+    for form, (grads_, extra) in {
+            "span": (row_grads, dict(span=span)),
+            "dedupe_span": (row_grads, dict(span=dedupe_span)),
+            "table_grad": (d_table, dict(span=dedupe_span,
+                                         table_grad=True))}.items():
+        tf, sf = run(sparse_adamw_cuda, before, rows, grads_, 2,
+                     {**kw, **extra})
         checks[f"{form}_bit_equal"] = bool(
             torch.equal(tf, tk) and torch.equal(sf.mu, sk.mu)
             and torch.equal(sf.nu, sk.nu))
@@ -2488,7 +2492,7 @@ def phase_optimizer_kernels(card, data):
         st.count.add_(pred & apply)
         delta = kernel(t, st.mu, st.nu, rows, d_table, count,
                        pred=pred & apply, norm=True, apply=apply,
-                       span=live_end, table_grad=True, **kw)
+                       span=dedupe_span, table_grad=True, **kw)
         return (t, st), touched_before + float(delta)
 
     s_norm_forms = {}
@@ -2557,7 +2561,7 @@ def phase_optimizer_kernels(card, data):
     live_run_edges = _sparse_live_run_edges(gen, kw)
     t = before.clone()
     st = init_sparse_table_state(t)
-    engine_form = dict(span=live_end, table_grad=True)
+    engine_form = dict(span=dedupe_span, table_grad=True)
 
     def sparse_kernel(rows_=rows, pred=None, grads_=row_grads, **form):
         sparse_adamw_cuda(t, st.mu, st.nu, rows_, grads_, st.count,
@@ -2568,12 +2572,10 @@ def phase_optimizer_kernels(card, data):
 
     s_ms = time_ms(engine_kernel, iters=100)
     # "kernel": the engine's form; "every_slot": the per-slot form without
-    # a span, every slot walked; "first_design": the kernel's first design
+    # a span, every slot walked
     s_device = {"kernel": graph_ms(engine_kernel),
                 "per_slot_span": graph_ms(lambda: sparse_kernel(span=span)),
                 "every_slot": graph_ms(sparse_kernel),
-                "first_design": graph_ms(lambda: sparse_adamw_scan_cuda(
-                    t, st.mu, st.nu, rows, row_grads, st.count, **kw)),
                 "kernel_pred_true": graph_ms(lambda: engine_kernel(yes)),
                 "kernel_pred_false": graph_ms(lambda: engine_kernel(no)),
                 "dedupe": graph_ms(lambda: unique_rows_with_sentinel(
@@ -2581,14 +2583,10 @@ def phase_optimizer_kernels(card, data):
                 "live_span": graph_ms(lambda: live_span(rows, bounds)),
                 "zipf_ranks_kernel": graph_ms(
                     lambda: sparse_kernel(zipf_rows, span=zipf_span))}
-    first_design_ms = time_ms(lambda: sparse_adamw_scan_cuda(
-        t, st.mu, st.nu, rows, row_grads, st.count, **kw), iters=100)
     # What holds it: the floor of one live slot; the same live count drawn
     # from the table's first 8,000,000 rows (the touched pages' spread);
     # and cold L2 (a 512 MB write between calls evicts the rows; its own
-    # time taken out), beside the route it replaced: the per-table work
-    # before it, a slot-wide gather of the table gradient, then the first
-    # design
+    # time taken out)
     one_live = unique_rows_with_sentinel(
         torch.full((SPARSE_SLOTS,), 12_345, device=device), DBN_ROWS)
     compact = unique_rows_with_sentinel(
@@ -2607,35 +2605,10 @@ def phase_optimizer_kernels(card, data):
             fn()
         return graph_ms(after_flush) - flush_ms
 
-    def parent_route():
-        d = torch.index_select(d_table, 0, torch.clamp(rows, max=DBN_ROWS - 1))
-        sparse_adamw_scan_cuda(t, st.mu, st.nu, rows, d, st.count, **kw)
-
-    def engine_route():  # its span is the dedupe's count: no search
-        engine_kernel()
-
-    s_device["routes"] = {"parent": graph_ms(parent_route),
-                          "engine": graph_ms(engine_route)}
     s_device["cold"] = {
         "kernel": cold_ms(engine_kernel),
-        "per_slot_span": cold_ms(lambda: sparse_kernel(span=span)),
-        "first_design": cold_ms(lambda: sparse_adamw_scan_cuda(
-            t, st.mu, st.nu, rows, row_grads, st.count, **kw)),
-        "parent_route": cold_ms(parent_route),
-        "engine_route": cold_ms(engine_route)}
+        "per_slot_span": cold_ms(lambda: sparse_kernel(span=span))}
     del flush
-    # the launch plan's neighbours: the engine's form at other grid caps
-    from repro_torch.kernels import sparse_adamw as sparse_module
-
-    plan_sweep = {}
-    chosen = sparse_module.BLOCKS_PER_SM
-    try:
-        for per_sm in (1, 2, 4, 8):
-            sparse_module.BLOCKS_PER_SM = per_sm
-            plan_sweep[per_sm] = graph_ms(engine_kernel)
-    finally:
-        sparse_module.BLOCKS_PER_SM = chosen
-    s_device["plan_sweep_blocks_per_sm"] = plan_sweep
     s_plain_ms = time_ms(lambda: sparse_adamw_plain(
         t, st.mu, st.nu, rows, d_table, st.count, **kw, **engine_form),
         iters=5, warmup=1)
@@ -2650,24 +2623,26 @@ def phase_optimizer_kernels(card, data):
     lib = torch.optim.SparseAdam([lib_param], lr=3e-3)
     s_library_ms = time_ms(lib.step, iters=20, warmup=2)
     del lib, lib_param
+    # each form's own bound: every slot's id read, or the live run's
     slot_bound_ms, _ = sparse_adamw_bound(live_rows, SPARSE_SLOTS)
+    span_bound_ms, _ = sparse_adamw_bound(live_rows, SPARSE_SLOTS,
+                                          spanned=True)
     s_bound_ms, s_bound_by = sparse_adamw_bound(live_rows, SPARSE_SLOTS,
-                                                table_grad=True)
+                                                table_grad=True, spanned=True)
     zipf_bound_ms, _ = sparse_adamw_bound(zipf_rows[:zipf_live],
-                                          SPARSE_SLOTS)
-    share_of_bound = {
-        "kernel": s_bound_ms / s_device["kernel"],
-        "per_slot_span": slot_bound_ms / s_device["per_slot_span"],
-        "every_slot": slot_bound_ms / s_device["every_slot"],
-        "first_design": slot_bound_ms / s_device["first_design"]}
+                                          SPARSE_SLOTS, spanned=True)
+    form_bounds = {"kernel": s_bound_ms, "per_slot_span": span_bound_ms,
+                   "every_slot": slot_bound_ms}
+    share_of_bound = {form: bound / s_device[form]
+                      for form, bound in form_bounds.items()}
     emit("kernel", name="sparse_adamw", shape=[DBN_ROWS, 1, SPARSE_SLOTS],
          live_rows=live, span=span.tolist(), card=card, kernel_ms=s_ms,
-         first_design_ms=first_design_ms, plain_ms=s_plain_ms,
+         plain_ms=s_plain_ms,
          library_ms=s_library_ms,
          library="torch.optim.SparseAdam on the live rows' COO gradient "
                  "(no weight decay: timed, not held)",
          dedupe_ms=dedupe_ms, device_ms=s_device, bound_ms=s_bound_ms,
-         bound_by=s_bound_by, per_slot_bound_ms=slot_bound_ms,
+         bound_by=s_bound_by, form_bounds_ms=form_bounds,
          share_of_bound=share_of_bound, max_abs_err=err, checks=checks,
          zipf_ranks={"live_rows": zipf_live, "bound_ms": zipf_bound_ms},
          live_run_edges=live_run_edges,
@@ -2690,8 +2665,8 @@ def phase_optimizer_kernels(card, data):
         "max_abs_err": err, "ms": s_ms, "plain_ms": s_plain_ms,
         "bound_ms": s_bound_ms, "bound_by": s_bound_by,
         "library_ms": s_library_ms, "device_ms": s_device,
-        "per_slot_bound_ms": slot_bound_ms, "first_design_ms":
-        first_design_ms, "live_rows": live, "predicate": s_predicate,
+        "form_bounds_ms": form_bounds, "live_rows": live,
+        "predicate": s_predicate,
         "held": True}
     del before, touched, ids, rows, zipf_rows, row_grads, d_table
     gc.collect()
@@ -4249,7 +4224,9 @@ def _sigkill_drill():
     card: with ``--ckpt-dir``, ``--fault-kill-at-step 100`` (SIGKILL in
     epoch 2, after epoch 1's checkpoint) and ``--max-restarts 1`` it must
     exit 0 after one relaunch, with the uninterrupted run's epoch records
-    and test metrics."""
+    and test metrics. Both runs start at once, on threads of their own;
+    the drill returns ``finish``, which waits for them, checks them and
+    returns the record (so the caller's own work runs beside them)."""
     import shutil
     import subprocess
     import tempfile
@@ -4272,25 +4249,33 @@ def _sigkill_drill():
         tests = [line for line in lines if line.startswith("[train] test")]
         return proc.stdout, epochs, tests, time.perf_counter() - t0
 
-    try:
-        out, epochs, tests, drill_s = records(base + [
-            "--ckpt-dir", ckpt, "--fault-kill-at-step", "100",
-            "--max-restarts", "1"])
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
-    _, want_epochs, want_tests, clean_s = records(base)
-    relaunched = ("relaunching" in out
-                  and "completed after 1 restart" in out
-                  and "resumed at epoch=1" in out)
-    same = epochs[-len(want_epochs) + 1:] == want_epochs[1:] \
-        and tests == want_tests and len(tests) == 1
-    if not (relaunched and same):
-        raise AssertionError(f"drill: relaunched {relaunched}, records "
-                             f"{epochs} / {tests} against {want_epochs} / "
-                             f"{want_tests}")
-    return {"exit": 0, "relaunched": relaunched, "test": tests[0],
-            "equal_to_uninterrupted": same, "drill_seconds": drill_s,
-            "uninterrupted_seconds": clean_s}
+    pool = ThreadPoolExecutor(2)
+    killed = pool.submit(records, base + [
+        "--ckpt-dir", ckpt, "--fault-kill-at-step", "100",
+        "--max-restarts", "1"])
+    clean = pool.submit(records, base)
+    pool.shutdown(wait=False)
+
+    def finish():
+        try:
+            _, want_epochs, want_tests, clean_s = clean.result()
+            out, epochs, tests, drill_s = killed.result()
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        relaunched = ("relaunching" in out
+                      and "completed after 1 restart" in out
+                      and "resumed at epoch=1" in out)
+        same = epochs[-len(want_epochs) + 1:] == want_epochs[1:] \
+            and tests == want_tests and len(tests) == 1
+        if not (relaunched and same):
+            raise AssertionError(f"drill: relaunched {relaunched}, records "
+                                 f"{epochs} / {tests} against {want_epochs}"
+                                 f" / {want_tests}")
+        return {"exit": 0, "relaunched": relaunched, "test": tests[0],
+                "equal_to_uninterrupted": same, "drill_seconds": drill_s,
+                "uninterrupted_seconds": clean_s}
+
+    return finish
 
 
 def phase_resume_dbn(data, card, steps=16):
@@ -4300,7 +4285,25 @@ def phase_resume_dbn(data, card, steps=16):
     Trainer resumes from it and must end on an uninterrupted run's
     parameters, moments and history to the bit. Both runs counted, their
     launches held to the steps each ran. Save and restore seconds and
-    bytes. Then the launcher's SIGKILL drill."""
+    bytes. The launcher's SIGKILL drill runs beside it, in processes of
+    its own."""
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    finish_drill = _sigkill_drill()
+    try:
+        body = _resume_body(data, card, steps)
+    finally:
+        drill = finish_drill()
+    emit("resume_dbn", **body, sigkill_drill=drill,
+         seconds=time.perf_counter() - t_phase)
+
+
+def _resume_body(data, card, steps):
+    """phase_resume_dbn's in-process part: the record it emits, but the
+    drill's."""
     import shutil
     import signal
     import tempfile
@@ -4312,10 +4315,6 @@ def phase_resume_dbn(data, card, steps=16):
     from repro_torch.testing import KillSwitch
     from repro_torch.train import Trainer
     from repro_torch.train.capture import tree_leaves
-
-    t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
 
     def trainer(ckpt=None):
         return Trainer(optim.adamw(3e-3, weight_decay=1e-4), epochs=1,
@@ -4381,20 +4380,19 @@ def phase_resume_dbn(data, card, steps=16):
     del resumed, full, model, full_model
     gc.collect()
     torch.cuda.empty_cache()
-    drill = _sigkill_drill()
     saves = timed_k.saves + timed_r.saves
-    emit("resume_dbn", card=card, steps=steps, preempted_at_step=stopped_at,
-         launches={"preempted": killed_counts["launches"],
-                   "resumed": resumed_counts["launches"]},
-         wrapper_launches={"preempted": killed_counts["wrapper_launches"],
-                           "resumed": resumed_counts["wrapper_launches"]},
-         versus_uninterrupted=versus, history_equal=history_equal,
-         bits_equal=True, saves=saves,
-         restores=timed_k.restores + timed_r.restores,
-         save_gb=[x["bytes"] / 1e9 for x in saves],
-         save_gb_per_s=[x["bytes"] / 1e9 / x["seconds"] for x in saves],
-         disk_free_gb=free_gb, history=strip(h_full), sigkill_drill=drill,
-         seconds=time.perf_counter() - t_phase)
+    return dict(
+        card=card, steps=steps, preempted_at_step=stopped_at,
+        launches={"preempted": killed_counts["launches"],
+                  "resumed": resumed_counts["launches"]},
+        wrapper_launches={"preempted": killed_counts["wrapper_launches"],
+                          "resumed": resumed_counts["wrapper_launches"]},
+        versus_uninterrupted=versus, history_equal=history_equal,
+        bits_equal=True, saves=saves,
+        restores=timed_k.restores + timed_r.restores,
+        save_gb=[x["bytes"] / 1e9 for x in saves],
+        save_gb_per_s=[x["bytes"] / 1e9 / x["seconds"] for x in saves],
+        disk_free_gb=free_gb, history=strip(h_full))
 
 
 def phase_em(data, card, steps=16, grad_epochs=4):

@@ -150,20 +150,23 @@ def sparse_adamw(table, mu, nu, ids, grads, count=None, pred=None,
                  sectors: Optional[int] = None, live: Optional[int] = None,
                  **kw) -> Cost:
     """Each 32-byte sector a live row lies in (``sectors``), read and
-    written in the table and both moments; every slot's 8-byte id; each
-    live slot's (``live``, default every slot) gradient: its row read in
-    order (per slot), or with ``table_grad`` its row's sectors of the table
-    gradient, the table's sectors read once more. By default every slot's
-    row its own sectors, at most the table's."""
+    written in the table and both moments; the 8-byte id of each slot
+    walked (every slot without ``span``; with one, the live slots: the
+    span of every caller holds just the live run); each live slot's
+    (``live``, default every slot) gradient: its row read in order (per
+    slot), or with ``table_grad`` its row's sectors of the table gradient,
+    the table's sectors read once more. By default every slot's row its
+    own sectors, at most the table's."""
     rows, dim = (int(s) for s in table.shape)
     slots = int(ids.shape[0])
     live = slots if live is None else int(live)
+    walked = slots if span is None else live
     if sectors is None:
         sectors = min(live * row_sectors(dim), -(-rows * dim * 4 // SECTOR))
     per_sector = 2 * (_itemsize(table) + 2 * _itemsize(mu)) * SECTOR // 4
     grad_bytes = (sectors * SECTOR * _itemsize(grads) // 4 if table_grad
                   else live * dim * 4)
-    nbytes = sectors * per_sector + slots * 8 + grad_bytes
+    nbytes = sectors * per_sector + walked * 8 + grad_bytes
     return Cost(live * dim * ADAMW_OPS_PER_ELEMENT, nbytes)
 
 

@@ -39,10 +39,9 @@
 // dedupe's ascending ids, then the sentinel (one device), or sentinels on
 // both sides of an ascending run (a row-sharded mesh, whose rows outside
 // this rank's block map to the local sentinel). The caller hands that
-// run's start and end as int64s on the device (the dedupe's count ends it
-// on one device, from slot 0; a search finds both on a mesh; no host
-// sync), and the launch walks those slots only; without them it walks
-// every slot.
+// run's start and end as int64s on the device (the dedupe's [0, count) on
+// one device, a search on a mesh; no host sync), and the launch walks
+// those slots only; without them it walks every slot.
 //
 // What bounds it: bytes, in 32-byte sectors. Each touched row costs one
 // scattered sector each of p, m and v read and written (six sectors for
@@ -63,10 +62,6 @@
 // run spreads over every SM rather than filling the first few. The bias
 // corrections are taken once a block, by one thread, into shared memory,
 // while the block's first loads are in flight.
-//
-// The first design (sparse_adamw_step_scan) is kept beside it for timing:
-// one thread per (slot, column) over every slot, each thread computing the
-// bias corrections. Both give the same p, m and v to the bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsparse_adamw.so sparse_adamw.cu
@@ -196,39 +191,6 @@ sparse_adamw_kernel(float* __restrict__ p, M* __restrict__ m,
   }
 }
 
-// The first design: one thread per (slot, column) over every slot.
-template <typename M, bool kNorm>
-__global__ void __launch_bounds__(kThreads)
-sparse_adamw_scan_kernel(float* __restrict__ p, M* __restrict__ m,
-                         M* __restrict__ v, const long long* __restrict__ ids,
-                         const float* __restrict__ grads, long long slots,
-                         int d, long long n_rows, Hyper h,
-                         const int* __restrict__ count,
-                         const unsigned char* __restrict__ pred,
-                         const unsigned char* __restrict__ apply,
-                         double* __restrict__ partials) {
-  const bool write = pred == nullptr || *pred != 0;
-  if (!kNorm && !write) return;
-  const bool step = !kNorm || apply == nullptr || *apply != 0;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  double delta = 0.0;
-  if (step && i < slots * d) {
-    const long long slot = i / d;
-    const long long row = ids[slot];
-    if (row >= 0 && row < n_rows) {
-      const long long at = row * d + (i - slot * d);
-      delta = update_element(p, m, v, at, grads[i], p[at], to_float(m[at]),
-                             to_float(v[at]), h,
-                             adam::step_constants(h, count), write);
-    }
-  }
-  if (kNorm) {
-    const double block = adam::block_sum(delta);
-    if (threadIdx.x == 0) partials[blockIdx.x] = block;
-  }
-}
-
 Hyper make_hyper(float b1, float b2, float one_minus_b1, float one_minus_b2,
                  float eps, float weight_decay, float lr) {
   Hyper h;
@@ -257,22 +219,6 @@ void launch(float* p, M* m, M* v, const long long* ids, const float* g,
     sparse_adamw_kernel<M, kNorm, false><<<blocks, kThreads, 0, s>>>(
         p, m, v, ids, g, slots, d, n_rows, h, count, run_start, run_end,
         pred, apply, partials);
-}
-
-template <typename M>
-void launch_scan(float* p, M* m, M* v, const long long* ids, const float* g,
-                 long long slots, int d, long long n_rows, const Hyper& h,
-                 const int* count, const unsigned char* pred,
-                 const unsigned char* apply, double* partials,
-                 cudaStream_t s) {
-  const unsigned blocks =
-      static_cast<unsigned>((slots * d + kThreads - 1) / kThreads);
-  if (partials == nullptr)
-    sparse_adamw_scan_kernel<M, false><<<blocks, kThreads, 0, s>>>(
-        p, m, v, ids, g, slots, d, n_rows, h, count, pred, apply, partials);
-  else
-    sparse_adamw_scan_kernel<M, true><<<blocks, kThreads, 0, s>>>(
-        p, m, v, ids, g, slots, d, n_rows, h, count, pred, apply, partials);
 }
 
 }  // namespace
@@ -337,38 +283,6 @@ int sparse_adamw_step(void* p, void* m, void* v, const void* ids,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The first design, for timing: the same update over every slot, per-slot
-// gradients, one thread per (slot, column), partials (null, or one double
-// per 256 elements) as above.
-int sparse_adamw_step_scan(void* p, void* m, void* v, const void* ids,
-                           const void* grads, long long slots, int d,
-                           long long n_rows, int moment_dtype, float b1,
-                           float b2, float one_minus_b1, float one_minus_b2,
-                           float eps, float weight_decay, float lr,
-                           const void* count, const void* pred,
-                           const void* apply, void* partials, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Hyper h = make_hyper(b1, b2, one_minus_b1, one_minus_b2, eps,
-                             weight_decay, lr);
-  const long long* i = static_cast<const long long*>(ids);
-  const float* g = static_cast<const float*>(grads);
-  const int* c = static_cast<const int*>(count);
-  const unsigned char* k = static_cast<const unsigned char*>(pred);
-  const unsigned char* a = static_cast<const unsigned char*>(apply);
-  double* out = static_cast<double*>(partials);
-  float* pp = static_cast<float*>(p);
-  if (moment_dtype == 0)
-    launch_scan<float>(pp, static_cast<float*>(m), static_cast<float*>(v), i,
-                       g, slots, d, n_rows, h, c, k, a, out, s);
-  else if (moment_dtype == 1)
-    launch_scan<__nv_bfloat16>(pp, static_cast<__nv_bfloat16*>(m),
-                               static_cast<__nv_bfloat16*>(v), i, g, slots,
-                               d, n_rows, h, c, k, a, out, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

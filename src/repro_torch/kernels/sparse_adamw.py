@@ -10,11 +10,11 @@ int32 0-d step count, already advanced. The gradients come per slot,
 **The live run.** The live slots (ids in ``[0, n_rows)``) of every caller
 are one contiguous run: the dedupe's ascending ids then the sentinel on
 one device, sentinels on both sides of an ascending run on a row-sharded
-mesh. ``span``, an int64 tensor on the ids' device, may bound that run:
-a (2,) ``[start, end)`` (:func:`repro_torch.optim.sparse.live_span` finds
-it without a host sync) or a 0-d end from slot 0 (the dedupe's count);
-then only those slots are walked, and a live slot outside them is left
-alone. Without ``span`` every slot is walked.
+mesh. ``span``, a (2,) int64 ``[start, end)`` on the ids' device, may
+bound that run (the dedupe's ``return_span`` on one device,
+:func:`repro_torch.optim.sparse.live_span` on a mesh; neither syncs the
+host); then only those slots are walked, and a live slot outside them is
+left alone. Without ``span`` every slot is walked.
 
 * :func:`sparse_adamw_cuda`, the hand-written CUDA C++ kernel in
   ``csrc/sparse_adamw.cu``: warps over chunks of the run's (slot, column)
@@ -22,9 +22,7 @@ alone. Without ``span`` every slot is walked.
   a lane issued before its arithmetic, sentinel slots skipped, touched
   rows updated in place. It is not a TPU kernel: it replaces the gathers
   and drop-mode scatters XLA fuses out of ``repro/optim/sparse.py``
-  ``sparse_adamw_update``. :func:`sparse_adamw_scan_cuda` is its first
-  design (one thread per slot and column over every slot), kept to time
-  beside it.
+  ``sparse_adamw_update``.
 * :func:`sparse_adamw_plain`, the same arithmetic in plain torch; the CPU
   runs it, and the chip smoke holds the kernel against it.
 
@@ -81,9 +79,6 @@ def _library() -> ctypes.CDLL:
                                       + [f32] * 7 + [ptr] * 3 + [i32]
                                       + [ptr] * 3 + [ctypes.c_uint, ptr])
     lib.sparse_adamw_step.restype = i32
-    lib.sparse_adamw_step_scan.argtypes = ([ptr] * 5 + [i64, i32, i64, i32]
-                                           + [f32] * 7 + [ptr] * 5)
-    lib.sparse_adamw_step_scan.restype = i32
     lib.sparse_adamw_error_string.argtypes = [i32]
     lib.sparse_adamw_error_string.restype = ctypes.c_char_p
     return lib
@@ -105,9 +100,9 @@ def _check(table, mu, nu, ids, grads, count, pred=None, apply=None,
                          f"{tuple(grads.shape)} must be (slots,) and (slots, "
                          f"{table.shape[1]})")
     if span is not None and (span.dtype != torch.int64
-                             or span.shape not in ((2,), ())):
+                             or span.shape != (2,)):
         raise TypeError("sparse_adamw takes the live run's span as a (2,) "
-                        "or 0-d int64 tensor")
+                        "int64 tensor")
     if table.dtype != torch.float32 or grads.dtype != torch.float32:
         raise TypeError(f"sparse_adamw takes a float32 table and grads, got "
                         f"{table.dtype} and {grads.dtype}")
@@ -124,11 +119,6 @@ def _check(table, mu, nu, ids, grads, count, pred=None, apply=None,
     if apply is not None and not norm:
         raise ValueError("sparse_adamw: apply is the would-be step's "
                          "predicate, for norm=True only")
-
-
-def _run(span):
-    """The (start or None: slot 0, end) views of a (2,) or 0-d span."""
-    return (None, span) if span.dim() == 0 else (span[0], span[1])
 
 
 def _hyper(b1, b2):
@@ -160,11 +150,8 @@ def sparse_adamw_plain(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
     c2 = float(np.float32(1) - b2f ** k)
     live = (ids >= 0) & (ids < table.shape[0])
     if span is not None:
-        start, end = _run(span)
         slot = torch.arange(ids.shape[0], device=ids.device)
-        if start is not None:
-            live &= slot >= start
-        live &= slot < end
+        live &= (slot >= span[0]) & (slot < span[1])
     rows = ids[live]
     g = grads[rows] if table_grad else grads[live]
     m = mu[rows].float() * float(b1f) + g * float(omb1)
@@ -193,11 +180,10 @@ def sparse_adamw_cuda(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
     device and contiguous; the ids distinct apart from the sentinel. Where
     ``pred`` (a bool 0-d tensor) is False the launch writes nothing.
 
-    ``span`` (an int64 tensor, or None: every slot) bounds the slots the
-    launch walks: a (2,) ``[start, end)``, or a 0-d end from slot 0. The
-    precondition of every caller: the live slots are one contiguous run and
-    ``span`` holds all of it (sentinel slots inside it are skipped; a live
-    slot outside it is left alone). ``table_grad=True``: ``grads`` is the
+    ``span`` (a (2,) int64 ``[start, end)``, or None: every slot) bounds
+    the slots the launch walks. The precondition of every caller: the live
+    slots are one contiguous run and ``span`` holds all of it (sentinel
+    slots inside it are skipped; a live slot outside it is left alone). ``table_grad=True``: ``grads`` is the
     ``(n_rows, d)`` table gradient, read at each live slot's row, not
     ``(slots, d)``.
 
@@ -230,44 +216,6 @@ def sparse_adamw_cuda(table, mu, nu, ids, grads, count, *, lr, b1=0.9,
     return out if norm else None
 
 
-def sparse_adamw_scan_cuda(table, mu, nu, ids, grads, count, *, lr,
-                           b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
-                           pred=None, norm=False, apply=None):
-    """The kernel's first design, kept to time beside it: the same update
-    (the same p, m and v to the bit) with per-slot gradients, one thread
-    per (slot, column) over every slot. CUDA tensors as
-    :func:`sparse_adamw_cuda`'s; counts its own ``launches``."""
-    device = table.device
-    if device.type != "cuda":
-        raise ValueError(f"sparse_adamw_scan_cuda needs CUDA tensors, got "
-                         f"{device}")
-    _check(table, mu, nu, ids, grads, count, pred, apply, norm)
-    if not all(t.is_contiguous() for t in (table, mu, nu, ids, grads)):
-        raise ValueError("sparse_adamw_scan_cuda takes contiguous tensors")
-    slots, d = grads.shape
-    if slots * d >= 2 ** 31 * 256:
-        raise ValueError(f"{slots} x {d} exceeds one launch's grid")
-    partials = (torch.empty(-(-slots * d // THREADS), dtype=torch.float64,
-                            device=device) if norm else None)
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.sparse_adamw_step_scan(
-            table.data_ptr(), mu.data_ptr(), nu.data_ptr(), ids.data_ptr(),
-            grads.data_ptr(), slots, d, table.shape[0],
-            _MOMENT_DTYPES[mu.dtype], b1, b2, 1.0 - b1, 1.0 - b2, eps,
-            weight_decay, lr, count.data_ptr(),
-            None if pred is None else pred.data_ptr(),
-            None if apply is None else apply.data_ptr(),
-            None if partials is None else partials.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("sparse_adamw scan kernel launch failed: "
-                           + lib.sparse_adamw_error_string(err).decode())
-    if not torch.cuda.is_current_stream_capturing():
-        sparse_adamw_scan_cuda.launches += 1
-    return partials.sum() if norm else None
-
-
 @torch.library.custom_op("repro_torch::sparse_adamw",
                          mutates_args=("table", "mu", "nu"),
                          device_types="cuda")
@@ -286,7 +234,6 @@ def _launch(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     blocks = launch_plan(slots * d, _sm_count(device.index))
     partials = (torch.empty(blocks, dtype=torch.float64, device=device)
                 if norm else None)
-    start, end = (None, None) if span is None else _run(span)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -295,8 +242,8 @@ def _launch(table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
             grads.data_ptr(), slots, d, table.shape[0],
             _MOMENT_DTYPES[mu.dtype], b1, b2, 1.0 - b1, 1.0 - b2, eps,
             weight_decay, lr, count.data_ptr(),
-            None if start is None else start.data_ptr(),
-            None if end is None else end.data_ptr(), int(table_grad),
+            None if span is None else span[0].data_ptr(),
+            None if span is None else span[1].data_ptr(), int(table_grad),
             None if pred is None else pred.data_ptr(),
             None if apply is None else apply.data_ptr(),
             None if partials is None else partials.data_ptr(), blocks,
@@ -318,4 +265,3 @@ def _(table, mu, nu, ids, grads, count, pred, apply, norm, lr, b1, b2, eps,
 
 
 sparse_adamw_cuda.launches = 0
-sparse_adamw_scan_cuda.launches = 0

@@ -29,9 +29,9 @@ CUDA tensors and its plain version on CPU tensors.
 
 The dedupe's live slots are one contiguous run (ascending ids, then the
 sentinel; on a row-sharded mesh, whose rows outside this rank's block map
-to the local sentinel, sentinels on both sides of it): the dedupe's count
-ends it on one device, :func:`live_span` finds it on a mesh, both on the
-device, and the update walks only those slots. The update also takes the
+to the local sentinel, sentinels on both sides of it): the dedupe's own
+span (one device) and :func:`live_span` (a mesh) find it on the device,
+and the update walks only those slots. The update also takes the
 table gradient itself (``table_grad=True``), read at the live rows, in
 place of a per-slot gather of it.
 """
@@ -62,38 +62,44 @@ def init_sparse_table_state(table: torch.Tensor,
 def unique_rows_with_sentinel(ids: torch.Tensor, n_rows: int, *,
                               return_inverse: bool = False,
                               max_unique: Optional[int] = None,
-                              return_count: bool = False):
+                              return_span: bool = False):
     """Fixed-size dedupe of a row-id stream: the distinct ids in ascending
     order, padded to ``max_unique or ids.numel()`` slots with the
     out-of-range sentinel ``n_rows`` (``jnp.unique(size=..., fill_value=
     n_rows)``); with ``return_inverse``, also each id's slot; with
-    ``return_count``, last, the number of distinct ids as a 0-d int64
-    tensor on the device (for ids in ``[0, n_rows)``, the end of the live
-    run: a ``span`` of ``sparse_adamw_update``, with no search).
+    ``return_span``, last, ``[0, count)`` as a (2,) int64 tensor on the
+    device, ``count`` the number of distinct ids (for ids in ``[0,
+    n_rows)``, the live run: a ``span`` of ``sparse_adamw_update``, with no
+    search).
 
     No host sync: sort, mark the first id of each run, ``pos = cumsum - 1``,
     and scatter each sorted id to its ``pos`` in a buffer filled with the
     sentinel (ids of one run write one value to one slot). Distinct ids past
-    the buffer land in one spare slot that is cut off."""
+    the buffer land in one spare slot that is cut off. The marks start with
+    a 0, so the running count begins at 0 and ends at ``count``: the span
+    is a view of its two ends, no launch of its own."""
     flat = ids.reshape(-1)
     size = max_unique or flat.shape[0]
     out = torch.full((size + 1,), n_rows, dtype=flat.dtype,
                      device=flat.device)
-    if flat.shape[0] == 0:
+    n = flat.shape[0]
+    if n == 0:
         inverse = torch.empty_like(flat)
-        count = torch.zeros((), dtype=torch.int64, device=flat.device)
+        span = torch.zeros(2, dtype=torch.int64, device=flat.device)
     else:
         sorted_ids, order = torch.sort(flat, stable=True)
-        first = torch.ones_like(sorted_ids, dtype=torch.bool)
-        first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+        # first[1 + i]: sorted id i starts a run; first[0] = 0
+        first = torch.ones(n + 1, dtype=torch.bool, device=flat.device)
+        first[:1].fill_(False)  # a launch, not a host copy: capturable
+        torch.ne(sorted_ids[1:], sorted_ids[:-1], out=first[2:])
         runs = torch.cumsum(first, 0)
-        pos = torch.clamp(runs - 1, max=size)
+        pos = torch.clamp(runs[1:] - 1, max=size)
         out.scatter_(0, pos, sorted_ids)
-        count = runs[-1]
+        span = runs[::n]  # runs[0] = 0 and runs[n] = count
         if return_inverse:
             inverse = torch.empty_like(pos).scatter_(0, order, pos)
     got = (out[:size],) + ((inverse,) if return_inverse else ()) + (
-        (count,) if return_count else ())
+        (span,) if return_span else ())
     return got if len(got) > 1 else got[0]
 
 
@@ -105,7 +111,7 @@ def live_span(unique_ids: torch.Tensor, bounds: torch.Tensor
     search there, no host sync. ``bounds`` (a (2,) int64 tensor on the
     same device) is ``[lo, lo + rows]`` for this rank's block of a
     row-sharded table (``[0, n_rows]`` for a whole one, whose span the
-    dedupe's ``return_count`` gives with no search)."""
+    dedupe's ``return_span`` gives with no search)."""
     return torch.searchsorted(unique_ids, bounds)
 
 
@@ -146,10 +152,10 @@ def sparse_adamw_update(table: torch.Tensor, state: SparseTableState,
 
     ``grads`` are ``(slots, d)``, one row a slot; with ``table_grad=True``
     the ``(n_rows, d)`` table gradient, read at each live slot's row.
-    ``span`` (None: every slot) gives the slots walked: a (2,) ``[start,
-    end)`` (:func:`live_span`) or a 0-d end, from slot 0 (the dedupe's
-    count), under the precondition that the live slots of ``unique_ids``
-    are one contiguous run inside it.
+    ``span`` (None: every slot) gives the slots walked, a (2,) int64
+    ``[start, end)`` on the device (the dedupe's ``return_span``, or
+    :func:`live_span`), under the precondition that the live slots of
+    ``unique_ids`` are one contiguous run inside it.
 
     ``norm=True`` (the engine's telemetry, ``repro_torch.optim.step``'s
     sparse twin) also returns the float64 0-d sum of squares of the table

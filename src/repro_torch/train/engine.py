@@ -152,8 +152,8 @@ SPARSE_PATH_SEP = "/"
 class SparseRows(NamedTuple):
     """A sparse table's rows of one step: the distinct ids (this rank's
     local ids, padded with the sentinel) and ``span``, their live run on
-    the device: its end (the dedupe's count) on one device, its ``[start,
-    end)`` (``optim.sparse.live_span``) on a mesh."""
+    the device, a (2,) ``[start, end)``: the dedupe's ``[0, count)`` on
+    one device, ``optim.sparse.live_span``'s on a mesh."""
     ids: torch.Tensor
     span: torch.Tensor
 
@@ -655,7 +655,7 @@ class TrainEngine:
         gradient's rows), and their live run."""
         return {key: SparseRows(*unique_rows_with_sentinel(
                     part.row_ids(batch), self.params[self._table_at[key]]
-                    .shape[0], return_count=True))
+                    .shape[0], return_span=True))
                 for key, part in self.sparse_parts.items()}
 
     def _update(self, opt_state, params, grads, rows, pred, norm=False,

@@ -407,7 +407,7 @@ def test_sparse_adamw_table_gradient_form_meets_its_fake_form_and_cost():
                 table, table, table, ids, table, count, None, None, False,
                 1e-3, 0.9, 0.999, 1e-8, 0.0, span, True)
         want = cost.sparse_adamw(table, table, table, ids, table,
-                                 table_grad=True)
+                                 span=span, table_grad=True)
     assert tuple(out.shape) == (0,) and out.dtype == torch.float64
     row = counter.result()["kernel_ops"]["sparse_adamw"]
     assert row["count"] == 1 and row["bytes"] == want.bytes
@@ -444,11 +444,14 @@ BOUNDS = {
 }
 
 
-#: PERF.md's two ``sparse_adamw`` rows at the DBN's first batch: one
+#: PERF.md's ``sparse_adamw`` rows at the DBN's first batch: one
 #: (214,748,672, 1) table, 655,360 slots, 86,726 live rows in 86,603
-#: sectors (``chip_smoke.py`` counts them), the gradient per slot or read
-#: from the table gradient -> the bound in ms
-SPARSE_BOUNDS = {"per_slot": (False, 0.00663), "table_grad": (True, 0.00736)}
+#: sectors (``chip_smoke.py`` counts them) -> (the gradient read from the
+#: table gradient, the live run's span given, the bound in ms). Every slot
+#: walked reads every slot's id; the span forms read the live slots' ids.
+SPARSE_BOUNDS = {"per_slot": (False, False, 0.00663),
+                 "per_slot_span": (False, True, 0.00527),
+                 "table_grad": (True, True, 0.00600)}
 
 
 @pytest.mark.parametrize("row", sorted(SPARSE_BOUNDS))
@@ -457,13 +460,15 @@ def test_cost_reproduces_the_sparse_adamw_rows(row):
 
     from repro_torch.kernels import cost
 
-    table_grad, want = SPARSE_BOUNDS[row]
+    table_grad, spanned, want = SPARSE_BOUNDS[row]
     rows, slots = 214748672, 655360
     table = torch.empty((rows, 1), device="meta")
     ids = torch.empty((slots,), dtype=torch.int64, device="meta")
     grads = table if table_grad else torch.empty((slots, 1), device="meta")
+    span = torch.empty(2, dtype=torch.int64, device="meta") if spanned \
+        else None
     got, by = cost.bound_ms(cost.sparse_adamw(
-        table, table, table, ids, grads, table_grad=table_grad,
+        table, table, table, ids, grads, span=span, table_grad=table_grad,
         sectors=86603, live=86726))
     assert by == "bytes"
     assert got == pytest.approx(want, abs=0.5e-5)

@@ -1,5 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/ nor chip_smoke.py
-imports JAX or the JAX package ``repro``.
+(nor the port's scripts under scripts/) imports JAX or the JAX package
+``repro``.
 
 A subprocess blocks ``jax`` and ``repro`` in ``sys.modules`` and imports every
 module of the port plus chip_smoke.py; a static scan finds no such import
@@ -25,6 +26,10 @@ def _sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    scripts = os.path.join(ROOT, "scripts")
+    for name in sorted(os.listdir(scripts)) if os.path.isdir(scripts) else ():
+        if name.endswith(".py"):
+            yield os.path.join(scripts, name)
 
 
 def test_no_jax_or_repro_import_statement_in_the_port():

@@ -6,8 +6,8 @@ the ids (to the dedupe's count on one device; ``[start, end)`` from
 slot or from the table gradient at each live row. Its plain version takes
 the same arguments, and the CPU runs it:
 
-* the dedupe's count is the end of the live run, ``live_span``'s on a
-  whole table;
+* the dedupe's span, ``[0, count)``, is ``live_span``'s on a whole
+  table;
 * the table-gradient form equals ``index_select`` of the table gradient
   followed by the per-slot form, to the bit (parameters, moments, the norm
   mode's sum), with either span and without one;
@@ -61,9 +61,9 @@ def _bits_equal(a, b):
 def test_table_gradient_form_is_the_gather_then_per_slot_form(d, moments):
     n_rows = 50
     rng = np.random.default_rng(d)
-    ids, count = unique_rows_with_sentinel(
+    ids, dedupe_span = unique_rows_with_sentinel(
         torch.from_numpy(rng.integers(0, n_rows, 40)), n_rows,
-        return_count=True)
+        return_span=True)
     assert (ids == n_rows).any()  # sentinel padding at the end
     d_table = torch.from_numpy(rng.standard_normal((n_rows, d))
                                .astype(np.float32))
@@ -71,9 +71,10 @@ def test_table_gradient_form_is_the_gather_then_per_slot_form(d, moments):
                                   torch.clamp(ids, max=n_rows - 1))
     span = live_span(ids, torch.tensor([0, n_rows]))
     want = _steps(n_rows, d, moments, ids, gathered, 3, 0)
+    assert torch.equal(dedupe_span, span)
     for kw in (dict(table_grad=True), dict(table_grad=True, span=span),
-               dict(table_grad=True, span=count), dict(span=span),
-               dict(span=count)):
+               dict(table_grad=True, span=dedupe_span), dict(span=span),
+               dict(span=dedupe_span)):
         grads = d_table if kw.get("table_grad") else gathered
         assert _bits_equal(_steps(n_rows, d, moments, ids, grads, 3, 0,
                                   **kw), want), kw
@@ -81,26 +82,31 @@ def test_table_gradient_form_is_the_gather_then_per_slot_form(d, moments):
 
 @pytest.mark.parametrize("max_unique", [None, 8, 64])
 def test_the_dedupes_count_ends_the_live_run(max_unique):
-    """The count ``return_count`` adds (the distinct ids, a 0-d int64
-    tensor; the other outputs as without it) is ``live_span``'s end on a
-    whole table, and every live slot lies before it."""
+    """The span ``return_span`` adds (``[0, count)``, count the distinct
+    ids, a (2,) int64 tensor; the other outputs as without it) is
+    ``live_span``'s on a whole table, and every live slot lies before its
+    end."""
     n_rows = 30
     ids = torch.from_numpy(np.random.default_rng(2).integers(0, n_rows, 20))
     want_ids, want_inverse = unique_rows_with_sentinel(
         ids, n_rows, return_inverse=True, max_unique=max_unique)
-    got_ids, got_inverse, count = unique_rows_with_sentinel(
+    got_ids, got_inverse, span = unique_rows_with_sentinel(
         ids, n_rows, return_inverse=True, max_unique=max_unique,
-        return_count=True)
+        return_span=True)
     assert torch.equal(got_ids, want_ids)
     assert torch.equal(got_inverse, want_inverse)
-    assert count.dim() == 0 and count.dtype == torch.int64
-    assert int(count) == len(set(ids.tolist()))
-    end = int(live_span(got_ids, torch.tensor([0, n_rows]))[1])
-    assert end == min(int(count), got_ids.numel())
-    assert (got_ids[end:] == n_rows).all()
+    assert span.shape == (2,) and span.dtype == torch.int64
+    count = len(set(ids.tolist()))
+    assert span.tolist() == [0, count]
+    searched = live_span(got_ids, torch.tensor([0, n_rows])).tolist()
+    assert searched == [0, min(count, got_ids.numel())]
+    assert (got_ids[searched[1]:] == n_rows).all()
+    one = unique_rows_with_sentinel(torch.tensor([4, 4, 4]), n_rows,
+                                    return_span=True)
+    assert one[1].tolist() == [0, 1]
     empty = unique_rows_with_sentinel(torch.empty(0, dtype=torch.int64),
-                                      n_rows, return_count=True)
-    assert empty[0].numel() == 0 and int(empty[1]) == 0
+                                      n_rows, return_span=True)
+    assert empty[0].numel() == 0 and empty[1].tolist() == [0, 0]
 
 
 def _mesh_ids(rng, total, lo, rows):
@@ -145,8 +151,8 @@ def test_mesh_ids_with_the_callers_span_update_exactly_the_live_rows(rank):
 
 def test_a_span_leaves_live_slots_outside_it_alone():
     """The span is the kernel's walk: a live slot outside it is not
-    updated (the plain version honours it as the kernel does), and an
-    empty span updates nothing."""
+    updated (the plain version honours it as the kernel does), an empty
+    span updates nothing, and a span of another shape is refused."""
     n_rows = 20
     ids = unique_rows_with_sentinel(torch.tensor([3, 5, 7, 11, 13]), n_rows)
     grads = torch.ones(ids.numel(), 1)
@@ -159,10 +165,10 @@ def test_a_span_leaves_live_slots_outside_it_alone():
     table, st, _ = _steps(n_rows, 1, torch.float32, ids, grads, 1, 0,
                           span=torch.tensor([2, 2]))
     assert torch.equal(table, before) and (st.mu == 0).all()
-    table, st, _ = _steps(n_rows, 1, torch.float32, ids, grads, 1, 0,
-                          span=torch.tensor(2))  # a 0-d end: slots 0, 1
-    changed = (table != before).reshape(-1).nonzero().reshape(-1)
-    assert changed.tolist() == [3, 5]
+    for bad in (torch.tensor(2), torch.tensor([0, 2, 4]),
+                torch.tensor([0, 2], dtype=torch.int32)):
+        with pytest.raises(TypeError, match="span"):
+            _steps(n_rows, 1, torch.float32, ids, grads, 1, 0, span=bad)
 
 
 class _ParentRoute(TrainEngine):
