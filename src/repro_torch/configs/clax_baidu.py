@@ -36,6 +36,7 @@ from repro_torch.core import (Compression, DeepCrossParameterConfig,
                               DocumentCTR, DynamicBayesianNetwork,
                               EmbeddingParameterConfig, PositionBasedModel,
                               UserBrowsingModel)
+from repro_torch.obs import get_recorder
 
 POSITIONS = 10
 TRAIN_BATCH = 65536
@@ -107,12 +108,33 @@ def serve_bulk(model, batch: Dict[str, np.ndarray]) -> np.ndarray:
     the paper-width UBM, the JAX default, or DBN): the host batch
     (``positions``, ``query_doc_ids``, ``mask``) copied to the model's
     device, ``predict_clicks`` over it, and the ``(B, K)`` log P(click)
-    copied back to the host."""
-    device = next(model.parameters()).device
-    out = model.predict_clicks({k: torch.from_numpy(np.ascontiguousarray(
-        batch[k])).to(device) for k in ("positions", "query_doc_ids",
-                                         "mask")})
-    return out.cpu().numpy()
+    copied back to the host.
+
+    On the global recorder: a detail span ``serve_bulk`` (tag ``call``, its
+    own span id) with the children ``serve_bulk.copy_in``,
+    ``serve_bulk.predict`` (the host's enqueue) and ``serve_bulk.copy_out``
+    (waits for the device, then copies back), and the detail counters
+    ``serve_bulk.calls``, ``.sessions``, ``.bytes_in`` and ``.bytes_out``.
+    """
+    rec = get_recorder()
+    with rec.span("serve_bulk", detail=True) as call:
+        call.tags["call"] = call.span_id
+        device = next(model.parameters()).device
+        with rec.span("serve_bulk.copy_in", detail=True):
+            host = {k: np.ascontiguousarray(batch[k])
+                    for k in ("positions", "query_doc_ids", "mask")}
+            inputs = {k: torch.from_numpy(v).to(device)
+                      for k, v in host.items()}
+        with rec.span("serve_bulk.predict", detail=True):
+            out = model.predict_clicks(inputs)
+        with rec.span("serve_bulk.copy_out", detail=True):
+            answer = out.cpu().numpy()
+        rec.add("serve_bulk.calls", detail=True)
+        rec.add("serve_bulk.sessions", answer.shape[0], detail=True)
+        rec.add("serve_bulk.bytes_in", sum(v.nbytes for v in host.values()),
+                detail=True)
+        rec.add("serve_bulk.bytes_out", answer.nbytes, detail=True)
+    return answer
 
 
 def _place(model, mesh) -> None:

@@ -25,6 +25,7 @@ import torch
 from repro_torch.nn import init as initializers
 from repro_torch.nn.layers import MLP, DeepCrossV2, Dense
 from repro_torch.nn.module import Module
+from repro_torch.obs.recorder import get_recorder
 
 # Compressed tables round up to a multiple of this (repro: SHARD_MULTIPLE).
 SHARD_MULTIPLE = 512
@@ -162,6 +163,8 @@ class EmbeddingParameter(Module):
             self.quot_rows = _round_up(int(-(-c.parameters // m)))
         else:
             raise ValueError(f"unknown compression {c.compression}")
+        self.lookup_rows = (self.quot_rows if c.compression == Compression.QR
+                            else self.table_rows)
         row_init = (initializers.zeros if c.baseline_correction
                     else initializers.constant(c.init_logit))
         if c.compression == Compression.QR:
@@ -214,13 +217,17 @@ class EmbeddingParameter(Module):
 
     def forward(self, batch) -> torch.Tensor:
         c = self.config
-        if c.compression in (Compression.NONE, Compression.HASH):
-            logits = self._rows("table", self.row_ids(batch))
-        else:  # QR: element-wise product of quotient and remainder rows
-            ids = batch[c.use_feature].to(torch.int64)
-            q = self._rows("quotient", (ids // self.rem_rows) % self.quot_rows)
-            r = self._rows("remainder", ids % self.rem_rows)
-            logits = q * r
+        # the hash and the gather
+        with get_recorder().span("param.lookup", detail=True,
+                                 table=self.lookup_rows):
+            if c.compression in (Compression.NONE, Compression.HASH):
+                logits = self._rows("table", self.row_ids(batch))
+            else:  # QR: element-wise product of quotient and remainder rows
+                ids = batch[c.use_feature].to(torch.int64)
+                q = self._rows("quotient",
+                               (ids // self.rem_rows) % self.quot_rows)
+                r = self._rows("remainder", ids % self.rem_rows)
+                logits = q * r
         if c.baseline_correction:
             logits = logits + self.baseline
         if c.features == 1:

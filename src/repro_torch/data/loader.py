@@ -19,6 +19,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs.recorder import get_recorder
+
 MODEL_KEYS = ("positions", "query_doc_ids", "clicks", "mask",
               "query_doc_features", "bias_features")
 
@@ -207,11 +209,21 @@ class DevicePrefetcher:
     staging thread gathers and copies only its own rows (through the
     loader's ``iter_rows`` where its class has one, else by slicing each
     batch).
+
+    The staging (or, inline, the consumer's) thread records detail spans
+    on ``recorder`` (else the global recorder), each tagged with the
+    ``item`` it builds, the item's index in this iteration:
+    ``prefetch.batch`` (one pull from the loader: a batch's gather, or
+    the end of its epoch), ``prefetch.pin`` (the stack into the item's
+    host buffers; on the card the pinned ring's slot, once its last copy
+    has ended), ``prefetch.copy`` (the copy to the device; on the card its
+    enqueue) and ``prefetch.queue_full`` (blocked on a full queue); and
+    the detail counters ``prefetch.items`` and ``prefetch.bytes``.
     """
 
     def __init__(self, loader, size: int = 2, device="cuda",
                  chunk_batches: Optional[int] = None, overlap: bool = True,
-                 shard: Optional[Tuple[int, int]] = None):
+                 shard: Optional[Tuple[int, int]] = None, recorder=None):
         if size < 1:
             raise ValueError(f"prefetch size must be >= 1, got {size}")
         if chunk_batches is not None and chunk_batches < 1:
@@ -227,13 +239,23 @@ class DevicePrefetcher:
         self.chunk_batches = chunk_batches
         self.overlap = overlap
         self.shard = None if shard is None or shard[1] == 1 else tuple(shard)
+        self.recorder = recorder
+
+    def _rec(self):
+        return self.recorder if self.recorder is not None else get_recorder()
 
     # -- host-side item stream (shared by both modes) ------------------------
-    def _groups(self):
+    def _groups(self, rec):
         """The loader's batches, grouped into items: ``(batches, state,
         n)`` with ``n`` None outside chunk mode. The loader's generator is
         created at the first ``next()``: on the staging thread in overlap
         mode, which therefore also closes it."""
+        item = 0
+
+        def pull():
+            with rec.span("prefetch.batch", detail=True, item=item):
+                return next(it), get_state()
+
         if self.shard is None:
             it = iter(self.loader)
         elif hasattr(type(self.loader), "iter_rows"):
@@ -245,24 +267,28 @@ class DevicePrefetcher:
                   for batch in self.loader)
         get_state = getattr(self.loader, "state_dict", lambda: None)
         if self.chunk_batches is None:
-            for batch in it:
-                yield [batch], get_state(), None
-            return
+            while True:
+                try:
+                    batch, state = pull()
+                except StopIteration:
+                    return
+                yield [batch], state, None
+                item += 1
         pushback = []  # one-batch lookahead for the shape-change flush
         while True:
             batches, state, sig = [], None, None
             while len(batches) < self.chunk_batches:
                 if pushback:
-                    item = pushback.pop()
+                    got = pushback.pop()
                 else:
                     try:
-                        item = (next(it), get_state())
+                        got = pull()
                     except StopIteration:
                         break
-                batch, s = item
+                batch, s = got
                 bsig = {k: (v.shape, v.dtype) for k, v in batch.items()}
                 if sig is not None and bsig != sig:
-                    pushback.append(item)
+                    pushback.append(got)
                     break
                 sig = bsig
                 batches.append(batch)
@@ -270,38 +296,48 @@ class DevicePrefetcher:
             if not batches:
                 return
             yield batches, state, len(batches)
+            item += 1
 
-    def _items(self):
+    def _items(self, rec):
         """Finished items: ``(tensors, event, state, n)``; ``event`` marks
         the end of the tensors' copy to the card (None on the CPU)."""
-        groups = self._groups()
+        groups = self._groups(rec)
         try:
-            if self.device.type != "cuda":
-                for batches, state, n in groups:
-                    yield self._put_host(batches, n), None, state, n
-                return
-            ring = _PinnedRing(self.size + 1)
-            # High priority: PyTorch hands streams out of one pool per
-            # priority, round robin, and captures on default-priority ones
-            # (torch.cuda.graph's capture stream, the warm-up's side
-            # stream). A copy stream from that pool would in time be the
-            # stream being captured, and the copy would enter the graph.
-            stream = torch.cuda.Stream(self.device, priority=-1)
-            for batches, state, n in groups:
-                tensors, done = self._put_cuda(batches, n, ring, stream)
+            if self.device.type == "cuda":
+                ring = _PinnedRing(self.size + 1)
+                # High priority: PyTorch hands streams out of one pool per
+                # priority, round robin, and captures on default-priority
+                # ones (torch.cuda.graph's capture stream, the warm-up's
+                # side stream). A copy stream from that pool would in time
+                # be the stream being captured, and the copy would enter
+                # the graph.
+                stream = torch.cuda.Stream(self.device, priority=-1)
+            for item, (batches, state, n) in enumerate(groups):
+                if self.device.type == "cuda":
+                    tensors, done = self._put_cuda(batches, n, ring, stream,
+                                                   rec, item)
+                else:
+                    tensors, done = self._put_host(batches, n, rec, item), None
+                rec.add("prefetch.items", detail=True)
+                rec.add("prefetch.bytes", sum(t.nbytes for t in
+                                              tensors.values()), detail=True)
                 yield tensors, done, state, n
         finally:
             groups.close()
 
-    def _put_host(self, batches, n):
-        if n is None:
-            (batch,) = batches
-            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                self.device) for k, v in batch.items()}
-        return {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(
-            self.device) for k in batches[0]}
+    def _put_host(self, batches, n, rec, item):
+        with rec.span("prefetch.pin", detail=True, item=item):
+            if n is None:
+                (batch,) = batches
+                host = {k: np.ascontiguousarray(v) for k, v in batch.items()}
+            else:
+                host = {k: np.stack([b[k] for b in batches])
+                        for k in batches[0]}
+        with rec.span("prefetch.copy", detail=True, item=item):
+            return {k: torch.from_numpy(v).to(self.device)
+                    for k, v in host.items()}
 
-    def _put_cuda(self, batches, n, ring, stream):
+    def _put_cuda(self, batches, n, ring, stream, rec, item):
         """Stack ``batches`` into the ring's next pinned slot and copy it to
         the card on ``stream``; returns the device tensors and the copy's
         event."""
@@ -310,14 +346,16 @@ class DevicePrefetcher:
         like = {k: (lead + tuple(v.shape),
                     torch.from_numpy(np.empty(0, v.dtype)).dtype)
                 for k, v in first.items()}
-        slot, pinned = ring.take(like)
-        for k, buf in pinned.items():
-            host = buf.numpy()
-            if n is None:
-                np.copyto(host, first[k])
-            else:
-                np.stack([b[k] for b in batches], out=host)
-        with torch.cuda.stream(stream):
+        with rec.span("prefetch.pin", detail=True, item=item):
+            slot, pinned = ring.take(like)
+            for k, buf in pinned.items():
+                host = buf.numpy()
+                if n is None:
+                    np.copyto(host, first[k])
+                else:
+                    np.stack([b[k] for b in batches], out=host)
+        with rec.span("prefetch.copy", detail=True, item=item), \
+                torch.cuda.stream(stream):
             if torch.cuda.is_current_stream_capturing():
                 raise RuntimeError("the prefetcher's copy stream is being "
                                    "captured into a CUDA graph")
@@ -357,21 +395,30 @@ class DevicePrefetcher:
         finally:
             items.close()
 
-    def _staged(self, items):
+    def _staged(self, items, rec):
         """Overlap mode: the item stream runs on a staging thread feeding a
         bounded queue; the consumer only pops finished items."""
         q: queue_mod.Queue = queue_mod.Queue(maxsize=self.size)
         stop = threading.Event()
         done = object()
         fail = []  # [exception], raised on the consumer
+        sent = [0]  # items sent, so the index of the next
 
         def send(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue_mod.Full:
-                    continue
+            if stop.is_set():
+                return False
+            try:
+                q.put_nowait(item)
+                return True
+            except queue_mod.Full:
+                pass
+            with rec.span("prefetch.queue_full", detail=True, item=sent[0]):
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        return True
+                    except queue_mod.Full:
+                        continue
             return False
 
         def run():
@@ -379,6 +426,7 @@ class DevicePrefetcher:
                 for item in items:
                     if not send(item):
                         return
+                    sent[0] += 1
                 send(done)
             except BaseException as e:  # noqa: BLE001 - raised on the consumer
                 fail.append(e)
@@ -407,7 +455,8 @@ class DevicePrefetcher:
             thread.join(timeout=10.0)
 
     def __iter__(self):
+        rec = self._rec()
         if self.overlap:
-            yield from self._staged(self._items())
+            yield from self._staged(self._items(rec), rec)
         else:
-            yield from self._pump(self._items())
+            yield from self._pump(self._items(rec))

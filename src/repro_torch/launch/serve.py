@@ -137,8 +137,12 @@ def main(argv=None):
                     help="write per-request latency metric events and the "
                          "final serve summary as JSONL telemetry")
     ap.add_argument("--trace-out", default=None,
-                    help="export per-dispatch spans as Chrome-trace "
-                         "JSON (Perfetto)")
+                    help="export the span ring (per-dispatch serve_batch "
+                         "spans and any detail spans, such as serve_bulk's "
+                         "and param.lookup's) and the counters as "
+                         "Chrome-trace JSON (Perfetto); the ring keeps the "
+                         "newest 8192 spans, so its capacity bounds how far "
+                         "back the detail spans reach")
     ap.add_argument("--summary-out", default=None,
                     help="write the final summary (plus health and "
                          "counters) as JSON")
@@ -178,8 +182,8 @@ def main(argv=None):
     recorder.event("serve_summary", data=summary)
     recorder.flush_counters()
     if args.trace_out:
-        n_spans = recorder.export_chrome_trace(args.trace_out)
-        print(f"[serve] {n_spans} spans -> {args.trace_out}")
+        n_events = recorder.export_chrome_trace(args.trace_out)
+        print(f"[serve] {n_events} events -> {args.trace_out}")
     recorder.close()
     if args.summary_out:
         with open(args.summary_out, "w") as f:

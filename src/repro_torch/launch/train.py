@@ -46,7 +46,9 @@ read errors.
 
 Observability: ``--metrics-out`` writes telemetry events as JSONL (and
 turns on the engine's per-step grad and parameter norms), ``--trace-out``
-exports the host spans as a Chrome trace at the end, ``--obs-every`` thins
+exports the span ring (the coarse spans and the per-chunk and per-item
+detail spans, as far back as its 8192 spans reach) and the counters as a
+Chrome trace at the end, ``--obs-every`` thins
 per-step events, and ``--profile-steps A:B`` opens a ``torch.profiler``
 window into ``--profile-dir``. ``--emit-roofline`` emits the chunk step's
 per-device cost once as a ``roofline`` event (``TrainEngine.roofline``: a
@@ -243,9 +245,13 @@ def main(argv=None):
                          "line) to this file; also turns on the engine's "
                          "on-device per-step grad/param-norm series")
     ap.add_argument("--trace-out", default=None,
-                    help="export host wall-time spans (epoch/eval/checkpoint/"
-                         "shard_read/...) as a Chrome-trace JSON for Perfetto "
-                         "at the end of the run")
+                    help="export the span ring (epoch/eval/checkpoint/"
+                         "shard_read/... and the detail spans: train.chunk "
+                         "and its children, prefetch.*, param.lookup) and "
+                         "the counters as a Chrome-trace JSON for Perfetto "
+                         "at the end of the run; the ring keeps the newest "
+                         "8192 spans, so its capacity bounds how far back "
+                         "the detail spans reach")
     ap.add_argument("--obs-every", type=int, default=1,
                     help="emit every Nth per-step train metric event "
                          "(loss/grad-norm/...); skips and epoch records are "
@@ -378,8 +384,8 @@ def main(argv=None):
         results = trainer.test(model, test_loader)
     finally:
         if args.trace_out:
-            n_spans = recorder.export_chrome_trace(args.trace_out)
-            print(f"[train] {n_spans} spans -> {args.trace_out} "
+            n_events = recorder.export_chrome_trace(args.trace_out)
+            print(f"[train] {n_events} events -> {args.trace_out} "
                   "(open in Perfetto / chrome://tracing)", flush=True)
         recorder.flush_counters()
         recorder.close()

@@ -8,6 +8,12 @@ Design rules (the "zero-sync" contract):
 * A recorder with no sinks is **disabled**: ``emit`` is a no-op, spans only
   touch the host ring buffer, counters are plain float adds. Nothing in the
   default configuration can slow a hot path by more than a dict lookup.
+* Every span is also a ``record_function`` range while a
+  ``torch.profiler`` is collecting, and nothing more while none is.
+* *Detail* spans and counters (``detail=True``: one per serving call,
+  training chunk or prefetched item) are kept in the ring and in
+  :attr:`Recorder.detail_counters` but never reach the sinks, so the event
+  stream does not grow with every call. ``--trace-out`` exports both.
 * Recorders only ever see host values. Device telemetry is drained by the
   training loop on its own schedule (once per chunk, from pinned host
   memory, one chunk behind — see
@@ -25,13 +31,14 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Any, Dict, Iterable
 
 import torch
 
 from repro_torch.obs.events import make_event
 from repro_torch.obs.sinks import MetricsSink
-from repro_torch.obs.spans import SpanTracer
+from repro_torch.obs.spans import SpanTracer, write_chrome_trace
 
 
 class Recorder:
@@ -41,6 +48,7 @@ class Recorder:
         self.tracer = SpanTracer(capacity=span_capacity)
         self.counters: Dict[str, float] = {}
         self.gauges: Dict[str, float] = {}
+        self.detail_counters: Dict[str, float] = {}
         self._lock = threading.Lock()
 
     # -- emission ----------------------------------------------------------
@@ -61,25 +69,40 @@ class Recorder:
             self.emit(make_event("event", name, value, **fields))
 
     # -- spans -------------------------------------------------------------
-    def span(self, name: str, **tags):
-        """Wall-time a block (see :class:`SpanTracer`). Always recorded in
-        the ring buffer; forwarded to sinks as a ``span`` event (value =
-        seconds) when any are attached."""
-        on_close = self._span_to_sinks if self.sinks else None
-        return self.tracer.span(name, on_close=on_close, **tags)
+    def span(self, name: str, *, detail: bool = False, **tags):
+        """Time a block on the host (see :class:`SpanTracer`). Always
+        recorded in the ring buffer; unless ``detail``, forwarded to sinks
+        as a ``span`` event (value = seconds) when any are attached."""
+        on_close = self._span_to_sinks if self.sinks and not detail else None
+        return self.tracer.span(name, on_close=on_close, detail=detail,
+                                **tags)
 
     def _span_to_sinks(self, s):
-        self.emit(make_event("span", s.name, s.duration, t=s.t_start,
-                             **s.tags))
+        self.emit(make_event("span", s.name, s.duration,
+                             t=self.tracer.wall(s.t_start), **s.tags))
+
+    def chrome_trace(self) -> Dict[str, Any]:
+        """The ring's spans, then every counter, gauge and detail counter
+        as a counter event (``"ph": "C"``) at the time of the call."""
+        trace = self.tracer.chrome_trace()
+        pid, ts = os.getpid(), self.tracer.wall(time.perf_counter()) * 1e6
+        values = {**self.counters_snapshot(), **self.detail_snapshot()}
+        trace["traceEvents"] += [
+            {"name": k, "ph": "C", "pid": pid, "ts": ts, "cat": "clax",
+             "args": {"value": v}} for k, v in sorted(values.items())]
+        return trace
 
     def export_chrome_trace(self, path: str) -> int:
-        return self.tracer.export_chrome_trace(path)
+        return write_chrome_trace(self.chrome_trace(), path)
 
     # -- counters / gauges ---------------------------------------------------
-    def add(self, counter: str, amount=1) -> None:
-        """Accumulate a monotone counter (bytes read, retries, ...)."""
+    def add(self, counter: str, amount=1, *, detail: bool = False) -> None:
+        """Accumulate a monotone counter (bytes read, retries, ...); a
+        ``detail`` one into :attr:`detail_counters`, which no
+        :meth:`flush_counters` emits."""
         with self._lock:
-            self.counters[counter] = self.counters.get(counter, 0) + amount
+            into = self.detail_counters if detail else self.counters
+            into[counter] = into.get(counter, 0) + amount
 
     def gauge(self, name: str, value) -> None:
         """Record the last observed value (queue depth, ...)."""
@@ -91,6 +114,10 @@ class Recorder:
             out = dict(self.counters)
             out.update({f"{k}:gauge": v for k, v in self.gauges.items()})
         return out
+
+    def detail_snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self.detail_counters)
 
     def flush_counters(self, name: str = "counters", **fields) -> None:
         """Emit one ``counters`` event with the current snapshot."""

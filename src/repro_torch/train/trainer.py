@@ -78,7 +78,9 @@ its own seed); ``TrainState.params`` is their JAX-shaped tree.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import itertools
 import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional
@@ -428,10 +430,12 @@ class Trainer:
                 items = iter(DevicePrefetcher(
                     train_loader, device=self.device,
                     chunk_batches=engine.chunk_batches,
-                    shard=engine.batch_shard()))
+                    shard=engine.batch_shard(), recorder=self.recorder))
                 try:
-                    with rec.span("epoch", epoch=state.epoch):
-                        for chunk, loader_state, n in items:
+                    with rec.span("epoch", epoch=state.epoch), \
+                            contextlib.closing(_chunks(rec, items,
+                                                       state)) as chunks:
+                        for chunk, loader_state, n in chunks:
                             if roofline_pending:
                                 # once, before the first chunk runs
                                 roofline_pending = False
@@ -443,14 +447,17 @@ class Trainer:
                                     step=state.global_step))
                             if profile is not None:
                                 profile.before_chunk(state.global_step)
-                            state.opt_state, losses = engine.step(
-                                state.opt_state, chunk, active=epoch_active)
+                            with rec.span("train.step", detail=True):
+                                state.opt_state, losses = engine.step(
+                                    state.opt_state, chunk,
+                                    active=epoch_active)
                             staged = stage(losses)
                             if pending is not None:
                                 # Reading the previous chunk's payload waits
                                 # only for it; the chunk just queued keeps
                                 # the device busy.
-                                acc.drain(*pending)
+                                with rec.span("train.drain", detail=True):
+                                    acc.drain(*pending)
                             pending = (staged, state.global_step)
                             prev_step = state.global_step
                             state.global_step += n
@@ -472,7 +479,8 @@ class Trainer:
                                 # cover exactly the batches its loader cursor
                                 # has passed: drain the chunk in flight first
                                 # (the one host sync a checkpoint costs).
-                                acc.drain(*pending)
+                                with rec.span("train.drain", detail=True):
+                                    acc.drain(*pending)
                                 pending = None
                                 with rec.span("checkpoint",
                                               step=state.global_step):
@@ -489,7 +497,9 @@ class Trainer:
                                 stop = True
                                 break
                         if pending is not None:
-                            acc.drain(*pending)
+                            with rec.span("train.drain", detail=True,
+                                          chunk=pending[1]):
+                                acc.drain(*pending)
                 finally:
                     # stops and joins the staging thread, which closes the
                     # loader's iteration (a streaming loader's producer)
@@ -656,7 +666,8 @@ class Trainer:
                      data_parallel_size(self.mesh))
         for chunk, _, _ in DevicePrefetcher(loader, device=self.device,
                                             chunk_batches=self.chunk_batches,
-                                            shard=shard):
+                                            shard=shard,
+                                            recorder=self.recorder):
             if state is None:
                 positions = chunk["positions"].shape[2]
                 state = (metrics.init_state(positions, self.device)
@@ -736,6 +747,25 @@ class Trainer:
                                                   None),
                             "epoch_accum": epoch_accum,
                             "history": history or []})
+
+
+def _chunks(rec, items, state):
+    """The prefetcher's items, each yielded inside a detail span
+    ``train.chunk`` (tags: ``chunk``, its first global step, read from
+    ``state`` as it starts, and ``n``) that opens with the wait for it,
+    ``train.wait_input`` (tag: ``item``). The chunk's own work runs inside
+    the span; the wait that finds the epoch's end is a ``train.chunk`` of
+    its own, with no ``n``."""
+    for item in itertools.count():
+        with rec.span("train.chunk", detail=True,
+                      chunk=state.global_step) as span:
+            with rec.span("train.wait_input", detail=True, item=item):
+                got = next(items, None)
+            if got is None:
+                return
+            span.tags["n"] = got[2]
+            rec.add("train.chunks", detail=True)
+            yield got
 
 
 def _silent(*_args, **_kwargs) -> None:

@@ -5,6 +5,12 @@ ports of the recorder, ``TelemetryDrain`` and ``ProfileWindow`` against
 JAX's:
 
 * events, sinks, spans and the recorder behave as JAX's tests pin them;
+* the port's own tracing: spans mirrored into a collecting
+  ``torch.profiler`` (and no range made while none is), span and parent
+  ids per thread in the Chrome trace, detail spans and counters kept out
+  of the sinks, one clock whose export agrees with the profiler's, and a
+  Trainer's chunk and prefetch spans tagged with matching chunks and
+  items;
 * ``TelemetryDrain`` accumulates and emits exactly what JAX's does from the
   same per-chunk payloads (scalar and ``(R,)`` sums, skips, extra series);
 * the engine's telemetry (``grad_norm``, ``param_norm``, ``lr``) matches
@@ -244,6 +250,255 @@ def test_global_recorder_configure_and_restore():
         assert sink.by_name("global")
     finally:
         obs.set_recorder(before)
+
+
+# -- the port's own tracing: profiler mirror, ids, detail spans, clock -------
+
+def test_span_mirrors_into_a_collecting_profiler_only(monkeypatch):
+    import torch.autograd.profiler as autograd_profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    made = []
+    real = autograd_profiler.record_function
+
+    def counting(name, *args):
+        made.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(autograd_profiler, "record_function", counting)
+    rec = Recorder()
+    with rec.span("unprofiled", detail=True):
+        pass
+    assert made == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with rec.span("serve_bulk", detail=True, call=0):
+            with rec.span("serve_bulk.copy_in", detail=True):
+                pass
+        with rec.span("epoch", epoch=0):
+            pass
+    assert made == ["serve_bulk", "serve_bulk.copy_in", "epoch"]
+    names = [e.name for e in prof.events()]
+    for name in made:
+        assert names.count(name) == 1
+    assert "unprofiled" not in names
+    with rec.span("after", detail=True):
+        pass
+    assert len(made) == 3 and len(rec.tracer.spans) == 5
+
+
+def test_span_ids_nest_per_thread_and_the_export_carries_them(tmp_path):
+    rec = Recorder()
+    ready = threading.Barrier(2)
+
+    def work(tag):
+        with rec.span("outer", detail=True, item=tag):
+            ready.wait()  # both threads hold an open span at once
+            with rec.span("inner", detail=True):
+                with rec.span("coarse", shard=tag):
+                    pass
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    spans = list(rec.tracer.spans)
+    by_id = {s.span_id: s for s in spans}
+    assert len(by_id) == 6 and all(s.span_id > 0 for s in spans)
+    for s in spans:
+        if s.name == "outer":
+            assert s.parent_id is None
+            continue
+        parent = by_id[s.parent_id]
+        assert parent.thread_id == s.thread_id
+        assert parent.name == {"inner": "outer", "coarse": "inner"}[s.name]
+        if s.name == "inner":  # a detail span takes its parent's request
+            assert s.tags == {"item": parent.tags["item"]}
+        else:  # a coarse span keeps its tags as given
+            assert s.tags == {"shard": by_id[parent.parent_id].tags["item"]}
+    path = str(tmp_path / "trace.json")
+    assert rec.export_chrome_trace(path) == 6
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    for e, s in zip(events, spans):
+        assert e["args"]["span_id"] == s.span_id
+        assert e["args"]["parent_id"] == s.parent_id
+        assert e["tid"] == s.thread_id
+        assert e["cat"] == ("clax" if s.name == "coarse" else "clax.detail")
+
+
+def test_spans_and_detail_counters_from_many_threads_lose_nothing():
+    """More threads than cores, switching as often as the interpreter
+    allows: every span gets its own id and its own thread's parent, and no
+    detail count is lost."""
+    rec = Recorder(span_capacity=100_000)
+    threads_n, each = 4 * (os.cpu_count() or 1), 200
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(t):
+            for i in range(each):
+                with rec.span("outer", detail=True, item=t):
+                    with rec.span("inner", detail=True):
+                        rec.add("n", detail=True)
+
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(threads_n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    spans = list(rec.tracer.spans)
+    by_id = {s.span_id: s for s in spans}
+    assert len(spans) == len(by_id) == 2 * threads_n * each
+    assert rec.detail_snapshot() == {"n": threads_n * each}
+    for s in spans:
+        if s.name == "inner":
+            parent = by_id[s.parent_id]
+            assert parent.name == "outer"
+            assert parent.thread_id == s.thread_id
+            assert s.tags["item"] == parent.tags["item"]
+        else:
+            assert s.parent_id is None
+
+
+def test_detail_spans_and_counters_reach_the_ring_not_the_sinks(tmp_path):
+    sink = MemorySink()
+    rec = Recorder([sink])
+    with rec.span("serve_bulk", detail=True, call=7):
+        with rec.span("serve_batch", model="dbn"):
+            pass
+    rec.add("serve_bulk.calls", detail=True)
+    rec.add("serve_bulk.bytes_in", 40, detail=True)
+    rec.add("stream.sessions", 5)
+    rec.flush_counters()
+    assert [s.name for s in rec.tracer.spans] == ["serve_batch",
+                                                  "serve_bulk"]
+    assert [e["name"] for e in sink.by_kind("span")] == ["serve_batch"]
+    (c,) = sink.by_kind("counters")
+    assert c["data"] == {"stream.sessions": 5}
+    assert rec.detail_snapshot() == {"serve_bulk.calls": 1,
+                                     "serve_bulk.bytes_in": 40}
+    path = str(tmp_path / "trace.json")
+    assert rec.export_chrome_trace(path) == 5
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert {e["name"]: e["args"]["value"] for e in events
+            if e["ph"] == "C"} == {"serve_bulk.calls": 1,
+                                   "serve_bulk.bytes_in": 40,
+                                   "stream.sessions": 5}
+
+
+def test_spans_keep_one_clock_and_export_epoch_microseconds(tmp_path):
+    """Starts and lengths from ``perf_counter``; the export adds the one
+    offset taken when the tracer was made, so a span's exported start is
+    where the profiler's own export puts the range it opened."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = Recorder()
+    before = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with rec.span("train.chunk", detail=True, chunk=0):
+            time.sleep(0.002)
+    (s,) = rec.tracer.spans
+    assert before <= s.t_start <= time.perf_counter()
+    assert s.duration >= 0.002
+    assert rec.tracer.wall(s.t_start) == pytest.approx(time.time(), abs=5.0)
+    ours = rec.tracer.chrome_trace()["traceEvents"][0]["ts"]
+    path = str(tmp_path / "prof.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        exported = json.load(f)
+    base_us = exported.get("baseTimeNanoseconds", 0) / 1e3
+    (theirs,) = [e["ts"] + base_us for e in exported["traceEvents"]
+                 if e.get("name") == "train.chunk" and e.get("ph") == "X"]
+    assert abs(ours - theirs) < 1000.0  # within 1 ms
+    # a staging thread's span that starts later exports later
+
+    def stage():
+        with rec.span("prefetch.pin", detail=True):
+            pass
+
+    t = threading.Thread(target=stage)
+    t.start()
+    t.join()
+    a, b = rec.tracer.chrome_trace()["traceEvents"]
+    assert b["ts"] >= a["ts"] + a["dur"] and b["tid"] != a["tid"]
+
+
+def test_trainer_records_chunk_and_prefetch_spans_with_matching_tags(log):
+    cfg, (train, _, _) = log
+    _, tm = _models("dbn", cfg)
+    rec = Recorder()
+    trainer = Trainer(optim.adamw(0.05), epochs=1, chunk_batches=2,
+                      device="cpu", recorder=rec, log_fn=_quiet)
+    loader = ClickLogLoader(train, batch_size=96, seed=0)
+    trainer.train(tm, loader)
+    spans = list(rec.tracer.spans)
+    by_id = {s.span_id: s for s in spans}
+    chunks = [s for s in spans if s.name == "train.chunk"]
+    worked = [c for c in chunks if "n" in c.tags]
+    n_batches = loader.batches_per_epoch
+    assert [c.tags["n"] for c in worked] == [2] * (n_batches // 2) + (
+        [1] if n_batches % 2 else [])
+    # chunk = the chunk's first global step; the end of input is a chunk
+    # span of its own, with no n
+    assert [c.tags["chunk"] for c in chunks] == [
+        2 * i for i in range(len(worked))] + [n_batches]
+    for i, c in enumerate(chunks):
+        kids = sorted((s for s in spans if s.parent_id == c.span_id),
+                      key=lambda s: s.t_start)
+        want = ["train.wait_input"] if c not in worked else (
+            ["train.wait_input", "train.step"]
+            + (["train.drain"] if i > 0 else []))
+        assert [k.name for k in kids] == want
+        assert kids[0].tags == {"item": i, "chunk": c.tags["chunk"]}
+        assert all(k.tags["chunk"] == c.tags["chunk"] for k in kids)
+        assert all(k.thread_id == c.thread_id for k in kids)
+    (last_drain,) = [s for s in spans if s.name == "train.drain"
+                     and by_id[s.parent_id].name == "epoch"]
+    assert last_drain.tags == {"chunk": worked[-1].tags["chunk"]}
+    # the staging thread built item k of the chunk that waited for item k
+    staged = [s for s in spans if s.name.startswith("prefetch.")]
+    assert {s.thread_id for s in staged} != {chunks[0].thread_id}
+    for name in ("prefetch.pin", "prefetch.copy"):
+        assert sorted(s.tags["item"] for s in spans if s.name == name) == \
+            list(range(len(worked)))
+    batches = [s.tags["item"] for s in spans if s.name == "prefetch.batch"]
+    for k, c in enumerate(worked):
+        assert batches.count(k) == c.tags["n"]
+    assert {s.name for s in staged} <= {"prefetch.batch", "prefetch.pin",
+                                        "prefetch.copy",
+                                        "prefetch.queue_full"}
+    assert rec.detail_snapshot() == {
+        "train.chunks": len(worked), "prefetch.items": len(worked),
+        "prefetch.bytes": sum(v[:n_batches * 96].nbytes
+                              for k, v in train.items()
+                              if k in loader.data)}
+
+
+def test_inline_prefetcher_records_its_spans_on_the_consumer():
+    from repro_torch.data import DevicePrefetcher
+
+    data = {"clicks": np.zeros((40, 3), np.float32)}
+    rec = Recorder()
+    items = list(DevicePrefetcher(ClickLogLoader(data, batch_size=10),
+                                  device="cpu", chunk_batches=2,
+                                  overlap=False, recorder=rec))
+    assert len(items) == 2
+    names = [s.name for s in rec.tracer.spans]
+    assert "prefetch.queue_full" not in names
+    assert {s.thread_id for s in rec.tracer.spans} == {
+        threading.get_ident()}
+    assert sorted(s.tags["item"] for s in rec.tracer.spans
+                  if s.name == "prefetch.pin") == [0, 1]
+    assert rec.detail_snapshot() == {"prefetch.items": 2,
+                                     "prefetch.bytes": 40 * 3 * 4}
 
 
 # -- the drain -----------------------------------------------------------------
