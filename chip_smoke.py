@@ -230,7 +230,10 @@ Phases, each printing JSON lines:
                   the device's idle share, the replay alone), a launch
                   under sync debug "error", the whole-table dequantize
                   form as a yardstick; serve_bulk (262,144 x 10) for the
-                  DBN and UBM against its bound; the chaos drill on the
+                  DBN and UBM against its bound, its pinned staging and
+                  the pageable route in turns (answers equal to the bit,
+                  host ms a call, the fill's and the DMA's GB/s, the piece
+                  size swept, one staging set); the chaos drill on the
                   card against the CPU port's (signature, counters,
                   log_ctr); the launcher's SIGTERM drill in a subprocess.
 
@@ -5552,30 +5555,177 @@ def _dispatch_ms(entry, tier, bucket, rng, reps=50):
             / _spread(host)["median"]}
 
 
+def _bulk_routes(model, batches, rounds=11):
+    """serve_bulk's pinned staging against the pageable route it replaced
+    (``torch.from_numpy(v).to(device)``, ``.cpu()``), in turns over
+    ``batches`` (each route first in every other round): each route's host
+    ms a call, and the answers held equal to the bit, batch by batch."""
+    import torch
+
+    from repro_torch.configs.clax_baidu import serve_bulk
+
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def pageable(batch):
+        inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                  for k, v in batch.items()}
+        return model.predict_clicks(inputs).cpu().numpy()
+
+    routes = {"pinned": lambda b: serve_bulk(model, b), "pageable": pageable}
+    host = {r: [] for r in routes}
+    first = {r: [] for r in routes}
+    for i in range(rounds):
+        for r in (list(routes) if i % 2 == 0 else list(routes)[::-1]):
+            for b in batches:
+                t0 = time.perf_counter()
+                out = routes[r](b)
+                if i == 0:  # each batch's first call warms the route
+                    first[r].append(out)
+                else:
+                    host[r].append((time.perf_counter() - t0) * 1e3)
+    for j, (got, want) in enumerate(zip(first["pinned"], first["pageable"])):
+        if (got.shape != want.shape or got.dtype != want.dtype
+                or got.tobytes() != want.tobytes()):
+            raise AssertionError(f"serve_bulk: batch {j}'s pinned answer "
+                                 "differs from the pageable route's")
+    return {r: _spread(ms) for r, ms in host.items()}
+
+
+def _bulk_rates(model, batch, reps=10):
+    """GB/s of the pinned route's parts over one batch: the host's fill of
+    pinned buffers from the caller's arrays (torch's threaded ``copy_``,
+    host clock), the DMA from them and of the answer back into pinned
+    memory (CUDA events), and the pageable copies beside them."""
+    import torch
+
+    device = next(model.parameters()).device
+    src = {k: torch.from_numpy(v) for k, v in batch.items()}
+    staged = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+              for k, t in src.items()}
+    dst = {k: torch.empty(t.shape, dtype=t.dtype, device=device)
+           for k, t in src.items()}
+    n_in = sum(t.nbytes for t in src.values())
+    with torch.no_grad():
+        out = model.predict_clicks(dst)
+    answer = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+
+    def fill():
+        for k, t in src.items():
+            staged[k].copy_(t)
+
+    def host_ms(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def dma_in():
+        for k, t in staged.items():
+            dst[k].copy_(t, non_blocking=True)
+
+    ms = {"fill": host_ms(fill),
+          "dma_in": time_ms(dma_in, iters=reps, warmup=2),
+          "dma_out": time_ms(lambda: answer.copy_(out, non_blocking=True),
+                             iters=reps, warmup=2),
+          "pageable_in": host_ms(lambda: [dst[k].copy_(t) for k, t
+                                          in src.items()]),
+          "pageable_out": host_ms(lambda: out.cpu())}
+    size = {"fill": n_in, "dma_in": n_in, "pageable_in": n_in,
+            "dma_out": out.nbytes, "pageable_out": out.nbytes}
+    return {"ms": ms, "gb_per_s": {k: size[k] / ms[k] / 1e6 for k in ms},
+            "threads": torch.get_num_threads()}
+
+
+def _bulk_pieces(model, batches, rounds=4):
+    """The piece size of serve_bulk's copy in swept (1-16 MiB and whole
+    arrays) over ``batches``, sizes in turns: host ms a call, the
+    ``serve_bulk.copy_in`` span (the fill and the enqueues), and the copy
+    in to the end of its DMA (the staging's copy in, then a
+    synchronize)."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import clax_baidu
+
+    device = next(model.parameters()).device
+    staging = clax_baidu._staging(model, device)
+    whole = max(v.nbytes for b in batches for v in b.values())
+    sizes = [1 << 20, 2 << 20, 4 << 20, 8 << 20, 16 << 20, whole]
+    kept = clax_baidu.PIECE_BYTES
+    before = obs.get_recorder()
+    got = {p: {"call": [], "copy_in_span": [], "copy_in_done": []}
+           for p in sizes}
+    try:
+        for i in range(rounds):
+            for piece in (sizes if i % 2 == 0 else sizes[::-1]):
+                clax_baidu.PIECE_BYTES = piece
+                rec = obs.set_recorder(obs.Recorder())
+                for b in batches:
+                    t0 = time.perf_counter()
+                    clax_baidu.serve_bulk(model, b)
+                    got[piece]["call"].append(
+                        (time.perf_counter() - t0) * 1e3)
+                got[piece]["copy_in_span"] += [
+                    s.duration * 1e3 for s in rec.tracer.spans
+                    if s.name == "serve_bulk.copy_in"]
+                for b in batches:
+                    host = {k: np.ascontiguousarray(v) for k, v in b.items()}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    staging.copy_in(host, device)
+                    torch.cuda.synchronize()
+                    got[piece]["copy_in_done"].append(
+                        (time.perf_counter() - t0) * 1e3)
+    finally:
+        clax_baidu.PIECE_BYTES = kept
+        obs.set_recorder(before)
+    return {("whole" if p == whole else f"{p >> 20}MiB"):
+            {k: _spread(v) for k, v in row.items()}
+            for p, row in got.items()}
+
+
 def _bulk(model, name, rng):
-    """configs/clax_baidu.serve_bulk at 262,144 x 10: host to host, and
+    """configs/clax_baidu.serve_bulk at 262,144 x 10 over 4 distinct
+    batches (94 MB, past the host's last-level cache, as the benchmark's 8
+    are): host to host through its pinned staging and through the
+    pageable route in turns, the answers equal to the bit; the fill's and
+    the DMA's GB/s; the piece size swept; the staging's counters;
     predict_clicks alone on the device; its bound: the 32-byte sectors the
     gathers touch plus the batch's bytes in and the answer's out."""
     import torch
 
-    from repro_torch.configs.clax_baidu import SHAPES, serve_bulk
+    from repro_torch import obs
+    from repro_torch.configs.clax_baidu import PIECE_BYTES, SHAPES
     from repro_torch.core.parameterization import EmbeddingParameter
 
     rows = SHAPES["serve_bulk"]["batch"]
-    batch = {"positions": np.tile(np.arange(1, K_MAIN + 1, dtype=np.int32),
-                                  (rows, 1)),
-             "query_doc_ids": rng.integers(0, SERVE_PAIRS, (rows, K_MAIN))
-             .astype(np.int32),
-             "mask": np.ones((rows, K_MAIN), bool)}
-    host = []
-    for _ in range(6):
-        t0 = time.perf_counter()
-        out = serve_bulk(model, batch)
-        host.append((time.perf_counter() - t0) * 1e3)
-    if out.shape != (rows, K_MAIN) or not np.isfinite(out).all():
-        raise AssertionError(f"serve_bulk {name}: {out.shape}")
-    tensors = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    batches = [{"positions": np.tile(np.arange(1, K_MAIN + 1,
+                                               dtype=np.int32), (rows, 1)),
+                "query_doc_ids": rng.integers(0, SERVE_PAIRS, (rows, K_MAIN))
+                .astype(np.int32),
+                "mask": rng.random((rows, K_MAIN)) < 0.9}
+               for _ in range(4)]
+    before = obs.get_recorder()
+    rec = obs.set_recorder(obs.Recorder())
+    try:
+        routes = _bulk_routes(model, batches)
+        counters = {k: v for k, v in rec.detail_snapshot().items()
+                    if k.startswith("serve_bulk.")}
+    finally:
+        obs.set_recorder(before)
+    if (counters["serve_bulk.pinned_calls"] != counters["serve_bulk.calls"]
+            or counters["serve_bulk.pinned_allocs"] != 1):
+        raise AssertionError(f"serve_bulk {name}: counters {counters}")
+    rates = _bulk_rates(model, batches[0])
+    pieces = _bulk_pieces(model, batches)
+    tensors = {k: torch.from_numpy(v).cuda() for k, v in batches[0].items()}
     with torch.no_grad():
+        out = model.predict_clicks(tensors)
+        if out.shape != (rows, K_MAIN) or not torch.isfinite(out).all():
+            raise AssertionError(f"serve_bulk {name}: {out.shape}")
         device = time_ms(lambda: model.predict_clicks(tensors), iters=20,
                          warmup=3)
         sectors = sum(int(torch.unique(m.row_ids(tensors) // 8).numel())
@@ -5585,10 +5735,13 @@ def _bulk(model, name, rng):
                                        calls=5)
     n_bytes = sectors * SECTOR + rows * K_MAIN * (4 + 4 + 1) \
         + rows * K_MAIN * 4
-    return {"rows": rows, "host_ms": _spread(host[1:]),
+    host = routes["pinned"]["median"]
+    return {"rows": rows, "host_ms": routes["pinned"], "routes": routes,
+            "piece_bytes": PIECE_BYTES, "pieces": pieces, "rates": rates,
+            "counters": counters,
             "profile": {"device_kernels": total, "top": lines[:8]},
             "device_ms": device, "rows_per_s_device": rows / device * 1e3,
-            "rows_per_s_host": rows / _spread(host[1:])["median"] * 1e3,
+            "rows_per_s_host": rows / host * 1e3,
             "table_sectors": sectors, "bound_bytes": n_bytes,
             "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
             "bound_by": "bytes"}

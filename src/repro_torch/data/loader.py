@@ -145,12 +145,13 @@ class _PinnedRing:
     """``slots`` sets of pinned host buffers, used in turn as the staging
     area of host-to-device copies. A slot is refilled only after the copy
     out of it has completed (its event); a slot whose shapes or types do
-    not fit the item is allocated anew."""
+    not fit the item is allocated anew (``allocs`` counts such sets)."""
 
     def __init__(self, slots: int, pinned=None):
         self._slots: List[Tuple[Dict[str, torch.Tensor], object]] = \
             [({}, None)] * slots
         self._next = 0
+        self.allocs = 0
         self._pinned = pinned or (lambda shape, dtype: torch.empty(
             shape, dtype=dtype, pin_memory=True))
 
@@ -165,6 +166,7 @@ class _PinnedRing:
         if {k: (tuple(b.shape), b.dtype) for k, b in buffers.items()} != like:
             buffers = {k: self._pinned(shape, dtype)
                        for k, (shape, dtype) in like.items()}
+            self.allocs += 1
         self._slots[i] = (buffers, None)
         return i, buffers
 
