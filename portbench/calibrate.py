@@ -9,13 +9,15 @@ window) and its gaps are printed. For each of ``--control-seeds`` the
 control is read: the plain reference computed in bfloat16, put in the
 program's place, on the same inputs a run compares (the check's steps, or
 ``sample_calls`` served batches), and judged against the float64
-reference. For each of ``--fault-seeds`` (training cells) the fault of
+reference; a loop that defines ``control(cell, seed, device)`` reads its
+own. For each of ``--fault-seeds`` (training cells) the fault of
 half of each batch left out is read the same way: the reference over the
 first half of each batch's sessions in the program's place. One JSON line
 each on standard output, also appended to ``--out``. The benchmark's own
 runs never run the control or the fault.
 """
 import argparse
+import importlib
 import json
 import os
 import sys
@@ -25,12 +27,17 @@ import run
 
 
 def control(cell, seed: int, device="cuda"):
-    """The control's gaps on ``seed``'s inputs."""
+    """The control's gaps on ``seed``'s inputs: those of the cell's loop's
+    own ``control(cell, seed, device)`` where its module has one (the loop
+    of another model family), else the click models'."""
     import torch
 
     from loops import serve_bulk, train
     from yardstick import check, inputs
 
+    loop = importlib.import_module(f"loops.{cell.traffic['loop']}")
+    if hasattr(loop, "control"):
+        return loop.control(cell, seed, device)
     pool = inputs.make_pool(cell.config, cell.traffic, seed)
     if cell.traffic["loop"] == "train":
         batches = train.check_batches(pool, cell.traffic, seed)

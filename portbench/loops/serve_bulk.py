@@ -121,6 +121,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
 
     items = B * config["positions"]
     ctx = {"window_s": t_end - t_start, "calls": calls,
+           "call_s": latencies,
            "overhead_s": profiled.overhead_s if profiled else 0.0,
            "trace": profiled.trace() if profiled else None,
            "calls_traced": traced}
@@ -131,7 +132,6 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
             batch_bytes, items * 4, int(sectors),
             config["flops_per_item"]["serve"] * items))}
     e2e = {"serve_sessions_per_s": calls * B / (t_end - t_start),
-           "serve_call_ms_p95": float(np.percentile(latencies, 95)) * 1e3,
            "peak_mem_gb": peak / 1e9, "setup_s": t_start - t_process}
     return Outcome(e2e=e2e, ctx=ctx, gaps={"logp_gap": gap},
                    attempted=calls, failed=failed, memory_peak_bytes=peak,

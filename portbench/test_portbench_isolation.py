@@ -82,9 +82,9 @@ print("ok")
 
 
 def test_forbidden_names_are_matched_whole():
+    import repro_torch  # noqa: F401 - loaded, as in a run
     import run
 
-    sys.modules.setdefault("repro_torch", sys.modules.get("repro_torch"))
     assert "repro" not in [n for n in run.forbidden_modules()
                            if n == "repro_torch"]
     assert run.FORBIDDEN == ("jax", "jaxlib", "flax", "repro")

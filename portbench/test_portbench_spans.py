@@ -115,6 +115,27 @@ def test_reader_finds_nothing_without_the_programs_spans(name, recorder):
         assert read({"trace": _serve_trace(), "calls_traced": 2}) is None
 
 
+def test_call_tail_reader_reads_every_call_of_the_window():
+    """``serve_call_ms_p95.whole_call`` is the 95th percentile of all the
+    window's host-timed calls (numpy's, as the end-to-end metric), and
+    nothing without calls."""
+    read = run._reader("serve_call_ms_p95.whole_call")
+    calls = [0.004] * 90 + [0.012] * 10
+    assert read({"call_s": calls}) == pytest.approx(
+        float(np.percentile(calls, 95)) * 1e3, rel=1e-12)
+    assert read({"call_s": []}) is None and read({}) is None
+
+
+def test_a_traced_tiny_serving_run_reports_its_call_tail():
+    """The serving loop hands its call times to the readers: a traced run
+    of the tiny DBN cell reports the tail in its per-layer line."""
+    result, lines = run.execute(tiny.cell(SERVE), SEED, 0.3, True,
+                                device="cpu", builder=tiny.builder)
+    assert result["correct"], lines
+    tail = result["metrics"]["serve_call_ms_p95.whole_call"]
+    assert tail["unit"] == "ms" and tail["value"] > 0
+
+
 def _model_and_batch(workload, seed=SEED):
     cell = tiny.cell(workload)
     pool = inputs.make_pool(cell.config, cell.traffic, seed)

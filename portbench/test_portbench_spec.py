@@ -9,11 +9,12 @@ import re
 import numpy as np
 import pytest
 
+import contract
+from contract import NAME
 from yardstick import spec
 
 ROOT = spec.ROOT
 BENCH = spec.benchmark()
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
 METRICS = BENCH["end_to_end"] + BENCH["per_layer"]
@@ -22,9 +23,7 @@ HELD = spec.held()
 HELD_METRICS = json.load(open(spec.file_of("held", "metrics")))
 
 
-def _text(s):
-    return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s \
-        and "\t" not in s
+_text = contract.one_line
 
 
 def test_top_level_keys_and_size():
@@ -81,36 +80,17 @@ def test_cell_resolves_and_reports_enough(cell):
 
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
 def test_configuration_file(entry):
-    assert set(entry) == {"name", "source", "file", "reduced", "why"}
-    assert NAME.match(entry["name"]) and _text(entry["why"])
-    assert entry["source"].startswith("https://")
-    assert entry["file"].startswith("portbench/configs/")
-    assert entry["reduced"] == []
-    with open(os.path.join(ROOT, entry["file"])) as f:
-        config = json.load(f)
-    assert config["name"] == entry["name"]
-    rows = config["parameters"] / config["compression_ratio"]
-    assert config["table_rows"] == -(-int(rows) // 512) * 512
-    for leaf in config["leaves"].values():
-        if leaf.get("hashed"):
-            assert leaf["shape"] == [config["table_rows"], 1]
+    assert contract.configuration_faults(entry) == []
 
 
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
 def test_configuration_is_what_the_program_builds(entry):
     """The program's builder on the meta device gives the configuration's
-    leaves, paths and shapes, in float32."""
-    from yardstick import inputs
-
+    leaves, in path, shape and dtype, and the tiny form's builder gives
+    them at the tiny shapes."""
     with open(os.path.join(ROOT, entry["file"])) as f:
         config = json.load(f)
-    module, attr = config["builder"].rsplit(".", 1)
-    import importlib
-
-    model = getattr(importlib.import_module(module), attr)(
-        config["kind"], device="meta")
-    got = {p: list(t.shape) for p, t in inputs.leaf_params(model).items()}
-    assert got == {p: leaf["shape"] for p, leaf in config["leaves"].items()}
+    assert contract.build_faults(config) == []
 
 
 def test_each_cell_uses_its_configuration_once_per_mix():

@@ -71,13 +71,15 @@ def _tensors(batch, device):
 def _dense_start(leaf, seed, dtype, device):
     n = _numel(leaf["shape"])
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    return weights.values(seed, leaf["index"], idx, leaf["center"],
-                          leaf["spread"]).reshape(leaf["shape"]).to(dtype)
+    return _row_start(leaf, seed, idx, dtype).reshape(leaf["shape"])
 
 
 def _row_start(leaf, seed, rows, dtype):
-    return weights.values(seed, leaf["index"], rows, leaf["center"],
-                          leaf["spread"]).to(dtype)
+    """The rows' start as the program's leaf holds it (its own dtype), in
+    ``dtype``."""
+    return weights.rounded(seed, leaf["index"], rows, leaf["center"],
+                           leaf["spread"],
+                           getattr(torch, leaf["dtype"])).to(dtype)
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,7 @@ the pool of sessions its traffic draws from."""
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -25,26 +25,45 @@ def leaf_params(model) -> Dict:
     return out
 
 
-def build_model(config: Dict, seed: int, device, builder=None):
-    """The configuration's model from its ``builder`` entry of the program
-    (or ``builder(kind, device)`` where a test passes one), every leaf then
-    overwritten with the seed's values. The leaves must be the
-    configuration's, in path, shape and type."""
-    if builder is None:
-        module, attr = config["builder"].rsplit(".", 1)
-        builder = getattr(importlib.import_module(module), attr)
-    model = builder(config["kind"], device=device)
+def build(name: str, kind, device):
+    """The model the program's entry ``name`` (``package.module.attr``)
+    builds on ``device``, called as ``entry(kind, device=device)``."""
+    module, attr = name.rsplit(".", 1)
+    return getattr(importlib.import_module(module), attr)(kind, device=device)
+
+
+def program_model(config: Dict, device):
+    """The configuration's model through its ``builder`` entry."""
+    return build(config["builder"], config.get("kind"), device)
+
+
+def leaf_faults(config: Dict, model) -> List[str]:
+    """Where the model's leaves are not the configuration's, in path,
+    shape or dtype (a leaf's own, else the configuration's); empty where
+    they are."""
     params = leaf_params(model)
     table = weights.leaf_table(config)
     found = {p: list(t.shape) for p, t in params.items()}
     want = {p: list(leaf["shape"]) for p, leaf in table.items()}
     if found != want:
-        raise ValueError(f"{config['name']}: the model's leaves {found} are "
-                         f"not the configuration's {want}")
-    for path, leaf in table.items():
-        if str(params[path].dtype) != "torch." + config["dtype"]:
-            raise ValueError(f"{path} is {params[path].dtype}, the "
-                             f"configuration states {config['dtype']}")
+        return [f"{config['name']}: the model's leaves {found} are not the "
+                f"configuration's {want}"]
+    return [f"{path} is {params[path].dtype}, the configuration states "
+            f"{leaf['dtype']}" for path, leaf in table.items()
+            if str(params[path].dtype) != "torch." + leaf["dtype"]]
+
+
+def build_model(config: Dict, seed: int, device, builder=None):
+    """The configuration's model from its ``builder`` entry of the program
+    (or ``builder(config, device)`` where a test passes one), every leaf then
+    overwritten with the seed's values rounded to the leaf's dtype. The
+    leaves must be the configuration's, in path, shape and dtype."""
+    model = (builder or program_model)(config, device)
+    faults = leaf_faults(config, model)
+    if faults:
+        raise ValueError("; ".join(faults))
+    params = leaf_params(model)
+    for path, leaf in weights.leaf_table(config).items():
         weights.fill_(params[path].data, seed, leaf["index"],
                       leaf["center"], leaf["spread"])
     return model

@@ -36,8 +36,10 @@ def benchmark(root: str = ROOT) -> Dict:
     return _json(os.path.join(root, "BENCHMARK.json"))
 
 
-def file_of(kind: str, name: str, ext: str = ".json") -> str:
-    return os.path.join(HERE, kind, name + ext)
+def file_of(kind: str, name: str, ext: str = ".json",
+            root: str = ROOT) -> str:
+    """``<kind>/<name><ext>`` in the benchmark's folder under ``root``."""
+    return os.path.join(root, os.path.basename(HERE), kind, name + ext)
 
 
 @dataclasses.dataclass
@@ -45,6 +47,7 @@ class Cell:
     name: str
     config: Dict
     traffic: Dict
+    mix: str                            # the traffic mix's name
     chips: int
     limits: Dict[str, float]
     end_to_end: List[Tuple[str, str]]   # (name, unit)
@@ -67,9 +70,9 @@ def load_cell(workload: str, root: str = ROOT) -> Cell:
     cells = {w["name"]: w for w in spec["workloads"]}
     if workload in cells:
         w = cells[workload]
-    elif os.path.exists(file_of("held", workload)):
-        w = _json(file_of("held", workload))
-        held = _json(file_of("held", "metrics"))
+    elif os.path.exists(file_of("held", workload, root=root)):
+        w = _json(file_of("held", workload, root=root))
+        held = _json(file_of("held", "metrics", root=root))
         spec["end_to_end"] += held["end_to_end"]
         spec["per_layer"] += held["per_layer"]
     else:
@@ -77,11 +80,11 @@ def load_cell(workload: str, root: str = ROOT) -> Cell:
                        f"({', '.join(sorted(cells))}) nor held")
     configs = {c["name"]: c for c in spec["configs"]}
     config = _json(os.path.join(root, configs[w["config"]]["file"]))
-    traffic = _json(file_of("traffic", w["traffic"]))
-    limits = _json(file_of("limits", workload))
+    traffic = _json(file_of("traffic", w["traffic"], root=root))
+    limits = _json(file_of("limits", workload, root=root))
     return Cell(
-        name=workload, config=config, traffic=traffic, chips=w["chips"],
-        limits=limits,
+        name=workload, config=config, traffic=traffic, mix=w["traffic"],
+        chips=w["chips"], limits=limits,
         end_to_end=[(m["name"], m["unit"]) for m in spec["end_to_end"]
                     if _applies(m, workload)],
         per_layer=[(m["name"], m["unit"]) for m in spec["per_layer"]

@@ -8,6 +8,9 @@ any row again, on its own, without a copy of the table the program holds
 (the program's tables are the program's state; the reference takes nothing
 from them). Integers are kept in int64 below 2^32 and every product is
 reduced mod 2^32 by hand, so the CPU and the card give the same bits.
+
+A leaf of a 16-bit type holds those float32 values rounded once to its
+type (:func:`rounded`), which the reference asks for in the same way.
 """
 from __future__ import annotations
 
@@ -53,16 +56,24 @@ def values(seed: int, leaf: int, index: torch.Tensor, center: float,
     return (center + spread * (2.0 * u - 1.0)).to(torch.float32)
 
 
+def rounded(seed: int, leaf: int, index: torch.Tensor, center: float,
+            spread: float, dtype: torch.dtype) -> torch.Tensor:
+    """The values of elements ``index`` of leaf number ``leaf`` as a leaf
+    of ``dtype`` holds them: the float32 values rounded once to ``dtype``
+    (for float32, the values themselves)."""
+    return values(seed, leaf, index, center, spread).to(dtype)
+
+
 @torch.no_grad()
 def fill_(param: torch.Tensor, seed: int, leaf: int, center: float,
           spread: float) -> None:
-    """Write leaf ``leaf``'s values into ``param`` (float32, row-major), a
-    block at a time."""
+    """Write leaf ``leaf``'s values, rounded to ``param``'s dtype, into
+    ``param`` (row-major), a block at a time."""
     flat = param.view(-1)
     for lo in range(0, flat.numel(), BLOCK):
         hi = min(lo + BLOCK, flat.numel())
         idx = torch.arange(lo, hi, dtype=torch.int64, device=flat.device)
-        flat[lo:hi] = values(seed, leaf, idx, center, spread)
+        flat[lo:hi] = rounded(seed, leaf, idx, center, spread, flat.dtype)
 
 
 @torch.no_grad()
@@ -82,20 +93,23 @@ def sum_of_squares(numel: int, seed: int, leaf: int, center: float,
 def change_norm(param: torch.Tensor, seed: int, leaf: int, center: float,
                 spread: float) -> float:
     """The float64 norm of ``param`` less the values the leaf was made
-    with, a block at a time."""
+    with (rounded to ``param``'s dtype), a block at a time."""
     flat = param.detach().view(-1)
     total = torch.zeros((), dtype=torch.float64, device=flat.device)
     for lo in range(0, flat.numel(), BLOCK):
         hi = min(lo + BLOCK, flat.numel())
         idx = torch.arange(lo, hi, dtype=torch.int64, device=flat.device)
-        d = flat[lo:hi].double() - values(seed, leaf, idx, center,
-                                          spread).double()
+        d = flat[lo:hi].double() - rounded(seed, leaf, idx, center, spread,
+                                           flat.dtype).double()
         total += torch.dot(d, d)
     return float(total.sqrt())
 
 
 def leaf_table(config: Dict) -> Dict[str, Dict]:
-    """``{path: {"index", "shape", "center", "spread"}}`` from a
-    configuration's ``leaves``, numbered in their listed order."""
-    return {path: dict(spec, index=i)
+    """``{path: {"index", "shape", "dtype", "center", "spread"}}`` from a
+    configuration's ``leaves``, numbered in their listed order; a leaf
+    without a ``dtype`` of its own has the configuration's."""
+    return {path: dict(spec, index=i,
+                       dtype=spec.get("dtype", config["dtype"]))
             for i, (path, spec) in enumerate(config["leaves"].items())}
+
