@@ -296,6 +296,13 @@ Phases, each printing JSON lines:
                   logits, loss, gradients, AdamW steps with 1 and 2
                   microbatches, prefill and two decode steps at 1e-5
                   (lm_cpu_vs_gpu).
+   grouped_mm     Moonlight-16B-A3B's grouped GEMM (kernels/grouped_mm.py,
+                  torch._grouped_mm on the card) at its scoring cell's
+                  shapes, one MoE layer of 8 x 4,096 tokens routed top-6 of
+                  64 experts (196,608 rows): the gate and the down
+                  projection against the plain form (within 2 bfloat16
+                  ulps), device ms beside the bound and the plain form;
+                  edges with empty experts.
 18. Slice 14, after every earlier path:
    distrib        a world of one under NCCL (make_data_parallel_mesh()):
                   the paper-width DBN (dense and sparse tables) and DCTR
@@ -5649,19 +5656,20 @@ def _bulk_pieces(model, batches, rounds=4):
 
     from repro_torch import obs
     from repro_torch.configs import clax_baidu
+    from repro_torch.data import staging as pinned
 
     device = next(model.parameters()).device
-    staging = clax_baidu._staging(model, device)
+    staging = pinned.staging_for(model, device)
     whole = max(v.nbytes for b in batches for v in b.values())
     sizes = [1 << 20, 2 << 20, 4 << 20, 8 << 20, 16 << 20, whole]
-    kept = clax_baidu.PIECE_BYTES
+    kept = pinned.PIECE_BYTES
     before = obs.get_recorder()
     got = {p: {"call": [], "copy_in_span": [], "copy_in_done": []}
            for p in sizes}
     try:
         for i in range(rounds):
             for piece in (sizes if i % 2 == 0 else sizes[::-1]):
-                clax_baidu.PIECE_BYTES = piece
+                pinned.PIECE_BYTES = piece
                 rec = obs.set_recorder(obs.Recorder())
                 for b in batches:
                     t0 = time.perf_counter()
@@ -5680,7 +5688,7 @@ def _bulk_pieces(model, batches, rounds=4):
                     got[piece]["copy_in_done"].append(
                         (time.perf_counter() - t0) * 1e3)
     finally:
-        clax_baidu.PIECE_BYTES = kept
+        pinned.PIECE_BYTES = kept
         obs.set_recorder(before)
     return {("whole" if p == whole else f"{p >> 20}MiB"):
             {k: _spread(v) for k, v in row.items()}
@@ -5698,7 +5706,8 @@ def _bulk(model, name, rng):
     import torch
 
     from repro_torch import obs
-    from repro_torch.configs.clax_baidu import PIECE_BYTES, SHAPES
+    from repro_torch.configs.clax_baidu import SHAPES
+    from repro_torch.data.staging import PIECE_BYTES
     from repro_torch.core.parameterization import EmbeddingParameter
 
     rows = SHAPES["serve_bulk"]["batch"]
@@ -6831,6 +6840,95 @@ def phase_lm(card):
     emit("lm_done", card=card, seconds=time.perf_counter() - t_phase)
     torch.cuda.synchronize()
     return counts["llama3.2-1b"]
+
+
+def _moonlight_routing(tokens, gen):
+    """Moonlight's MoE-layer routing of ``tokens`` tokens: sigmoid scores
+    of unit-size logits plus a +-0.05 choice bias, top-6 of 64 experts;
+    the (E,) counts and the slots sorted by expert."""
+    import torch
+
+    from repro_torch.configs import moonlight_16b
+
+    cfg = moonlight_16b.FULL
+    logits = torch.randn(tokens, cfg.n_experts, device="cuda", generator=gen)
+    bias = (torch.rand(cfg.n_experts, device="cuda", generator=gen) - 0.5) / 10
+    top_i = torch.topk(torch.sigmoid(logits) + bias, cfg.top_k, -1).indices
+    flat = top_i.reshape(-1)
+    return torch.bincount(flat, minlength=cfg.n_experts), flat.numel()
+
+
+def phase_grouped_mm(card):
+    """Moonlight's grouped GEMM at the scoring cell's shapes: one MoE
+    layer's 196,608 routed rows (8 x 4,096 tokens, top-6) over 64 experts,
+    the gate (and up) projection (K 2,048, N 1,408) and the down projection
+    (K 1,408, N 2,048): the port's ``grouped_mm`` (``torch._grouped_mm`` on
+    the card) against its plain form (max abs error, bfloat16 ulps), its
+    device ms beside its bound (operations at 989 TFLOP/s, or the experts'
+    weights and the rows in and out at 3.35 TB/s) and the plain form's ms;
+    and the edge cases (an expert with no rows, one row, all rows on one
+    expert)."""
+    import torch
+
+    from repro_torch.kernels import grouped_mm as gmm
+
+    _free_card()
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    counts, M = _moonlight_routing(8 * 4096, gen)
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    E, D, Fm = 64, 2048, 1408
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(torch.bfloat16)
+
+    def ulps(got, want):
+        # a bfloat16 ulp at each answer, or at the answers' RMS near 0:
+        # the two sum in float32 in other orders, then round once
+        want = want.float()
+        err = (got.float() - want).abs()
+        return err, err / (torch.finfo(torch.bfloat16).eps * (
+            want.abs() + want.pow(2).mean().sqrt()))
+
+    cases = {"gate": (bf16(M, D), bf16(E, D, Fm, scale=D ** -0.5)),
+             "down": (bf16(M, Fm), bf16(E, Fm, D, scale=Fm ** -0.5))}
+    for name, (x, w) in cases.items():
+        K, N = w.shape[1], w.shape[2]
+        got = gmm.grouped_mm(x, w, ends)
+        torch.cuda.synchronize()
+        err, ulp = ulps(got, gmm.grouped_mm_plain(x, w, ends))
+        if float(ulp.max()) > 2.0:
+            raise AssertionError(f"grouped_mm {name}: {float(err.max())}")
+        flops = 2.0 * M * K * N
+        nbytes = 2.0 * (E * K * N + M * K + M * N)
+        bound = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+        kernel = time_ms(lambda: gmm.grouped_mm(x, w, ends), iters=20,
+                         warmup=3)
+        plain = time_ms(lambda: gmm.grouped_mm_plain(x, w, ends), iters=3,
+                        warmup=1)
+        emit("kernel", kernel="grouped_mm", card=card, case=name,
+             rows=M, experts=E, k=K, n=N,
+             rows_per_expert={"min": int(counts.min()),
+                              "max": int(counts.max())},
+             max_abs_err=float(err.max()),
+             max_err_bf16_ulps=float(ulp.max()),
+             device_ms={"kernel": kernel, "plain": plain, "bound": bound},
+             share_of_bound=bound / kernel, tflops=flops / kernel / 1e9)
+        del got, err, ulp
+    edges = {}
+    for name, c in (("empty_and_one_row", [0, 1, 300, 0, 77, 0, 5, 1]),
+                    ("one_expert", [0, 0, 513, 0, 0, 0, 0, 0]),
+                    ("all_empty_but_tail", [0] * 7 + [129])):
+        cnt = torch.tensor(c, device="cuda")
+        e = torch.cumsum(cnt, 0, dtype=torch.int32)
+        x, w = bf16(sum(c), 256), bf16(8, 256, 96)
+        err, ulp = ulps(gmm.grouped_mm(x, w, e), gmm.grouped_mm_plain(x, w, e))
+        edges[name] = float(err.max())
+        if float(ulp.max()) > 2.0:
+            raise AssertionError(f"grouped_mm edge {name}: {edges[name]}")
+    emit("kernel_edges", kernel="grouped_mm", card=card, max_abs_err=edges)
+    del cases
+    _free_card()
 
 
 # ---------------------------------------------------------------------------
@@ -8240,6 +8338,7 @@ def main() -> int:
     dryrun = start_dryrun()
     try:
         lm = phase_lm(smi)
+        phase_grouped_mm(smi)
         _after_lm(smi, data, dryrun)
     finally:
         stop_dryrun(dryrun)

@@ -1,5 +1,6 @@
 """The LM-family architectures' shapes, dry-run cells and smoke batch
-(port of ``repro.configs.lm_common``).
+(port of ``repro.configs.lm_common``), and the port's bulk scoring entry
+(:func:`score_bulk`).
 
 Shapes (assigned set):
   train_4k     seq 4096,   global_batch 256  -> train_step (AdamW, microbatched)
@@ -12,10 +13,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import optim as optim_lib
 from repro_torch.configs.common import Cell, dp_axes, dp_size, local_empty
+from repro_torch.data.staging import staging_for
 from repro_torch.distrib.shardings import P
 from repro_torch.models.lm import LMConfig
 from repro_torch.models.lm import sharded
@@ -138,3 +141,36 @@ def lm_smoke_batch(cfg: LMConfig, batch: int = 2, seq: int = 16,
     tok = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
                         device=device, dtype=torch.int32)
     return {"tokens": tok, "targets": tok}
+
+
+#: Rows of :func:`score_bulk`'s head a block: the float32 logits of a
+#: block over a 163,840-token vocabulary are 2.7 GB (those of a whole
+#: 8 x 4,096 call would be 21.5 GB).
+HEAD_ROWS = 4096
+
+
+@torch.no_grad()
+def score_bulk(model, tokens: np.ndarray) -> np.ndarray:
+    """Bulk scoring: the ``(B, S)`` int32 token batch copied to the model's
+    device, the forward over it, and the ``(B, S - 1)`` float32 log P of
+    each next token (:func:`~repro_torch.models.lm.transformer.
+    next_token_logp`, :data:`HEAD_ROWS` rows a block) copied back. The
+    model is an LM's parameters with its ``LMConfig`` on ``lm_config``.
+
+    On a CUDA card the batch goes in, and the answer comes out, through the
+    model's pinned staging (:mod:`repro_torch.data.staging`, as
+    ``clax_baidu.serve_bulk``); on the CPU the arrays are copied as they
+    lie."""
+    cfg = model.lm_config
+    device = model.embed.device
+    staging = staging_for(model, device)
+    host = {"tokens": np.ascontiguousarray(tokens, dtype=np.int32)}
+    if staging is None:
+        batch = torch.from_numpy(host["tokens"]).to(device)
+    else:
+        batch = staging.copy_in(host, device)[0]["tokens"]
+    h = tf.hidden(cfg, model, batch)
+    logp = tf.next_token_logp(cfg, model, h, batch, HEAD_ROWS)
+    if staging is None:
+        return logp.cpu().numpy()
+    return staging.copy_out(logp, device)

@@ -102,6 +102,7 @@ def param_specs(cfg: tf.LMConfig, mesh) -> Dict[str, Any]:
     table; an axis whose size does not divide its dimension drops to
     replication (the ``guard``). The tree of the parameters' paths:
     ``{"embed", "ln_f", "lm_head", "dense": {...}[, "moe": {...}]}``."""
+    tf.single_device_only(cfg, "the mesh forms", mesh=True)
     fsdp = DATA_AXES(mesh)
     tp = MODEL_AXIS
 
@@ -144,6 +145,7 @@ def cache_specs(cfg: tf.LMConfig, mesh, *, shard_seq: bool = True
                 ) -> Dict[str, P]:
     """The cache ``(U, sub, B, S, Hkv, Dh)``: the batch over the data axes,
     the sequence over ``model`` with ``shard_seq``."""
+    tf.single_device_only(cfg, "the mesh forms", mesh=True)
     dp = DATA_AXES(mesh)
     spec = P(None, None, dp, MODEL_AXIS if shard_seq else None, None, None)
     return {"k": spec, "v": spec}

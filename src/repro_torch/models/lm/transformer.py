@@ -17,19 +17,26 @@ decoding) over this rank's shards.
 * **attention**: the q-block-chunked softmax(QK^T)V in float32 that JAX runs
   (``_chunked_attention``), so the (S, S) scores never materialize; GQA's
   KV heads repeated with ``repeat_interleave``. No JAX code calls the Pallas
-  flash kernel, and this port calls no kernel here either.
+  flash kernel, and this port calls no kernel here either. The port's own
+  ``attention="mla"`` is DeepSeek's latent attention (``_mla_attention_block``).
 * **MoE**: the dense oracle JAX runs without a mesh (every expert over
-  every token, a one-hot combine, the shared expert).
+  every token, a one-hot combine, the shared expert); the port's own
+  ``moe_impl="dispatched"`` runs the routed slots alone through grouped
+  GEMMs (``_moe_ffn_dispatched``), and ``router="sigmoid"`` is
+  DeepSeek-V3's scoring with a float32 choice bias (``_route``).
 * **decode**: a KV cache stacked ``(U, sub, B, S, Hkv, Dh)``, written in
   place at the decode index.
 * **microbatching**: the train step accumulates gradients over
   ``microbatches`` in ``grad_accum_dtype``, in JAX's order.
 
 The train step updates the parameters in place (one fused ``adamw`` launch
-per tensor on the card, over bfloat16 parameters too). ``LMConfig`` equals
-JAX's field by field, the sharded forms' ``capacity_factor``,
+per tensor on the card, over bfloat16 parameters too). ``LMConfig`` begins
+with JAX's fields, field by field, the sharded forms' ``capacity_factor``,
 ``explicit_row_parallel``, ``flash_decode`` and ``decode_seq_axes``
-included; the single-device forms read none of the four.
+included (the single-device forms read none of the four); the port's own
+fields follow (Moonlight-16B-A3B's MLA, sigmoid router, leading dense
+layers, norm eps and dispatched MoE), whose defaults are JAX's models.
+Those run on a single device, forward only (:func:`single_device_only`).
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import optim as optim_lib
 from repro_torch.nn.module import Module
+from repro_torch.obs import get_recorder
 
 
 # ---------------------------------------------------------------------------
@@ -81,12 +89,34 @@ class LMConfig:
     decode_seq_axes: Tuple[str, ...] = ("model",)  # KV cache seq sharding
     microbatches: int = 1
     max_seq: int = 8192               # decode cache capacity
+    # The port's own fields (JAX's LMConfig has none of them); their
+    # defaults are the LMs above, bit for bit.
+    attention: str = "gqa"            # "mla": DeepSeek's latent attention
+    kv_lora_rank: int = 0             # MLA: the latent's width
+    qk_nope_head_dim: int = 0         # MLA: q / k dims without rope
+    qk_rope_head_dim: int = 0         # MLA: q / k dims with rope
+    v_head_dim: int = 0               # MLA: v's dims a head
+    router: str = "softmax"           # "sigmoid": scores + a choice bias
+    routed_scaling_factor: float = 1.0  # the chosen weights' scale
+    first_k_dense: int = 0            # leading dense layers (own stack)
+    norm_eps: float = 1e-6            # every RMSNorm's eps
+    moe_impl: str = "dense"           # "dispatched": sorted grouped GEMMs
 
     def __post_init__(self):
         if self.head_dim is None:
             self.head_dim = self.d_model // self.n_heads
         if self.moe and self.d_ff_moe == 0:
             self.d_ff_moe = self.d_ff
+        if self.attention not in ("gqa", "mla"):
+            raise ValueError(f"no attention {self.attention!r} (gqa, mla)")
+        if self.router not in ("softmax", "sigmoid"):
+            raise ValueError(f"no router {self.router!r} (softmax, sigmoid)")
+        if self.moe_impl not in ("dense", "dispatched"):
+            raise ValueError(f"no MoE form {self.moe_impl!r} "
+                             "(dense, dispatched)")
+        if self.first_k_dense and not (self.moe and self.moe_layer_step == 1):
+            raise ValueError("leading dense layers come before a stack of "
+                             "MoE layers only (moe, moe_layer_step 1)")
 
     @property
     def padded_vocab(self) -> int:
@@ -96,31 +126,51 @@ class LMConfig:
 
     @property
     def n_units(self) -> int:
+        if self.first_k_dense:
+            return self.n_layers
         return self.n_layers // self.moe_layer_step if self.moe else self.n_layers
 
     @property
     def layers_per_unit(self) -> int:
         return self.moe_layer_step if self.moe else 1
 
-    def param_count(self) -> int:
+    @property
+    def n_moe_layers(self) -> int:
+        if not self.moe:
+            return 0
+        return self.n_layers // self.moe_layer_step - self.first_k_dense
+
+    def _attention_params(self) -> int:
         D, Dh = self.d_model, self.head_dim
-        attn = D * self.n_heads * Dh * 2 + D * self.n_kv_heads * Dh * 2
+        if self.attention == "mla":
+            rank, rope = self.kv_lora_rank, self.qk_rope_head_dim
+            q = self.n_heads * (self.qk_nope_head_dim + rope)
+            kv = self.n_heads * (self.qk_nope_head_dim + self.v_head_dim)
+            return (D * q + D * (rank + rope) + rank + rank * kv
+                    + self.n_heads * self.v_head_dim * D)
+        return D * self.n_heads * Dh * 2 + D * self.n_kv_heads * Dh * 2
+
+    def param_count(self) -> int:
+        D = self.d_model
+        attn = self._attention_params()
         dense_ffn = 3 * D * self.d_ff
         total = 2 * self.vocab * D + self.n_layers * (attn + 2 * D) + D
         if not self.moe:
             return total + self.n_layers * dense_ffn
-        n_moe = self.n_layers // self.moe_layer_step
+        n_moe = self.n_moe_layers
         n_dense = self.n_layers - n_moe
         total += n_dense * dense_ffn
         total += n_moe * (self.n_experts * 3 * D * self.d_ff_moe + D * self.n_experts)
         total += n_moe * self.n_shared_experts * 3 * D * self.d_ff_moe
+        if self.router == "sigmoid":
+            total += n_moe * self.n_experts  # the choice bias
         return total
 
     def active_param_count(self) -> int:
         if not self.moe:
             return self.param_count()
         D = self.d_model
-        n_moe = self.n_layers // self.moe_layer_step
+        n_moe = self.n_moe_layers
         routed = self.n_experts * 3 * D * self.d_ff_moe
         active_routed = self.top_k * 3 * D * self.d_ff_moe
         return self.param_count() - n_moe * (routed - active_routed)
@@ -130,25 +180,34 @@ class LMConfig:
 # Parameters
 # ---------------------------------------------------------------------------
 
+def _attention_shapes(cfg: LMConfig) -> Dict[str, tuple]:
+    D, Dh, H = cfg.d_model, cfg.head_dim, cfg.n_heads
+    if cfg.attention == "mla":
+        rank, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        return {"wq": (D, H * (cfg.qk_nope_head_dim + rope)),
+                "wkv_a": (D, rank + rope), "kv_norm": (rank,),
+                "wkv_b": (rank, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                "wo": (H * cfg.v_head_dim, D)}
+    return {"wq": (D, H * Dh), "wk": (D, cfg.n_kv_heads * Dh),
+            "wv": (D, cfg.n_kv_heads * Dh), "wo": (H * Dh, D)}
+
+
 def _dense_layer_shapes(cfg: LMConfig) -> Dict[str, tuple]:
-    D, Dh = cfg.d_model, cfg.head_dim
+    D = cfg.d_model
     return {
-        "ln1": (D,), "ln2": (D,),
-        "wq": (D, cfg.n_heads * Dh), "wk": (D, cfg.n_kv_heads * Dh),
-        "wv": (D, cfg.n_kv_heads * Dh), "wo": (cfg.n_heads * Dh, D),
+        "ln1": (D,), "ln2": (D,), **_attention_shapes(cfg),
         "w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff), "w_down": (cfg.d_ff, D),
     }
 
 
 def _moe_layer_shapes(cfg: LMConfig) -> Dict[str, tuple]:
-    D, Dh, E, F_ = cfg.d_model, cfg.head_dim, cfg.n_experts, cfg.d_ff_moe
-    shapes = {
-        "ln1": (D,), "ln2": (D,),
-        "wq": (D, cfg.n_heads * Dh), "wk": (D, cfg.n_kv_heads * Dh),
-        "wv": (D, cfg.n_kv_heads * Dh), "wo": (cfg.n_heads * Dh, D),
-        "router": (D, E),
-        "we_gate": (E, D, F_), "we_up": (E, D, F_), "we_down": (E, F_, D),
-    }
+    D, E, F_ = cfg.d_model, cfg.n_experts, cfg.d_ff_moe
+    shapes = {"ln1": (D,), "ln2": (D,), **_attention_shapes(cfg),
+              "router": (D, E)}
+    if cfg.router == "sigmoid":
+        shapes["router_bias"] = (E,)
+    shapes.update({"we_gate": (E, D, F_), "we_up": (E, D, F_),
+                   "we_down": (E, F_, D)})
     if cfg.n_shared_experts:
         Fs = cfg.n_shared_experts * F_
         shapes.update({"ws_gate": (D, Fs), "ws_up": (D, Fs), "ws_down": (Fs, D)})
@@ -159,11 +218,24 @@ def _stack_shapes(cfg: LMConfig) -> Dict[str, Dict[str, tuple]]:
     out = {}
     if cfg.moe:
         out["moe"] = _moe_layer_shapes(cfg)
-        if cfg.moe_layer_step == 2:
+        if cfg.moe_layer_step == 2 or cfg.first_k_dense:
             out["dense"] = _dense_layer_shapes(cfg)
     else:
         out["dense"] = _dense_layer_shapes(cfg)
     return out
+
+
+def _stack_units(cfg: LMConfig) -> Dict[str, int]:
+    """Each stack's units: every stack has one a unit, but the leading
+    dense layers, which are a stack of their own before the MoE stack."""
+    if cfg.first_k_dense:
+        return {"dense": cfg.first_k_dense, "moe": cfg.n_moe_layers}
+    return {stack: cfg.n_units for stack in _stack_shapes(cfg)}
+
+
+#: Leaves kept in float32 whatever ``param_dtype`` is: the sigmoid router's
+#: choice bias (``e_score_correction_bias``), which only picks experts.
+FLOAT32_LEAVES = ("router_bias",)
 
 
 class LMParams(Module):
@@ -171,31 +243,40 @@ class LMParams(Module):
     module; each layer leaf stacked ``(U, ...)``."""
 
     def __init__(self, cfg: LMConfig, gen: Optional[torch.Generator],
-                 device):
+                 device, draw: bool = True):
         super().__init__()
-        meta = torch.device(device).type == "meta"
+        empty = torch.device(device).type == "meta" or not draw
 
         def init_one(shape, scale=None):
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = scale if scale is not None else (1.0 / max(fan_in, 1)) ** 0.5
-            if meta:
+            if empty:
                 return torch.empty(shape, dtype=cfg.param_dtype, device=device)
             return (torch.randn(shape, generator=gen, device=device)
                     * scale).to(cfg.param_dtype)
 
-        def ones(shape):
-            return torch.ones(shape, dtype=cfg.param_dtype, device=device)
+        def ones(shape, dtype=cfg.param_dtype):
+            if empty:
+                return torch.empty(shape, dtype=dtype, device=device)
+            return torch.ones(shape, dtype=dtype, device=device)
+
+        def leaf(name, shape):
+            if name in FLOAT32_LEAVES:  # e_score_correction_bias: zeros
+                return torch.zeros(shape, dtype=torch.float32, device=device)
+            if name.startswith(("ln", "kv_norm")):
+                return ones(shape)
+            return init_one(shape)
 
         self.embed = torch.nn.Parameter(
             init_one((cfg.padded_vocab, cfg.d_model), scale=0.02))
         self.ln_f = torch.nn.Parameter(ones((cfg.d_model,)))
         self.lm_head = torch.nn.Parameter(
             init_one((cfg.d_model, cfg.padded_vocab)))
-        U = cfg.n_units
+        units = _stack_units(cfg)
         for stack, shapes in _stack_shapes(cfg).items():
+            U = units[stack]
             self.add_module(stack, torch.nn.ParameterDict({
-                name: ones((U,) + shape) if name.startswith("ln")
-                else init_one((U,) + shape)
+                name: leaf(name, (U,) + shape)
                 for name, shape in shapes.items()}))
 
     def stacks(self) -> Dict[str, torch.nn.ParameterDict]:
@@ -204,35 +285,66 @@ class LMParams(Module):
 
 
 def init_params(cfg: LMConfig, gen: Optional[torch.Generator] = None, *,
-                device="cuda", seed: int = 0) -> LMParams:
+                device="cuda", seed: int = 0, draw: bool = True) -> LMParams:
     """JAX's init: N(0, 1 / fan_in) weights (0.02 for ``embed``), ones for
-    the norms, in ``param_dtype``, drawn from ``gen`` (default: a generator
-    on ``device`` seeded with ``seed``). On ``device="meta"`` the tensors
-    have shapes and types only (llama3-405b and Maverick, as JAX's
-    ``eval_shape``)."""
-    if gen is None and torch.device(device).type != "meta":
+    the norms, in ``param_dtype`` (a sigmoid router's choice bias zeros in
+    float32), drawn from ``gen`` (default: a generator on ``device``
+    seeded with ``seed``). On ``device="meta"``, or with ``draw=False``,
+    the tensors are allocated and nothing is drawn or written (llama3-405b
+    and Maverick on ``meta``, as JAX's ``eval_shape``; a caller that
+    writes every leaf itself)."""
+    if gen is None and draw and torch.device(device).type != "meta":
         gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
-    return LMParams(cfg, gen, device)
+    return LMParams(cfg, gen, device, draw)
 
 
 def _units(cfg: LMConfig, params: LMParams
            ) -> List[Dict[str, Dict[str, torch.Tensor]]]:
     """The per-unit parameters ``[{stack: {name: tensor}}]``: each stack
-    unbound once."""
+    unbound once. Leading dense layers are units of their own, before the
+    MoE stack's."""
     unbound = {stack: {name: t.unbind(0) for name, t in pd.items()}
                for stack, pd in params.stacks().items()}
+    if cfg.first_k_dense:
+        return [{stack: {name: ts[u] for name, ts in unbound[stack].items()}}
+                for stack in ("dense", "moe")
+                for u in range(_stack_units(cfg)[stack])]
     return [{stack: {name: ts[u] for name, ts in names.items()}
              for stack, names in unbound.items()}
             for u in range(cfg.n_units)]
+
+
+def single_device_only(cfg: LMConfig, form: str, mesh: bool = False) -> None:
+    """Raise ``NotImplementedError`` where ``form`` would compute another
+    model than ``cfg``: the KV cache, prefill and decode are written for
+    GQA and the softmax router over units of one layout (decoding through
+    an MLA latent cache is not written), and the mesh forms besides for
+    the dense MoE oracle and the norms' default eps."""
+    found = []
+    if cfg.attention == "mla":
+        found.append("MLA attention")
+    if cfg.router == "sigmoid":
+        found.append("the sigmoid router")
+    if cfg.first_k_dense:
+        found.append("leading dense layers")
+    if mesh and cfg.moe_impl == "dispatched":
+        found.append("the dispatched MoE")
+    if mesh and cfg.norm_eps != 1e-6:
+        found.append(f"norm eps {cfg.norm_eps}")
+    if found:
+        raise NotImplementedError(
+            f"{form} of {cfg.name} is not written for {', '.join(found)}; "
+            "its single-device forward and scoring are")
 
 
 # ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
 
-def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
     xf = x.float()
-    y = xf * torch.rsqrt(torch.mean(torch.square(xf), -1, keepdim=True) + 1e-6)
+    y = xf * torch.rsqrt(torch.mean(torch.square(xf), -1, keepdim=True) + eps)
     return (y * scale.float()).to(x.dtype)
 
 
@@ -253,6 +365,17 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def _rope_pairs(x: torch.Tensor, positions: torch.Tensor, theta: float
+                ) -> torch.Tensor:
+    """Rope on interleaved pairs, as modeling_deepseek applies it: the
+    pairs ``(x[2i], x[2i + 1])`` are de-interleaved into halves, then
+    rotated as :func:`_rope` rotates halves. The result is in the halves'
+    layout, q's and k's alike, so their products are the pairs'."""
+    Dr = x.shape[-1]
+    x = x.unflatten(-1, (Dr // 2, 2)).transpose(-1, -2).flatten(-2)
+    return _rope(x, positions, theta)
 
 
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -319,7 +442,7 @@ def _attention_block(cfg: LMConfig, lp: Dict[str, torch.Tensor],
     it."""
     B, S, D = h.shape
     Dh = cfg.head_dim
-    x = _rmsnorm(h, lp["ln1"])
+    x = _rmsnorm(h, lp["ln1"], cfg.norm_eps)
     q = (x @ lp["wq"].to(cfg.dtype)).reshape(B, S, cfg.n_heads, Dh)
     k = (x @ lp["wk"].to(cfg.dtype)).reshape(B, S, cfg.n_kv_heads, Dh)
     v = (x @ lp["wv"].to(cfg.dtype)).reshape(B, S, cfg.n_kv_heads, Dh)
@@ -345,24 +468,86 @@ def _attention_block(cfg: LMConfig, lp: Dict[str, torch.Tensor],
     return h + out @ lp["wo"].to(cfg.dtype), new_entry
 
 
+def _mla_attention_block(cfg: LMConfig, lp: Dict[str, torch.Tensor],
+                         h: torch.Tensor, positions: torch.Tensor
+                         ) -> torch.Tensor:
+    """DeepSeek's multi-head latent attention, without a q LoRA, as
+    modeling_deepseek computes it: q from ``wq``; ``wkv_a`` to the latent
+    (``kv_lora_rank`` wide) and one rope key of ``qk_rope_head_dim`` shared
+    by every head; the latent RMS-normed (``kv_norm``) and lifted by
+    ``wkv_b`` to each head's k without rope and its v. Rope on the rope
+    dims only, on interleaved pairs (:func:`_rope_pairs`); q and k are
+    ``qk_nope_head_dim + qk_rope_head_dim`` wide, so the softmax scale is
+    that width to the -1/2 (no ``rope_scaling``), and v is
+    ``v_head_dim`` wide."""
+    B, S, _ = h.shape
+    H, nope = cfg.n_heads, cfg.qk_nope_head_dim
+    rope, vd, rank = cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    x = _rmsnorm(h, lp["ln1"], cfg.norm_eps)
+    q = (x @ lp["wq"].to(cfg.dtype)).view(B, S, H, nope + rope)
+    latent, k_pe = (x @ lp["wkv_a"].to(cfg.dtype)).split([rank, rope], -1)
+    latent = _rmsnorm(latent, lp["kv_norm"], cfg.norm_eps)
+    kv = (latent @ lp["wkv_b"].to(cfg.dtype)).view(B, S, H, nope + vd)
+    k_nope, v = kv.split([nope, vd], -1)
+    q_pe = _rope_pairs(q[..., nope:], positions, cfg.rope_theta)
+    k_pe = _rope_pairs(k_pe.reshape(B, S, 1, rope), positions, cfg.rope_theta)
+    q = torch.cat([q[..., :nope], q_pe], -1)
+    k = torch.cat([k_nope, k_pe.expand(B, S, H, rope)], -1)
+    out = _chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=True,
+                             chunk=cfg.attn_chunk)
+    out = out.transpose(1, 2).reshape(B, S, H * vd)
+    return h + out @ lp["wo"].to(cfg.dtype)
+
+
 def _dense_ffn(cfg: LMConfig, lp, h):
-    x = _rmsnorm(h, lp["ln2"])
+    x = _rmsnorm(h, lp["ln2"], cfg.norm_eps)
     gate = F.silu(x @ lp["w_gate"].to(cfg.dtype))
     up = x @ lp["w_up"].to(cfg.dtype)
     return h + (gate * up) @ lp["w_down"].to(cfg.dtype)
 
 
-def _moe_ffn_dense(cfg: LMConfig, lp, h):
-    """Exact (lossless) MoE: every expert over every token, one-hot
-    combined, plus the shared expert (JAX's ``_moe_ffn`` without a mesh)."""
-    B, S, D = h.shape
-    x = _rmsnorm(h, lp["ln2"])
-    xt = x.reshape(B * S, D)
+def _route(cfg: LMConfig, lp, xt: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(weights, experts)``, each ``(T, top_k)``, of the tokens ``xt``:
+    the router's logits in float32. ``softmax``: the top-k probabilities,
+    normalised. ``sigmoid`` (DeepSeek-V3's ``noaux_tc`` with one group):
+    the experts chosen by score plus the float32 choice bias, their
+    weights the scores without it, normalised, then scaled by
+    ``routed_scaling_factor``."""
     logits = xt.float() @ lp["router"].float()
+    if cfg.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+        choice = scores + lp["router_bias"].float()
+        top_i = torch.topk(choice, cfg.top_k, dim=-1).indices
+        top_p = scores.gather(-1, top_i)
+        if cfg.top_k > 1:
+            top_p = top_p / (torch.sum(top_p, -1, keepdim=True) + 1e-20)
+        return top_p * cfg.routed_scaling_factor, top_i
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
     top_p = top_p / torch.clamp(torch.sum(top_p, -1, keepdim=True), min=1e-9)
-    combine = torch.zeros_like(probs)
+    return top_p, top_i
+
+
+def _shared_experts(cfg: LMConfig, lp, x, y):
+    if not cfg.n_shared_experts:
+        return y
+    gate = F.silu(x @ lp["ws_gate"].to(cfg.dtype))
+    up = x @ lp["ws_up"].to(cfg.dtype)
+    return y + (gate * up) @ lp["ws_down"].to(cfg.dtype)
+
+
+def _moe_ffn_dense(cfg: LMConfig, lp, h, route=None):
+    """Exact (lossless) MoE: every expert over every token, one-hot
+    combined, plus the shared expert (JAX's ``_moe_ffn`` without a mesh).
+    ``route(cfg, lp, xt)`` defaults to :func:`_route`."""
+    B, S, D = h.shape
+    x = _rmsnorm(h, lp["ln2"], cfg.norm_eps)
+    xt = x.reshape(B * S, D)
+    top_p, top_i = (route or _route)(cfg, lp, xt)
+    combine = torch.zeros(B * S, cfg.n_experts, dtype=torch.float32,
+                          device=h.device)
     for k in range(cfg.top_k):
         combine = combine + (F.one_hot(top_i[:, k], cfg.n_experts).float()
                              * top_p[:, k:k + 1])
@@ -374,11 +559,37 @@ def _moe_ffn_dense(cfg: LMConfig, lp, h):
         ye = (hid @ wd.to(cfg.dtype)).float()
         y = y + ye * combine[:, e:e + 1]
     y = y.reshape(B, S, D).to(cfg.dtype)
-    if cfg.n_shared_experts:
-        gate = F.silu(x @ lp["ws_gate"].to(cfg.dtype))
-        up = x @ lp["ws_up"].to(cfg.dtype)
-        y = y + (gate * up) @ lp["ws_down"].to(cfg.dtype)
-    return h + y
+    return h + _shared_experts(cfg, lp, x, y)
+
+
+def _moe_ffn_dispatched(cfg: LMConfig, lp, h, route=None):
+    """The same MoE, dropless, over the routed token-slots alone: the
+    ``(token, k)`` slots sorted by expert on the device (no host sync),
+    the held experts' gate, up and down projections as three grouped
+    products (:func:`repro_torch.kernels.grouped_mm.grouped_mm`) with SiLU
+    times up between, the rows put back in slot order and each token's
+    ``top_k`` rows summed with their weights in float32 (no atomics), then
+    the shared experts."""
+    from repro_torch.kernels.grouped_mm import grouped_mm
+
+    B, S, D = h.shape
+    x = _rmsnorm(h, lp["ln2"], cfg.norm_eps)
+    xt = x.reshape(B * S, D)
+    top_p, top_i = (route or _route)(cfg, lp, xt)
+    T, k = top_i.shape
+    flat = top_i.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.zeros(cfg.n_experts, dtype=torch.int32,
+                         device=h.device).index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))  # bincount syncs
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    rows = xt.index_select(0, order // k)
+    gate = grouped_mm(rows, lp["we_gate"].to(cfg.dtype), ends)
+    up = grouped_mm(rows, lp["we_up"].to(cfg.dtype), ends)
+    out = grouped_mm(F.silu(gate) * up, lp["we_down"].to(cfg.dtype), ends)
+    slots = torch.empty_like(out).index_copy_(0, order, out).view(T, k, D)
+    y = torch.bmm(top_p.unsqueeze(1), slots.float()).view(B, S, D)
+    return h + _shared_experts(cfg, lp, x, y.to(cfg.dtype))
 
 
 def _sub_kinds(cfg: LMConfig) -> List[str]:
@@ -389,16 +600,34 @@ def _sub_kinds(cfg: LMConfig) -> List[str]:
 
 
 def _ffn(cfg: LMConfig, kind: str, lp, h):
-    return _moe_ffn_dense(cfg, lp, h) if kind == "moe" else _dense_ffn(cfg, lp, h)
+    if kind != "moe":
+        return _dense_ffn(cfg, lp, h)
+    if cfg.moe_impl == "dispatched":
+        return _moe_ffn_dispatched(cfg, lp, h)
+    return _moe_ffn_dense(cfg, lp, h)
 
 
 def _unit_body(cfg: LMConfig, h, positions, unit_params, collect_kv=False):
-    """One unit: (step-1) dense layers then the MoE/dense layer."""
+    """One unit: (step-1) dense layers then the MoE/dense layer (a leading
+    dense layer is a unit of its own). The attention and MoE sublayers are
+    detail spans on the global recorder, ``lm.attention`` and ``lm.moe``."""
+    rec = get_recorder()
     entries = []
-    for kind in _sub_kinds(cfg):
-        h, e = _attention_block(cfg, unit_params[kind], h, positions)
-        entries.append(e)
-        h = _ffn(cfg, kind, unit_params[kind], h)
+    for kind in ("dense", "moe"):
+        if kind not in unit_params:
+            continue
+        lp = unit_params[kind]
+        with rec.span("lm.attention", detail=True):
+            if cfg.attention == "mla":
+                h = _mla_attention_block(cfg, lp, h, positions)
+            else:
+                h, e = _attention_block(cfg, lp, h, positions)
+                entries.append(e)
+        if kind == "moe":
+            with rec.span("lm.moe", detail=True):
+                h = _ffn(cfg, kind, lp, h)
+        else:
+            h = _ffn(cfg, kind, lp, h)
     return (h, entries) if collect_kv else h
 
 
@@ -439,6 +668,16 @@ def _embed(cfg: LMConfig, params: LMParams, tokens: torch.Tensor):
     return F.embedding(tokens.long(), params.embed).to(cfg.dtype)
 
 
+def hidden(cfg: LMConfig, params: LMParams, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    """tokens (B, S) -> the final normed hidden states (B, S, d_model)."""
+    S = tokens.shape[1]
+    h = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=h.device)
+    h = _run_units(cfg, _units(cfg, params), h, positions)
+    return _rmsnorm(h, params.ln_f, cfg.norm_eps)
+
+
 def forward(cfg: LMConfig, params: LMParams, tokens: torch.Tensor,
             mesh=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab). With ``mesh``: this
@@ -448,12 +687,25 @@ def forward(cfg: LMConfig, params: LMParams, tokens: torch.Tensor,
         from repro_torch.models.lm import sharded
 
         return sharded.forward(cfg, params, tokens, mesh)
-    S = tokens.shape[1]
-    h = _embed(cfg, params, tokens)
-    positions = torch.arange(S, device=h.device)
-    h = _run_units(cfg, _units(cfg, params), h, positions)
-    h = _rmsnorm(h, params.ln_f)
-    return h @ params.lm_head.to(cfg.dtype)
+    return hidden(cfg, params, tokens) @ params.lm_head.to(cfg.dtype)
+
+
+def next_token_logp(cfg: LMConfig, params: LMParams, h: torch.Tensor,
+                    tokens: torch.Tensor, block: int) -> torch.Tensor:
+    """``(B, S - 1)`` float32 log P of each next token ``tokens[:, 1:]``
+    from the final hidden states ``h`` (B, S, d_model): the head's logits
+    ``block`` rows at a time (the (B, S, vocab) logits never materialize),
+    a float32 log-softmax over the unpadded vocabulary."""
+    B, S, D = h.shape
+    rows = h[:, :-1].reshape(-1, D)
+    targets = tokens[:, 1:].reshape(-1, 1).long()
+    head = params.lm_head.to(cfg.dtype)
+    out = torch.empty(rows.shape[0], dtype=torch.float32, device=h.device)
+    for lo in range(0, rows.shape[0], block):
+        logits = (rows[lo:lo + block] @ head).float()[:, :cfg.vocab]
+        out[lo:lo + block] = (logits.gather(1, targets[lo:lo + block])[:, 0]
+                              - torch.logsumexp(logits, -1))
+    return out.view(B, S - 1)
 
 
 def _mask_padded_vocab(cfg: LMConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -501,6 +753,10 @@ def make_train_step(cfg: LMConfig, optimizer=None, mesh=None):
     the global rows ``[m B / M, (m + 1) B / M)`` (:mod:`.sharded`); every
     gradient comes out of the backward already summed over the ranks."""
     optimizer = optimizer or optim_lib.adamw(3e-4)
+    if cfg.moe_impl == "dispatched":
+        raise NotImplementedError(
+            f"the train step of {cfg.name}: the dispatched MoE is written "
+            "for scoring only")
     if mesh is None:
         loss_fn = functools.partial(lm_loss, cfg)
         split = _row_blocks
@@ -549,6 +805,7 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: Optional[int] = None,
     """A zero cache ``(U, sub, batch, max_seq, Hkv, Dh)``; with ``mesh``
     this rank's block of it: the batch over ``dp_axes`` (default the data
     axes), the sequence over ``cfg.decode_seq_axes``."""
+    single_device_only(cfg, "the KV cache")
     S = max_seq or cfg.max_seq
     dtype = dtype or cfg.dtype
     if mesh is not None:
@@ -567,6 +824,7 @@ def make_prefill_step(cfg: LMConfig, mesh=None, dp_axes=None):
     without a gradient; the (B, S, V) logits never materialize. With
     ``mesh``: this rank's rows, the cache in ``cache_specs``' placement
     (:func:`.sharded.make_prefill_step`)."""
+    single_device_only(cfg, "prefill")
     if mesh is not None:
         from repro_torch.models.lm import sharded
 
@@ -596,6 +854,7 @@ def make_decode_step(cfg: LMConfig, mesh=None, dp_axes=None):
     are written into ``cache`` in place (the same dict comes back). With
     ``mesh``: this rank's rows and cache block
     (:func:`.sharded.make_decode_step`)."""
+    single_device_only(cfg, "decode")
     if mesh is not None:
         from repro_torch.models.lm import sharded
 

@@ -168,7 +168,11 @@ def test_full_config_dims_match_assignment(arch):
     for k, default in SHARDED_ONLY.items():
         assert jf[k] == tf[k] == default, k
     assert {k: v for k, v in jf.items() if k not in dtypes} == \
-        {k: v for k, v in tf.items() if k not in dtypes}
+        {k: v for k, v in tf.items() if k not in dtypes and k in jf}
+    # the port's own fields (not in JAX's LMConfig) at their defaults
+    defaults = {f.name: f.default for f in dataclasses.fields(tcfg)}
+    assert {k: v for k, v in tf.items() if k not in jf} == \
+        {k: defaults[k] for k in tf if k not in jf}
     for k in dtypes:
         assert str(jf[k].dtype if hasattr(jf[k], "dtype") else jf[k]
                    ).split(".")[-1] in str(tf[k])

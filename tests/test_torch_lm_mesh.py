@@ -470,6 +470,13 @@ def test_param_and_cache_specs_match_jax(arch, shape, names):
             {k: _norm(v) for k, v in jc.items()}
 
 
+#: The port's own LMConfig fields, after JAX's, at their defaults.
+PORT_ONLY = {"attention": "gqa", "kv_lora_rank": 0, "qk_nope_head_dim": 0,
+             "qk_rope_head_dim": 0, "v_head_dim": 0, "router": "softmax",
+             "routed_scaling_factor": 1.0,
+             "first_k_dense": 0, "norm_eps": 1e-6, "moe_impl": "dense"}
+
+
 def test_config_has_jax_sharded_fields_and_defaults():
     import dataclasses
 
@@ -478,7 +485,11 @@ def test_config_has_jax_sharded_fields_and_defaults():
 
     jf = {f.name: f.default for f in dataclasses.fields(JCfg)}
     tf = {f.name: f.default for f in dataclasses.fields(TCfg)}
-    assert list(jf) == list(tf)
+    # JAX's fields first, in its order; then the port's own (MLA, the
+    # sigmoid router, leading dense layers, norm eps, the dispatched MoE),
+    # whose defaults are JAX's model
+    assert list(tf)[:len(jf)] == list(jf)
+    assert {k: tf[k] for k in list(tf)[len(jf):]} == PORT_ONLY
     for k in ("capacity_factor", "explicit_row_parallel", "flash_decode",
               "decode_seq_axes"):
         assert tf[k] == jf[k], k

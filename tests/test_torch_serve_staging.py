@@ -1,10 +1,11 @@
-"""``configs.clax_baidu.serve_bulk``'s pinned staging on the CPU: the pinned
-allocator stood in by plain tensors filled with a sentinel (so a byte no
-piece reaches shows) and the card's events by stand-ins that log their
-waits, injected as the model's staging. The pieces cover every byte; the
-answers equal the pageable route's to the bit, are the caller's own and
-outlive later calls; the counters count calls and one staging set a
-shape; a fill waits for the copies out of the set before it."""
+"""``configs.clax_baidu.serve_bulk``'s pinned staging (``data.staging``)
+on the CPU: the pinned allocator stood in by plain tensors filled with a
+sentinel (so a byte no piece reaches shows) and the card's events by
+stand-ins that log their waits, injected as the model's staging. The
+pieces cover every byte; the answers equal the pageable route's to the
+bit, are the caller's own and outlive later calls; the counters count
+calls and one staging set a shape; a fill waits for the copies out of the
+set before it."""
 import sys
 import threading
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch import core, obs
 from repro_torch.configs import clax_baidu
+from repro_torch.data import staging
 from repro_torch.configs.clax_baidu import serve_bulk
 
 K, PAIRS = 10, 500
@@ -47,7 +49,7 @@ class _Stand:
         return _Done(self.log)
 
     def staging(self):
-        return clax_baidu._PinnedStaging(pinned=self.pinned, mark=self.mark)
+        return staging.PinnedStaging(pinned=self.pinned, mark=self.mark)
 
 
 @pytest.fixture()
@@ -84,7 +86,7 @@ def _batch(rows, seed):
 def _pin(model):
     """Serve ``model`` through stood-in pinned staging; the stand."""
     stand = _Stand()
-    clax_baidu._STAGING[model] = stand.staging()
+    staging._STAGING[model] = stand.staging()
     return stand
 
 
@@ -96,7 +98,7 @@ def test_the_pieces_cover_every_byte(monkeypatch, rows, piece):
     """int32 and bool arrays, whether or not a piece divides them, in
     pieces larger than the batch or smaller than an element: the staging
     set and the device tensors hold every byte of the batch."""
-    monkeypatch.setattr(clax_baidu, "PIECE_BYTES", piece)
+    monkeypatch.setattr(staging, "PIECE_BYTES", piece)
     stand = _Stand()
     host = _batch(rows, seed=rows)
     inputs, allocated = stand.staging().copy_in(host, CPU)
@@ -111,7 +113,7 @@ def test_the_pieces_cover_every_byte(monkeypatch, rows, piece):
 
 def test_a_non_contiguous_batch_is_served_as_its_contiguous_copy(
         monkeypatch, recorder):
-    monkeypatch.setattr(clax_baidu, "PIECE_BYTES", 100)
+    monkeypatch.setattr(staging, "PIECE_BYTES", 100)
     model = _model()
     wide = _batch(96, seed=1)
     batch = {"positions": np.asfortranarray(wide["positions"][:48]),
@@ -126,7 +128,7 @@ def test_a_non_contiguous_batch_is_served_as_its_contiguous_copy(
 
 def test_an_answer_is_the_callers_own_and_outlives_later_calls(
         monkeypatch, recorder):
-    monkeypatch.setattr(clax_baidu, "PIECE_BYTES", 96)
+    monkeypatch.setattr(staging, "PIECE_BYTES", 96)
     model = _model()
     batches = [_batch(40, seed=s) for s in range(4)]
     want = [serve_bulk(model, b) for b in batches]
@@ -165,7 +167,7 @@ def test_counters_count_the_calls_and_one_staging_set_a_shape(recorder):
 def test_the_cpu_route_takes_no_staging(recorder):
     model = _model()
     serve_bulk(model, _batch(16, seed=0))
-    assert model not in clax_baidu._STAGING
+    assert model not in staging._STAGING
     assert set(recorder.detail_snapshot()) == {
         "serve_bulk.calls", "serve_bulk.sessions", "serve_bulk.bytes_in",
         "serve_bulk.bytes_out"}
@@ -177,7 +179,7 @@ def test_callers_on_threads_share_the_staging_set(monkeypatch, recorder):
     its batch's (a fill of one call between another's fill and copy would
     score the wrong sessions). Pieces of 4 bytes give the threads many
     places to interleave."""
-    monkeypatch.setattr(clax_baidu, "PIECE_BYTES", 4)
+    monkeypatch.setattr(staging, "PIECE_BYTES", 4)
     model = _model()
     batches = [_batch(32, seed=s) for s in range(8)]
     want = [serve_bulk(model, b) for b in batches]
